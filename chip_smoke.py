@@ -1,0 +1,478 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one H100.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure raises and exits non-zero:
+
+1. device  — a CUDA card of compute capability 9.0; prints its name and
+   power limit (``nvidia-smi``).
+2. build   — compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a
+   (one nvcc per source, in parallel) and prints ptxas' registers, shared
+   memory and spills per kernel.
+3. kernels — every CUDA kernel against its plain PyTorch version at the
+   shapes the serving path gives it, in fp32 (tolerance 2e-5) and bf16
+   (2e-2), with the kernel's time, its bound, the plain version's time and
+   a library call's time (CUDA events after warm-up).
+4. engine  — llama3.2-1b at full width and depth (random fp32 weights from
+   a seed, fp32 paged pool) served through ``repro_torch.serving.
+   DecodeEngine`` in batched and chunked prefill, once with the kernels and
+   once with the plain paths: greedy tokens must be identical, every request
+   complete, every page released, and the kernels' launch counts match the
+   decode steps and prefill calls of the kernel run.
+
+The last three lines: the card's name and power limit, one JSON object
+``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from dataclasses import replace
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+HERE = Path(__file__).resolve().parent
+DEV = "cuda"
+HBM_BYTES_S = 3.35e12                       # H100 SXM device memory
+PEAK = {torch.float32: 67e12,               # fp32 outside the tensor cores
+        torch.bfloat16: 989e12}             # bf16 tensor cores, dense
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of one call from CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# 1. device
+# ---------------------------------------------------------------------------
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        print("[device] torch.cuda.is_available() is False: no card",
+              file=sys.stderr)
+        sys.exit(2)
+    cap = torch.cuda.get_device_capability(0)
+    if cap != (9, 0):
+        fail(f"need compute capability 9.0 (Hopper), got {cap}")
+    # fp32 products stay full fp32 (no TF32) so the kernel paths can be
+    # held to the plain paths at fp32 tolerances
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)} sm_{cap[0]}{cap[1]} "
+          f"count={torch.cuda.device_count()} torch={torch.__version__} "
+          f"cuda={torch.version.cuda} | nvidia-smi: {smi}", flush=True)
+    return smi
+
+
+# ---------------------------------------------------------------------------
+# 2. build
+# ---------------------------------------------------------------------------
+
+def phase_build() -> None:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    res = build.build_all()
+    dt = time.perf_counter() - t0
+    print(f"[build] nvcc {' '.join(build.FLAGS)}: {len(res)} sources in "
+          f"{dt:.1f} s (" + ", ".join(f"{n} done at {r['seconds']:.1f} s"
+                                      for n, r in res.items()) + ")",
+          flush=True)
+    # both kernels take their shared memory dynamically (ptxas does not
+    # report it): 4-byte floats, at the main-path shapes (D=64, page 16,
+    # G=4 rows; flash: 64 query rows and 32-token K/V tiles)
+    print(f"[build] dynamic shared memory: paged_attention "
+          f"{4 * (4 * 64 + 16 * 65 + 16 * 64)} B, flash_attention "
+          f"{4 * (64 * 64 + 32 * 65 + 32 * 64)} B per block", flush=True)
+    for name, r in res.items():
+        for line in r["log"].splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build] {name}: {line.strip()}")
+    sys.stdout.flush()
+
+
+# ---------------------------------------------------------------------------
+# 3. kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _pool_case(rng, dev, dtype, B, KVH, G, D, page, W, *, ctx_max, qpos=1):
+    P = B * W + 1
+    q = torch.randn(B, KVH, G * qpos, D, device=dev).to(dtype)
+    kp = torch.randn(P, page, KVH, D, device=dev).to(dtype)
+    vp = torch.randn(P, page, KVH, D, device=dev).to(dtype)
+    bt = torch.from_numpy(rng.permutation(P)[:B * W].reshape(B, W)
+                          .astype(np.int32)).to(dev)
+    ctx = torch.from_numpy(rng.integers(1, ctx_max + 1, B)
+                           .astype(np.int32)).to(dev)
+    return q, kp, vp, bt, ctx
+
+
+def check_paged(rng, dtype, *, B=8, KVH=8, G=4, D=64, page=16, W=128,
+                ctx_max=2048, n_splits=1, window=0, ring_width=0,
+                windowed_slice=False, qpos=1, idle_row=False, time_it=False):
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels.ref import combine_partials
+    from repro_torch.kernels.backend import decode_hbm_bytes
+    dev = DEV
+    q, kp, vp, bt, ctx = _pool_case(rng, dev, dtype, B, KVH, G, D, page, W,
+                                    ctx_max=ctx_max, qpos=qpos)
+    if idle_row:                     # ctx 0, all -1 table: every split dead
+        bt[-1] = -1
+        ctx[-1] = 0
+    win = torch.full((B,), window, dtype=torch.int32, device=dev)
+    kw = dict(ring_width=ring_width, windowed_slice=windowed_slice,
+              n_splits=n_splits, qpos=qpos)
+
+    def kern():
+        return PA.paged_attention_partials(q, kp, vp, bt, ctx, window=win,
+                                           **kw)
+
+    def plain():
+        return PA.paged_attention_partials_plain(q, kp, vp, bt, ctx, win,
+                                                 **kw)
+
+    def merged(parts):
+        o, l, _ = combine_partials(*parts)
+        return o / l.clamp_min(1e-30)[..., None]
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    out_k, out_p = merged(got), merged(want)
+    if not torch.isfinite(out_k).all():
+        fail("paged_attention_partials: non-finite output")
+    if idle_row and not torch.all(out_k[-1] == 0):
+        fail("paged_attention_partials: idle row is not 0")
+    err = (out_k - out_p).abs().max().item()
+    lerr = ((got[1] - want[1]).abs() / want[1].abs().clamp_min(1)).max().item()
+    merr = (got[2] - want[2]).abs().max().item()
+    tol = TOL[dtype]
+    ok = err <= tol and lerr <= tol and merr <= tol
+    res = {"max_abs_err": err, "ok": ok}
+    if time_it:
+        res["ms"] = cuda_ms(kern)
+        res["plain_ms"] = cuda_ms(plain, iters=5)
+        esz = torch.finfo(dtype).bits // 8
+        S = max(1, min(n_splits, W))
+        live = float(ctx.sum().item())
+        nbytes = (decode_hbm_bytes(live, KVH, D, esz) + q.numel() * esz
+                  + S * B * KVH * G * qpos * (D + 2) * 4
+                  + bt.numel() * 4 + ctx.numel() * 4)
+        flops = 4.0 * KVH * G * qpos * D * live
+        res["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_S, flops / PEAK[dtype])
+        res["bound_by"] = ("bytes" if nbytes / HBM_BYTES_S
+                           >= flops / PEAK[dtype] else "operations")
+    return res
+
+
+def _causal_pairs(B, Sq, Skv, offs, window) -> float:
+    total = 0
+    for b in range(B):
+        pos = offs[b] + np.arange(Sq)
+        hi = np.minimum(pos, Skv - 1)
+        lo = np.maximum(0, pos - window + 1) if window else np.zeros_like(pos)
+        total += int(np.maximum(hi - lo + 1, 0).sum())
+    return float(total)
+
+
+def check_flash(dtype, *, B=2, Sq=1024, Skv=1024, H=32, KVH=8, D=64,
+                offs=(0, 0), window=0, time_it=False):
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_plain)
+    dev = DEV
+    q = torch.randn(B, Sq, H, D, device=dev).to(dtype)
+    k = torch.randn(B, Skv, KVH, D, device=dev).to(dtype)
+    v = torch.randn(B, Skv, KVH, D, device=dev).to(dtype)
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+
+    def kern():
+        return flash_attention_fwd(q, k, v, causal=True, window=window,
+                                   q_offset=off)
+
+    def plain():
+        return flash_attention_plain(q, k, v, causal=True, window=window,
+                                     q_offset=off)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail("flash_attention_fwd: non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    res = {"max_abs_err": err, "ok": err <= TOL[dtype]}
+    if time_it:
+        res["ms"] = cuda_ms(kern)
+        res["plain_ms"] = cuda_ms(plain, iters=5)
+        esz = torch.finfo(dtype).bits // 8
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
+        flops = 4.0 * H * D * _causal_pairs(B, Sq, Skv, offs, window)
+        res["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_S, flops / PEAK[dtype])
+        res["bound_by"] = ("bytes" if nbytes / HBM_BYTES_S
+                           >= flops / PEAK[dtype] else "operations")
+        if not any(offs) and not window and Sq == Skv:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            res["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+    return res
+
+
+def phase_kernels() -> dict:
+    torch.manual_seed(0)
+    rng = np.random.default_rng(0)
+    cases, main = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for name, kw in (
+                ("main n_splits=1", dict(n_splits=1, time_it=True)),
+                ("main n_splits=4", dict(n_splits=4, time_it=True)),
+                ("window=100", dict(window=100, ctx_max=512, W=32)),
+                ("ring_width=8", dict(ring_width=8, ctx_max=400, W=8)),
+                ("windowed_slice", dict(window=100, windowed_slice=True,
+                                        ctx_max=512, W=8, n_splits=2)),
+                ("qpos=4", dict(qpos=4, ctx_max=500, W=32, n_splits=3)),
+                ("idle row", dict(idle_row=True, ctx_max=300, W=32,
+                                  n_splits=4))):
+            r = check_paged(rng, dtype, **kw)
+            cases.append(("paged_attention", tag, name, r))
+            if tag == "fp32" and name == "main n_splits=4":
+                main["paged_attention"] = r
+        for name, kw in (
+                ("main Sq=1024", dict(time_it=True)),
+                ("q_offset=[0,512] Skv=1536", dict(offs=(0, 512), Skv=1536,
+                                                   time_it=True)),
+                ("window=256", dict(window=256)),
+                ("ragged Sq=1000", dict(Sq=1000, Skv=1000))):
+            r = check_flash(dtype, **kw)
+            cases.append(("flash_attention", tag, name, r))
+            if tag == "fp32" and name == "main Sq=1024":
+                main["flash_attention"] = r
+    bad = []
+    for kern, tag, name, r in cases:
+        line = (f"[kernels] {kern} {tag} {name}: max_abs_err="
+                f"{r['max_abs_err']:.3e} {'ok' if r['ok'] else 'FAIL'}")
+        if "ms" in r:
+            line += (f" ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                     f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
+                     f"library_ms={r.get('library_ms', 'none')}")
+        print(line, flush=True)
+        if not r["ok"]:
+            bad.append(f"{kern} {tag} {name}")
+    status = {k: ("fail" if any(b.startswith(k) for b in bad) else "ok")
+              for k in ("paged_attention", "flash_attention")}
+    print("[kernels] " + json.dumps({k: {
+        "status": status[k], "max_abs_err": max(
+            r["max_abs_err"] for kk, t, _, r in cases
+            if kk == k and t == "fp32"),
+        "max_abs_err_bf16": max(r["max_abs_err"] for kk, t, _, r in cases
+                                if kk == k and t == "bf16"),
+        "launches": "counted on the engine run below"}
+        for k in status}), flush=True)
+    if bad:
+        fail("kernels disagree with their plain versions: " + ", ".join(bad))
+    return main
+
+
+# ---------------------------------------------------------------------------
+# 4. full-width engine
+# ---------------------------------------------------------------------------
+
+def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
+          prompts):
+    from repro_torch.serving import DecodeEngine, EngineConfig, Request
+    ecfg = EngineConfig(n_slots=8, page_size=16, n_pages=1024,
+                        max_context=1280, eos_token=-1, prefill_mode=mode,
+                        prefill_chunk=chunk, decode_horizon=horizon,
+                        kernel_splits=splits, use_kernels=use_kernels)
+    eng = DecodeEngine(cfg, ecfg, params, device=DEV)
+    for i, p in enumerate(prompts[:n_req]):
+        eng.submit(Request(i, p, 32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run(100_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.batcher.stats
+    bal = eng.alloc.shard_balance()
+    tm = eng.timing
+    ttft = [eng.first_tok_t[r] - eng.submit_t[r] for r in out]
+    m = {"completed": st.completed, "n": n_req,
+         "bal_max": int(bal.max()), "bal_min": int(bal.min()),
+         "tokens": sum(len(v) for v in out.values()), "wall_s": wall,
+         "ttft_mean_ms": 1e3 * float(np.mean(ttft)),
+         "ttft_max_ms": 1e3 * float(np.max(ttft)),
+         "decode_steps": tm.decode_steps, "prefill_calls": tm.prefill_calls,
+         "decode_tokens": tm.decode_tokens, "device_syncs": tm.device_syncs,
+         "decode_s": tm.decode_s, "prefill_s": tm.prefill_s}
+    del eng
+    torch.cuda.empty_cache()
+    return {k: list(v) for k, v in out.items()}, m
+
+
+def phase_engine(smi: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.paged_attention import paged_attention_partials
+    from repro_torch.models.model import init_params, param_count_actual
+    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    torch.cuda.synchronize()
+    n = param_count_actual(params)
+    print(f"[engine] {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_head={cfg.d_head} "
+          f"vocab={cfg.vocab_size} params={n} fp32 "
+          f"({4 * n / 2**30:.2f} GiB) init {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n_tok))
+               for n_tok in rng.integers(256, 1025, 8)]
+    # first use of each matmul shape, allocator growth: paid here, unreported
+    serve(cfg, params, use_kernels=None, prompts=prompts, mode="batched",
+          horizon=4, splits=4, n_req=2, chunk=32)
+    launches = {}
+    for label, kw in (("batched", dict(mode="batched", horizon=4, splits=4,
+                                       n_req=8, chunk=32)),
+                      ("chunked", dict(mode="chunked", horizon=1, splits=4,
+                                       n_req=4, chunk=128))):
+        paged_attention_partials.launches = 0
+        flash_attention_fwd.launches = 0
+        out_k, mk = serve(cfg, params, use_kernels=None, prompts=prompts,
+                          **kw)
+        la = {"paged_attention": paged_attention_partials.launches,
+              "flash_attention": flash_attention_fwd.launches}
+        out_p, mp = serve(cfg, params, use_kernels=False, prompts=prompts,
+                          **kw)
+        if la["paged_attention"] != paged_attention_partials.launches or \
+                la["flash_attention"] != flash_attention_fwd.launches:
+            fail("the plain-path engine launched a kernel")
+        for lbl, m in (("kernels", mk), ("plain", mp)):
+            dec = m["decode_tokens"]
+            print(f"[engine] {label} {lbl}: completed={m['completed']}/"
+                  f"{m['n']} page balance max={m['bal_max']} "
+                  f"min={m['bal_min']} tokens={m['tokens']} "
+                  f"wall={m['wall_s']:.3f} s "
+                  f"tok/s={m['tokens'] / m['wall_s']:.1f} "
+                  f"decode tok/s={dec / max(m['decode_s'], 1e-9):.1f} "
+                  f"ttft mean/max={m['ttft_mean_ms']:.1f}/"
+                  f"{m['ttft_max_ms']:.1f} ms decode step "
+                  f"ms={1e3 * m['decode_s'] / max(1, m['decode_steps']):.2f}"
+                  f" syncs/token={m['device_syncs'] / max(1, dec):.4f} "
+                  f"decode_steps={m['decode_steps']} "
+                  f"prefill_calls={m['prefill_calls']} | {smi}", flush=True)
+        L = cfg.n_layers
+        print(f"[engine] {label} launches: paged_attention="
+              f"{la['paged_attention']} (decode steps {mk['decode_steps']} x "
+              f"{L}) flash_attention={la['flash_attention']} (prefill calls "
+              f"{mk['prefill_calls']} x {L})", flush=True)
+        if out_k != out_p:
+            diff = [r for r in out_k if out_k[r] != out_p[r]]
+            fail(f"{label}: greedy tokens differ between the kernel and "
+                 f"plain engines for requests {diff}")
+        for lbl, m in (("kernels", mk), ("plain", mp)):
+            if m["completed"] != m["n"] or m["bal_max"] or m["bal_min"]:
+                fail(f"{label} {lbl}: completed {m['completed']}/{m['n']}, "
+                     f"page balance {m['bal_max']}/{m['bal_min']}")
+        if la["paged_attention"] != mk["decode_steps"] * L or \
+                la["flash_attention"] != mk["prefill_calls"] * L or \
+                not la["paged_attention"] or not la["flash_attention"]:
+            fail(f"{label}: kernel launches {la} do not match the main path")
+        print(f"[engine] {label}: greedy tokens identical (kernels vs plain) "
+              f"for {len(out_k)} requests", flush=True)
+        for k, v in la.items():
+            launches[k] = launches.get(k, 0) + v
+    phase_profile(cfg, params, prompts, smi)
+    return launches
+
+
+def phase_profile(cfg, params, prompts, smi: str) -> None:
+    """Where the time goes: engine (a) with the kernels under
+    torch.profiler — device busy time against wall time, and the kernels
+    that take it."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, m = serve(cfg, params, use_kernels=None, prompts=prompts,
+                     mode="batched", horizon=4, splits=4, n_req=8, chunk=32)
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    from torch.autograd import DeviceType
+    ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not ka:
+        print("[profile] the profiler recorded no device kernels; device "
+              "time not measured", flush=True)
+        return
+    busy = sum(dev_us(e) for e in ka) / 1e3
+    wall = 1e3 * m["wall_s"]
+    print(f"[profile] batched kernels under torch.profiler: wall={wall:.1f} "
+          f"ms device busy={busy:.1f} ms idle share="
+          f"{1 - busy / wall:.3f} (prefill {1e3 * m['prefill_s']:.1f} ms, "
+          f"decode {1e3 * m['decode_s']:.1f} ms) | {smi}", flush=True)
+    for e in sorted(ka, key=dev_us, reverse=True)[:12]:
+        print(f"[profile] {dev_us(e) / 1e3:9.3f} ms {e.count:6d} calls "
+              f"{e.key[:90]}")
+    sys.stdout.flush()
+
+
+def main() -> int:
+    smi = phase_device()
+    sys.path.insert(0, str(HERE / "src"))
+    phase_build()
+    main_cases = phase_kernels()
+    launches = phase_engine(smi)
+    meta = {
+        "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:130"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:77"),
+    }
+    kernels = []
+    for name, (src, replaces) in meta.items():
+        r = main_cases[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r.get("library_ms")})
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,51 @@
+"""Kernel dispatch for the model, and the decode write-target resolution.
+
+Port of the parts of ``repro/kernels/ops.py`` this slice runs:
+
+* ``write_targets`` — per-step Va2Pa write-target resolution, bit-exact
+  with the JAX version; idle / frozen slots target page ``n_pages``, the
+  pool's trash page (see ``core/paged_kv.py``), so their write lands where
+  nothing reads it;
+* ``attention_fwd`` — prefill attention: the flash-attention kernel
+  wrapper (CUDA kernel on a card, plain version on CPU tensors) unless the
+  ``KernelConfig`` asks for the plain path.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.backend import KernelConfig
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.models.layers import flash_attention
+
+
+def write_targets(block_table, ctx, run, *, page_size: int, n_pages: int,
+                  ring_width: int = 0):
+    """Resolve the KV write target for each slot's incoming token.
+
+    ``block_table`` [B, W] int32 Va2Pa; ``ctx`` [B] context INCLUDING the
+    incoming token; ``run`` [B] bool — slots decoding this step. Inactive /
+    frozen slots target page ``n_pages`` (the trash page). Returns
+    (npage [B], noff [B]) int32.
+    """
+    B, W = block_table.shape
+    t = (ctx.to(torch.int32) - 1).clamp_min(0)
+    vp = t // page_size
+    if ring_width:
+        vp = vp % ring_width
+    rows = torch.arange(B, device=block_table.device)
+    npage = block_table[rows, vp.clamp_max(W - 1).long()]
+    npage = torch.where(run, npage, n_pages).to(torch.int32)
+    noff = torch.where(run, t % page_size, 0).to(torch.int32)
+    return npage, noff
+
+
+def attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                  q_offset=0, kernels: KernelConfig | None = None):
+    """Forward attention for prefill: [B,S,H,D] x [B,Skv,KVH,D] -> [B,S,H,D].
+    ``kernels=None`` or ``use_kernels=False`` is the plain path."""
+    if kernels is not None and kernels.enabled:
+        return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)

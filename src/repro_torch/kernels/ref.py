@@ -1,0 +1,77 @@
+"""Plain PyTorch oracles for the decode kernels (ports of
+``repro/kernels/ref.py``): the ground truth the tests hold both packages to."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _gather_tokens(pages, block_tables):
+    """[P, page, KVH, D] pool, [B, W] table -> [B, W*page, KVH, D] fp32
+    (-1 entries read page 0; callers mask them by context)."""
+    B, W = block_tables.shape
+    safe = block_tables.clamp_min(0).long()
+    page = pages.shape[1]
+    return pages[safe].reshape(B, W * page, *pages.shape[2:]).float()
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens):
+    """Decode attention over a paged pool.
+
+    q [B, KVH, G, D]; k_pages/v_pages [P, page, KVH, D];
+    block_tables [B, maxp]; ctx_lens [B] (valid tokens incl. current).
+    Returns [B, KVH, G, D] fp32.
+    """
+    D = q.shape[-1]
+    k = _gather_tokens(k_pages, block_tables)
+    v = _gather_tokens(v_pages, block_tables)
+    s = torch.einsum("bkgd,btkd->bkgt", q.float(), k) / math.sqrt(D)
+    tok = torch.arange(k.shape[1], device=q.device)[None]
+    ok = tok < ctx_lens.long()[:, None]
+    s = torch.where(ok[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgt,btkd->bkgd", p, v)
+
+
+def paged_attention_verify_ref(q, k_pages, v_pages, block_tables, ctx_lens,
+                               window=None):
+    """Multi-query verify attention over a paged pool (speculative decode).
+
+    q [B, KVH, G, T, D] — T consecutive query positions per slot, query t
+    sitting at position ``ctx - 1 + t``; ctx_lens [B] counts tokens
+    INCLUDING the first query token, so query t attends to tok < ctx + t
+    (and >= ctx + t - window when windowed). Returns [B, KVH, G, T, D] fp32.
+    """
+    B, KVH, G, T, D = q.shape
+    k = _gather_tokens(k_pages, block_tables)
+    v = _gather_tokens(v_pages, block_tables)
+    s = torch.einsum("bkgqd,btkd->bkgqt", q.float(), k) / math.sqrt(D)
+    tok = torch.arange(k.shape[1], device=q.device)[None, None]
+    hi = (ctx_lens.long()[:, None, None]
+          + torch.arange(T, device=q.device)[None, :, None])
+    ok = tok < hi                                        # [B, T, W*page]
+    if window is not None:
+        w = torch.as_tensor(window, dtype=torch.long, device=q.device)
+        w = w.reshape(-1).expand(B)[:, None, None]
+        ok = ok & torch.where(w > 0, tok >= hi - w, True)
+    s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqt,btkd->bkgqd", p, v)
+
+
+def combine_partials(o, l, m):
+    """Merge the leading split axis of (o, l, m) partials WITHOUT
+    normalizing — the result is itself a valid partial (associativity of
+    the EPU aggregation)."""
+    mg = m.amax(0)
+    c = torch.exp(m - mg[None])
+    return (o * c[..., None]).sum(0), (l * c).sum(0), mg
+
+
+def merge_flash_partials(o, l, m):
+    """(S,...) partials -> merged attention output (log-sum-exp merge)."""
+    og, lg, _ = combine_partials(o, l, m)
+    return og / lg.clamp_min(1e-30)[..., None]
