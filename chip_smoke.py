@@ -11,15 +11,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (one nvcc per source, in parallel) and prints ptxas' registers, shared
    memory and spills per kernel.
 3. kernels — every CUDA kernel against its plain PyTorch version at the
-   shapes the serving path gives it, in fp32 (tolerance 2e-5) and bf16
-   (2e-2), with the kernel's time, its bound, the plain version's time and
-   a library call's time (CUDA events after warm-up).
-4. engine  — llama3.2-1b at full width and depth (random fp32 weights from
-   a seed, fp32 paged pool) served through ``repro_torch.serving.
-   DecodeEngine`` in batched and chunked prefill, once with the kernels and
-   once with the plain paths: greedy tokens must be identical, every request
-   complete, every page released, and the kernels' launch counts match the
-   decode steps and prefill calls of the kernel run.
+   shapes the serving paths give it (llama3.2-1b and zamba2-1.2b), in fp32
+   and with bf16 inputs, with the kernel's time, its bound, the plain
+   version's time and a library call's time where one exists (CUDA events
+   after warm-up). Tolerances: attention fp32 2e-5 and bf16 2e-2 absolute
+   (reduction order; bf16 rounding of the probabilities); the Mamba2 scan
+   2e-5 of the output's largest magnitude for both input types (fp32
+   arithmetic on both sides — bf16 inputs are upcast exactly — so only the
+   reduction order differs, and the sums reach magnitudes of ~100).
+4. engine  — llama3.2-1b and zamba2-1.2b at full width and depth (random
+   fp32 weights from a seed, fp32 paged pool) served through
+   ``repro_torch.serving.DecodeEngine`` in batched and chunked prefill,
+   once with the kernels and once with the plain paths: greedy tokens must
+   be identical (a first divergence whose plain-path logit gap is below
+   1e-5 is a near tie, ROADMAP C.3: printed, not a fault), every request
+   complete, every page released, and each kernel's launch count equal to
+   what the run's decode steps and prefill calls imply.
+5. profile — each model's batched configuration under ``torch.profiler``:
+   device busy time against wall time, and the kernels that take it.
 
 The last three lines: the card's name and power limit, one JSON object
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -43,6 +52,8 @@ HBM_BYTES_S = 3.35e12                       # H100 SXM device memory
 PEAK = {torch.float32: 67e12,               # fp32 outside the tensor cores
         torch.bfloat16: 989e12}             # bf16 tensor cores, dense
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSM_TOL = 2e-5                              # of the largest magnitude
+TIE_GAP = 1e-5                              # ROADMAP C.3 near-tie rule
 
 
 def fail(msg: str) -> None:
@@ -109,12 +120,17 @@ def phase_build() -> None:
           f"{dt:.1f} s (" + ", ".join(f"{n} done at {r['seconds']:.1f} s"
                                       for n, r in res.items()) + ")",
           flush=True)
-    # both kernels take their shared memory dynamically (ptxas does not
+    # the kernels take their shared memory dynamically (ptxas does not
     # report it): 4-byte floats, at the main-path shapes (D=64, page 16,
-    # G=4 rows; flash: 64 query rows and 32-token K/V tiles)
+    # G=4 rows; flash: 64 query rows and 32-token K/V tiles; ssm_scan:
+    # N=P=64 at chunk 128 and at decode's chunk 1)
+    from repro_torch.kernels.ssm_scan import _lib as ssm_lib
+    smem = ssm_lib().ssm_chunk_scan_smem
     print(f"[build] dynamic shared memory: paged_attention "
           f"{4 * (4 * 64 + 16 * 65 + 16 * 64)} B, flash_attention "
-          f"{4 * (64 * 64 + 32 * 65 + 32 * 64)} B per block", flush=True)
+          f"{4 * (64 * 64 + 32 * 65 + 32 * 64)} B, ssm_scan "
+          f"{smem(64, 64, 128)} B (chunk 128) / {smem(64, 64, 1)} B "
+          f"(chunk 1) per block", flush=True)
     for name, r in res.items():
         for line in r["log"].splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
@@ -245,6 +261,65 @@ def check_flash(dtype, *, B=2, Sq=1024, Skv=1024, H=32, KVH=8, D=64,
     return res
 
 
+def check_ssm(dtype, *, B=8, S=1024, H=64, N=64, P=64, chunk=128,
+              masked=False, time_it=False):
+    """K4 against its plain version on Mamba2-like inputs: q/k shared by
+    every head (stride-0 views, as ``mamba_forward`` passes them), decays
+    -softplus(z), a non-zero carried (C, n) state."""
+    from repro_torch.kernels.ssm_scan import (ssm_chunk_scan,
+                                              ssm_chunk_scan_plain)
+    from repro_torch.models.ssm import mask_log_gates_tail
+    g = torch.Generator(device=DEV).manual_seed(S + B)
+
+    def f(*shape):
+        return torch.randn(shape, generator=g, device=DEV)
+    q, k = (f(B, S, 1, N).to(dtype).expand(B, S, H, N) for _ in "qk")
+    v = f(B, S, H, P).to(dtype)
+    la, lg = -F.softplus(f(B, S, H)), f(B, S, H) * 0.1
+    st = (f(B, H, N, P) * 0.3, f(B, H, N) * 0.3)
+    vl = (torch.randint(1, S + 1, (B,), generator=g, device=DEV)
+          if masked else None)
+    ma, mg = (la, lg) if vl is None else mask_log_gates_tail(la, lg, vl)
+
+    def kern():
+        return ssm_chunk_scan(q, k, v, la, lg, chunk=chunk, state=st,
+                              valid_len=vl)
+
+    def plain():
+        return ssm_chunk_scan_plain(q, k, v, ma, mg, chunk=chunk, state=st)
+
+    (y, (C, n)), (yp, (Cp, np_)) = kern(), plain()
+    torch.cuda.synchronize()
+    if not (torch.isfinite(y).all() and torch.isfinite(C).all()
+            and torch.isfinite(n).all()):
+        fail("ssm_chunk_scan: non-finite output")
+    if vl is not None:          # pad rows of y are garbage by contract
+        live = torch.arange(S, device=DEV)[None] < vl[:, None]
+        y, yp = y[live], yp[live]
+    err = max((a - b).abs().max().item()
+              for a, b in ((y, yp), (C, Cp), (n, np_)))
+    rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1)).item()
+              for a, b in ((y, yp), (C, Cp), (n, np_)))
+    res = {"max_abs_err": err, "max_rel_err": rel, "ok": rel <= SSM_TOL}
+    if time_it:
+        res["ms"] = cuda_ms(kern)
+        res["plain_ms"] = cuda_ms(plain, iters=5)
+        esz = torch.finfo(dtype).bits // 8
+        # each input read once (q/k hold B*S*N values: one row shared by
+        # the heads), y and the state written once
+        nbytes = (esz * (2 * B * S * N + B * S * H * P) + 4 * 2 * B * S * H
+                  + 4 * 2 * (B * H * N * P + B * H * N) + 4 * B * S * H * P)
+        # per chunk and (b, h): q k^T and S v on the causal half, q C and
+        # k^T v in full; fp32 arithmetic for either input type
+        c = min(chunk, S)
+        flops = B * H * (S // c) * (c * (c + 1) * (N + P) + 4 * c * N * P)
+        fp32 = PEAK[torch.float32]
+        res["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_S, flops / fp32)
+        res["bound_by"] = ("bytes" if nbytes / HBM_BYTES_S >= flops / fp32
+                           else "operations")
+    return res
+
+
 def phase_kernels() -> dict:
     torch.manual_seed(0)
     rng = np.random.default_rng(0)
@@ -265,8 +340,13 @@ def phase_kernels() -> dict:
             cases.append(("paged_attention", tag, name, r))
             if tag == "fp32" and name == "main n_splits=4":
                 main["paged_attention"] = r
+        r = check_paged(rng, dtype, KVH=32, G=1, W=81, ctx_max=1056,
+                        n_splits=4, time_it=True)
+        cases.append(("paged_attention", tag,
+                      "zamba2 G=1 KVH=32 n_splits=4", r))
         for name, kw in (
                 ("main Sq=1024", dict(time_it=True)),
+                ("zamba2 H=KVH=32 Sq=1024", dict(KVH=32, time_it=True)),
                 ("q_offset=[0,512] Skv=1536", dict(offs=(0, 512), Skv=1536,
                                                    time_it=True)),
                 ("window=256", dict(window=256)),
@@ -275,10 +355,24 @@ def phase_kernels() -> dict:
             cases.append(("flash_attention", tag, name, r))
             if tag == "fp32" and name == "main Sq=1024":
                 main["flash_attention"] = r
+        for name, kw in (
+                ("zamba2 prefill B=8 S=1024 chunk=128",
+                 dict(time_it=True)),
+                ("zamba2 decode B=8 S=1 chunk=1",
+                 dict(S=1, chunk=1, time_it=True)),
+                ("chunked-prefill S=128 chunk=128", dict(S=128)),
+                ("valid_len tail S=1024 chunk=128", dict(masked=True))):
+            r = check_ssm(dtype, **kw)
+            cases.append(("ssm_scan", tag, name, r))
+            if tag == "fp32" and name.startswith("zamba2 prefill"):
+                main["ssm_scan"] = r
     bad = []
     for kern, tag, name, r in cases:
         line = (f"[kernels] {kern} {tag} {name}: max_abs_err="
-                f"{r['max_abs_err']:.3e} {'ok' if r['ok'] else 'FAIL'}")
+                f"{r['max_abs_err']:.3e}")
+        if "max_rel_err" in r:
+            line += f" max_rel_err={r['max_rel_err']:.3e}"
+        line += " ok" if r["ok"] else " FAIL"
         if "ms" in r:
             line += (f" ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                      f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
@@ -287,7 +381,7 @@ def phase_kernels() -> dict:
         if not r["ok"]:
             bad.append(f"{kern} {tag} {name}")
     status = {k: ("fail" if any(b.startswith(k) for b in bad) else "ok")
-              for k in ("paged_attention", "flash_attention")}
+              for k in ("paged_attention", "flash_attention", "ssm_scan")}
     print("[kernels] " + json.dumps({k: {
         "status": status[k], "max_abs_err": max(
             r["max_abs_err"] for kk, t, _, r in cases
@@ -306,12 +400,13 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
-          prompts):
+          prompts, max_prefill=64):
     from repro_torch.serving import DecodeEngine, EngineConfig, Request
     ecfg = EngineConfig(n_slots=8, page_size=16, n_pages=1024,
                         max_context=1280, eos_token=-1, prefill_mode=mode,
                         prefill_chunk=chunk, decode_horizon=horizon,
-                        kernel_splits=splits, use_kernels=use_kernels)
+                        kernel_splits=splits, use_kernels=use_kernels,
+                        max_prefill=max_prefill)
     eng = DecodeEngine(cfg, ecfg, params, device=DEV)
     for i, p in enumerate(prompts[:n_req]):
         eng.submit(Request(i, p, 32))
@@ -337,12 +432,79 @@ def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
     return {k: list(v) for k, v in out.items()}, m
 
 
-def phase_engine(smi: str) -> dict:
-    from repro_torch.configs import get_config
+def _kernel_fns():
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.paged_attention import paged_attention_partials
+    from repro_torch.kernels.ssm_scan import ssm_chunk_scan
+    return {"paged_attention": paged_attention_partials,
+            "flash_attention": flash_attention_fwd,
+            "ssm_scan": ssm_chunk_scan}
+
+
+def expected_launches(cfg, m) -> dict:
+    """Launches the main path implies: one paged-decode launch per
+    attention layer and decode step, one flash launch per attention layer
+    and prefill call, one scan launch per Mamba2 layer and call of
+    either."""
+    kinds = cfg.block_kinds()
+    n_attn = sum(1 for k in kinds if k in ("attn", "local"))
+    n_mamba = sum(1 for k in kinds if k == "mamba")
+    return {"paged_attention": n_attn * m["decode_steps"],
+            "flash_attention": n_attn * m["prefill_calls"],
+            "ssm_scan": n_mamba * (m["decode_steps"] + m["prefill_calls"])}
+
+
+def near_tie_gap(cfg, params, seq) -> float:
+    """Top-1 minus top-2 logit of the plain-path model after ``seq``."""
+    from repro_torch.core.paged_kv import PoolSpec
+    from repro_torch.models import model as MDL
+    from repro_torch.kernels.backend import KernelConfig
+    n_attn = sum(1 for k in cfg.block_kinds() if k in ("attn", "local"))
+    W = -(-len(seq) // 16)
+    spec = PoolSpec(max(n_attn, 1), W, 16, cfg.n_kv_heads, cfg.d_head, W,
+                    dtype="float32")
+    state = MDL.init_decode_state(cfg, spec, 1, device=DEV)
+    tok = torch.tensor(np.asarray(seq, np.int32)[None], device=DEV)
+    bt = torch.arange(W, dtype=torch.int32, device=DEV)[None]
+    logits, _ = MDL.prefill(cfg, params, state, tok, bt, rt=MDL.Runtime(
+        kernels=KernelConfig(use_kernels=False)))
+    top = logits[0, :cfg.vocab_size].topk(2).values
+    return float(top[0] - top[1])
+
+
+def compare_tokens(label, cfg, params, prompts, out_k, out_p) -> None:
+    """Greedy tokens of the kernel and plain engines must agree; a first
+    divergence whose plain-path logit gap is below ``TIE_GAP`` is a near
+    tie (ROADMAP C.3) and is printed, anything else fails."""
+    faults = []
+    for r in sorted(out_k):
+        a, b = out_k[r], out_p[r]
+        if a == b:
+            continue
+        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        gap = near_tie_gap(cfg, params, list(prompts[r]) + b[:t])
+        print(f"[engine] {label}: request {r} diverges at step {t} "
+              f"(kernels {a[t:t + 1]} vs plain {b[t:t + 1]}), plain-path "
+              f"logit gap {gap:.3e}"
+              + (" - a near tie" if gap < TIE_GAP else " - a fault"),
+              flush=True)
+        if gap >= TIE_GAP:
+            faults.append(r)
+    if faults:
+        fail(f"{label}: greedy tokens differ between the kernel and plain "
+             f"engines for requests {faults}")
+    print(f"[engine] {label}: greedy tokens identical (kernels vs plain) "
+          f"for {sum(out_k[r] == out_p[r] for r in out_k)}/{len(out_k)} "
+          f"requests", flush=True)
+
+
+def run_arch(arch: str, smi: str, launches: dict, **serve_kw) -> None:
+    """Serve ``arch`` at full width in batched and chunked prefill, kernels
+    and plain, then profile the batched configuration."""
+    from repro_torch.configs import get_config
     from repro_torch.models.model import init_params, param_count_actual
-    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    cfg = replace(get_config(arch), dtype="float32")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
     torch.cuda.synchronize()
@@ -355,25 +517,24 @@ def phase_engine(smi: str) -> dict:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, int(n_tok))
                for n_tok in rng.integers(256, 1025, 8)]
+    fns = _kernel_fns()
     # first use of each matmul shape, allocator growth: paid here, unreported
     serve(cfg, params, use_kernels=None, prompts=prompts, mode="batched",
-          horizon=4, splits=4, n_req=2, chunk=32)
-    launches = {}
+          horizon=4, splits=4, n_req=2, chunk=32, **serve_kw)
     for label, kw in (("batched", dict(mode="batched", horizon=4, splits=4,
                                        n_req=8, chunk=32)),
                       ("chunked", dict(mode="chunked", horizon=1, splits=4,
                                        n_req=4, chunk=128))):
-        paged_attention_partials.launches = 0
-        flash_attention_fwd.launches = 0
+        label = f"{arch} {label}"
+        for fn in fns.values():
+            fn.launches = 0
         out_k, mk = serve(cfg, params, use_kernels=None, prompts=prompts,
-                          **kw)
-        la = {"paged_attention": paged_attention_partials.launches,
-              "flash_attention": flash_attention_fwd.launches}
+                          **kw, **serve_kw)
+        la = {k: fn.launches for k, fn in fns.items()}
         out_p, mp = serve(cfg, params, use_kernels=False, prompts=prompts,
-                          **kw)
-        if la["paged_attention"] != paged_attention_partials.launches or \
-                la["flash_attention"] != flash_attention_fwd.launches:
-            fail("the plain-path engine launched a kernel")
+                          **kw, **serve_kw)
+        if any(fn.launches != la[k] for k, fn in fns.items()):
+            fail(f"{label}: the plain-path engine launched a kernel")
         for lbl, m in (("kernels", mk), ("plain", mp)):
             dec = m["decode_tokens"]
             print(f"[engine] {label} {lbl}: completed={m['completed']}/"
@@ -388,40 +549,45 @@ def phase_engine(smi: str) -> dict:
                   f" syncs/token={m['device_syncs'] / max(1, dec):.4f} "
                   f"decode_steps={m['decode_steps']} "
                   f"prefill_calls={m['prefill_calls']} | {smi}", flush=True)
-        L = cfg.n_layers
-        print(f"[engine] {label} launches: paged_attention="
-              f"{la['paged_attention']} (decode steps {mk['decode_steps']} x "
-              f"{L}) flash_attention={la['flash_attention']} (prefill calls "
-              f"{mk['prefill_calls']} x {L})", flush=True)
-        if out_k != out_p:
-            diff = [r for r in out_k if out_k[r] != out_p[r]]
-            fail(f"{label}: greedy tokens differ between the kernel and "
-                 f"plain engines for requests {diff}")
+        want = expected_launches(cfg, mk)
+        print(f"[engine] {label} launches: " + " ".join(
+            f"{k}={la[k]} (expected {want[k]})" for k in la)
+            + f" for decode steps {mk['decode_steps']}, prefill calls "
+            f"{mk['prefill_calls']}", flush=True)
+        compare_tokens(label, cfg, params, prompts, out_k, out_p)
         for lbl, m in (("kernels", mk), ("plain", mp)):
             if m["completed"] != m["n"] or m["bal_max"] or m["bal_min"]:
                 fail(f"{label} {lbl}: completed {m['completed']}/{m['n']}, "
                      f"page balance {m['bal_max']}/{m['bal_min']}")
-        if la["paged_attention"] != mk["decode_steps"] * L or \
-                la["flash_attention"] != mk["prefill_calls"] * L or \
-                not la["paged_attention"] or not la["flash_attention"]:
-            fail(f"{label}: kernel launches {la} do not match the main path")
-        print(f"[engine] {label}: greedy tokens identical (kernels vs plain) "
-              f"for {len(out_k)} requests", flush=True)
+        if la != want or not all(la[k] for k in la if want[k]):
+            fail(f"{label}: kernel launches {la} do not match the main "
+                 f"path's {want}")
         for k, v in la.items():
             launches[k] = launches.get(k, 0) + v
-    phase_profile(cfg, params, prompts, smi)
+    phase_profile(cfg, params, prompts, smi, serve_kw)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_engine(smi: str) -> dict:
+    launches: dict = {}
+    run_arch("llama3.2-1b", smi, launches)
+    # pow2 prefill buckets (256/512/1024): the Mamba2 scan runs at chunk
+    # 128 in every bucket
+    run_arch("zamba2-1.2b", smi, launches, max_prefill=1024)
     return launches
 
 
-def phase_profile(cfg, params, prompts, smi: str) -> None:
-    """Where the time goes: engine (a) with the kernels under
-    torch.profiler — device busy time against wall time, and the kernels
-    that take it."""
+def phase_profile(cfg, params, prompts, smi: str, serve_kw) -> None:
+    """Where the time goes: the batched configuration with the kernels
+    under torch.profiler — device busy time against wall time, and the
+    kernels that take it."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, m = serve(cfg, params, use_kernels=None, prompts=prompts,
-                     mode="batched", horizon=4, splits=4, n_req=8, chunk=32)
+                     mode="batched", horizon=4, splits=4, n_req=8, chunk=32,
+                     **serve_kw)
 
     def dev_us(e):
         return (getattr(e, "self_device_time_total", None)
@@ -430,18 +596,18 @@ def phase_profile(cfg, params, prompts, smi: str) -> None:
     from torch.autograd import DeviceType
     ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not ka:
-        print("[profile] the profiler recorded no device kernels; device "
-              "time not measured", flush=True)
+        print(f"[profile] {cfg.name}: the profiler recorded no device "
+              "kernels; device time not measured", flush=True)
         return
     busy = sum(dev_us(e) for e in ka) / 1e3
     wall = 1e3 * m["wall_s"]
-    print(f"[profile] batched kernels under torch.profiler: wall={wall:.1f} "
-          f"ms device busy={busy:.1f} ms idle share="
+    print(f"[profile] {cfg.name} batched kernels under torch.profiler: "
+          f"wall={wall:.1f} ms device busy={busy:.1f} ms idle share="
           f"{1 - busy / wall:.3f} (prefill {1e3 * m['prefill_s']:.1f} ms, "
           f"decode {1e3 * m['decode_s']:.1f} ms) | {smi}", flush=True)
     for e in sorted(ka, key=dev_us, reverse=True)[:12]:
-        print(f"[profile] {dev_us(e) / 1e3:9.3f} ms {e.count:6d} calls "
-              f"{e.key[:90]}")
+        print(f"[profile] {cfg.name} {dev_us(e) / 1e3:9.3f} ms "
+              f"{e.count:6d} calls {e.key[:90]}")
     sys.stdout.flush()
 
 
@@ -456,6 +622,8 @@ def main() -> int:
                             "src/repro/kernels/paged_attention.py:130"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:77"),
+        "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan.py:73"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():

@@ -8,7 +8,9 @@ Port of the parts of ``repro/kernels/ops.py`` this slice runs:
   nothing reads it;
 * ``attention_fwd`` — prefill attention: the flash-attention kernel
   wrapper (CUDA kernel on a card, plain version on CPU tensors) unless the
-  ``KernelConfig`` asks for the plain path.
+  ``KernelConfig`` asks for the plain path;
+* ``mamba_mixer`` — the Mamba2 scan: the chunk-scan kernel wrapper under
+  the same rule, ``models.ssm.chunked_gla`` on the plain path.
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ import torch
 
 from repro_torch.kernels.backend import KernelConfig
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.ssm_scan import ssm_chunk_scan
 from repro_torch.models.layers import flash_attention
+from repro_torch.models.ssm import chunked_gla, mask_log_gates_tail
 
 
 def write_targets(block_table, ctx, run, *, page_size: int, n_pages: int,
@@ -49,3 +53,25 @@ def attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                                    q_offset=q_offset)
     return flash_attention(q, k, v, causal=causal, window=window,
                            q_offset=q_offset)
+
+
+def mamba_mixer(q, k, v, log_a, log_g, *, chunk: int = 128, state=None,
+                valid_len=None, kernels: KernelConfig | None = None):
+    """Chunked selective scan -> (y [B,S,H,P] fp32, (C, n, m)).
+
+    ``state`` = (C [B,H,N,P], n [B,H,N], m [B,H]) resumes a sequence at a
+    chunk boundary (None = fresh); ``m`` passes through unchanged, as in
+    ``chunked_gla(normalize=False)``. ``valid_len`` [B] masks
+    length-bucketed end-padding out of the returned state. ``kernels=None``
+    or ``use_kernels=False`` is the plain path."""
+    if valid_len is not None:
+        log_a, log_g = mask_log_gates_tail(log_a, log_g, valid_len)
+    if kernels is not None and kernels.enabled:
+        y, (C, n) = ssm_chunk_scan(q, k, v, log_a, log_g, chunk=chunk,
+                                   state=None if state is None
+                                   else state[:2])
+        m = (torch.zeros(C.shape[:2], dtype=torch.float32, device=C.device)
+             if state is None else state[2])
+        return y, (C, n, m)
+    return chunked_gla(q, k, v, log_a, log_g, chunk=chunk, normalize=False,
+                       state=state)

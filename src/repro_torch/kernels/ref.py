@@ -1,5 +1,5 @@
-"""Plain PyTorch oracles for the decode kernels (ports of
-``repro/kernels/ref.py``): the ground truth the tests hold both packages to."""
+"""Plain PyTorch oracles for the kernels (ports of ``repro/kernels/ref.py``):
+the ground truth the tests hold both packages to."""
 from __future__ import annotations
 
 import math
@@ -75,3 +75,11 @@ def merge_flash_partials(o, l, m):
     """(S,...) partials -> merged attention output (log-sum-exp merge)."""
     og, lg, _ = combine_partials(o, l, m)
     return og / lg.clamp_min(1e-30)[..., None]
+
+
+def ssm_chunk_scan_ref(q, k, v, log_a, log_g, h0, chunk: int):
+    """Chunked GLA oracle — wraps ``models.ssm.chunked_gla`` with
+    normalize=False. ``h0`` = (C, n, m) or None."""
+    from repro_torch.models.ssm import chunked_gla
+    return chunked_gla(q, k, v, log_a, log_g, chunk=chunk, normalize=False,
+                       state=h0)

@@ -6,7 +6,9 @@ paged cache over a LongBench-like request trace.
 
 runs a reduced config (d_model 64) on the CPU; on a card (the default
 device), ``--full-width`` serves the configuration at its published widths
-and depth with random weights from a seed. Prompts are random token ids
+and depth with random weights from a seed. ``--arch`` picks
+``llama3.2-1b`` (default) or the Mamba2 + shared-attention hybrid
+``zamba2-1.2b``. Prompts are random token ids
 whose lengths follow the task's LongBench distribution, scaled into
 ``--max-context``. The run ends with ``completed=N/N`` and the page
 balance (``max=0 min=0`` once every page is released).

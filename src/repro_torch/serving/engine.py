@@ -1,10 +1,11 @@
 """Decode engine: tick = schedule -> prefill -> fused decode horizon.
 
 Port of the fused multi-step path of ``repro/serving/engine.py`` for
-greedy serving of attention-only stacks. The host loop mirrors the paper's
-Fig. 2(c): each tick the host updates the "configuration buffer" (block
-tables, context lengths) and dispatches decode work; finished requests
-release their pages and their slots refill from the queue.
+greedy serving of attention-only stacks and the zamba2 hybrid. The host
+loop mirrors the paper's Fig. 2(c): each tick the host updates the
+"configuration buffer" (block tables, context lengths) and dispatches
+decode work; finished requests release their pages and their slots refill
+from the queue.
 
 * scheduling — ``core.scheduler.ContinuousBatcher`` (a framework-free copy)
   with a pluggable admission policy (``serving.policies``);
@@ -22,10 +23,18 @@ at the start of the next tick, in ONE readback of ``(toks, emit, fin)`` —
 the only host<->device rendezvous of decode, counted in
 ``EngineTiming.device_syncs``.
 
+Recurrent rows (hybrids): the Mamba2 carry of each slot lives in the
+decode state as ``[L, n_slots, ...]`` rows. Admission resets a slot's rows
+to zero; group prefill gathers the group's rows, runs, and scatters them
+back; the decode horizon's ``run`` mask keeps idle, paused and
+mid-chunk-prefill rows unchanged.
+
 Not ported yet (ROADMAP queue A): speculative decode, the prefix cache and
 host tier, telemetry, fault injection, serving snapshots, cluster roles,
-stochastic sampling and the per-token ``step()`` API. Their config fields
-keep their defaults; setting one raises.
+stochastic sampling, the per-token ``step()`` API and preemption snapshots
+of the recurrent carry (``state_resume``: a preempted hybrid request
+recomputes, JAX's ``state_resume=False`` path). Their config fields keep
+the port's defaults; setting another value raises.
 """
 from __future__ import annotations
 
@@ -52,7 +61,7 @@ from repro_torch.serving.sampling import make_sampler, make_scan_sampler
 _UNPORTED = {"sampler": "greedy", "draft_config": None,
              "prefix_cache": False, "host_pages": 0, "telemetry": None,
              "faults": None, "snapshot_dir": None, "snapshot_every": 0,
-             "role": "both"}
+             "role": "both", "state_resume": False}
 
 
 @dataclass
@@ -91,6 +100,9 @@ class EngineConfig:
     snapshot_dir: str | None = None
     snapshot_every: int = 0
     role: str = "both"
+    # preemption snapshots of the recurrent carry (ROADMAP A.7); JAX's
+    # default is True, the port recomputes (ROADMAP C.4)
+    state_resume: bool = False
 
     def __post_init__(self):
         for f in fields(self):
@@ -166,8 +178,9 @@ class DecodeEngine:
                              f"engine on {self.device}")
         self.params = params
         maxp = -(-ecfg.max_context // ecfg.page_size) + 1
+        n_attn = sum(k in ("attn", "local") for k in cfg.block_kinds())
         self.pool_spec = PoolSpec(
-            cfg.n_layers, ecfg.n_pages, ecfg.page_size, cfg.n_kv_heads,
+            max(n_attn, 1), ecfg.n_pages, ecfg.page_size, cfg.n_kv_heads,
             cfg.d_head, maxp, dtype="float32")
         static_pages = maxp if ecfg.static_alloc else None
         self.alloc = PageAllocator(
@@ -180,6 +193,10 @@ class DecodeEngine:
             bt_width=maxp)
         self.state = MDL.init_decode_state(cfg, self.pool_spec, ecfg.n_slots,
                                            device=self.device)
+        # recurrent per-slot rows ([L, n_slots, ...] leaves of self.state)
+        self.has_rstate = bool(MDL.rstate_entries(self.state))
+        self._zero_rows = (MDL.init_rstate(cfg, 1, device=self.device)
+                           if self.has_rstate else None)
         self.tokens = np.zeros((ecfg.n_slots,), np.int32)
         self.prompts: dict[int, np.ndarray] = {}
         self.outputs: dict[int, list[int]] = {}
@@ -254,6 +271,36 @@ class DecodeEngine:
         else:
             self.tokens[slot] = self.outputs[req.req_id][-1]
         self.batcher.dirty.add(slot)
+
+    # ---- recurrent rows: reset at admission, group gather / scatter ----
+    def _begin_prefill_group(self, admitted) -> None:
+        """Reset the admitted slots' recurrent rows to zero in ONE scatter
+        (a row may still hold a freed request's carry), so group prefill
+        gathers a clean carry."""
+        if not (self.has_rstate and admitted):
+            return
+        slots = [slot for slot, _ in admitted]
+        MDL.scatter_rstate(self.state, slots, MDL.tree_map(
+            lambda z: z.expand(z.shape[0], len(slots), *z.shape[2:]),
+            self._zero_rows))
+
+    def _group_prefill_state(self, slots: list[int]) -> dict:
+        """State for a group prefill call: the shared pool plus the group's
+        recurrent rows gathered from the engine state (zeroed by
+        ``_begin_prefill_group``, or mid-stream carries for chunked
+        prefill)."""
+        gs: dict[str, Any] = {}
+        if "pool" in self.state:
+            gs["pool"] = self.state["pool"]
+        if self.has_rstate:
+            gs.update(MDL.gather_rstate(self.state, slots))
+        return gs
+
+    def _merge_group_state(self, slots: list[int], gstate: dict) -> None:
+        """Fold a group prefill's result back: the pool was written in
+        place; scatter the group's recurrent rows into their slots."""
+        if self.has_rstate:
+            MDL.scatter_rstate(self.state, slots, MDL.rstate_entries(gstate))
 
     def _first_tokens(self, logits, emits) -> np.ndarray:
         """Sample the first token for a prefill group in ONE batched call

@@ -1,9 +1,11 @@
 """Prefill strategies for the serving engine.
 
-Port of ``repro/serving/prefill.py`` for attention-only stacks:
+Port of ``repro/serving/prefill.py`` for attention-only stacks and the
+zamba2 hybrid:
 
 * ``slot`` — one batch-1 ``prefill`` per admitted request (the recompute
-  reference path);
+  reference path); a hybrid's prefill starts from fresh rows and its
+  result is merged into the slot's rows;
 * ``batched`` — length-bucketed batched prefill: the requests admitted in a
   tick are grouped into padded-length buckets, one ``prefill`` call per
   bucket (``last_idx`` picks each request's true last position,
@@ -11,6 +13,10 @@ Port of ``repro/serving/prefill.py`` for attention-only stacks:
 * ``chunked`` — DCS-style interleave: prompts are cut into fixed-size
   chunks and ONE batched ``prefill_chunk`` call per engine tick covers
   every prefilling slot (vector ``ctx_start``), between decode steps.
+
+Batched and chunked prefill reset the admitted slots' recurrent rows
+(``engine._begin_prefill_group``) and thread the group's rows through each
+call as an explicit carry (gather -> prefill -> scatter).
 
 ``max_horizon`` is the cap a prefiller puts on the fused decode horizon
 this tick: chunked prefill caps it to 1 while chunks stream. Resumes at a
@@ -75,10 +81,16 @@ class SlotPrefiller:
             req.generated = 1          # prefill emits the first token
             prompt, emit = eng._prompt_seq(req)
             bt = eng.batcher.block_table_row(slot)
+            state1 = {"pool": eng.state["pool"]}
+            if eng.has_rstate:
+                state1.update(MDL.init_rstate(eng.cfg, 1, device=eng.device))
             eng.timing.prefill_calls += 1
-            logits, _ = MDL.prefill(
-                eng.cfg, eng.params, eng.state, eng._tensor(prompt[None]),
+            logits, state1 = MDL.prefill(
+                eng.cfg, eng.params, state1, eng._tensor(prompt[None]),
                 eng._tensor(np.asarray(bt)[None]), rt=eng.rt)
+            if eng.has_rstate:
+                MDL.scatter_rstate(eng.state, [slot],
+                                   MDL.rstate_entries(state1))
             eng._emit_first(slot, req,
                             int(eng._first_tokens(logits[:1], [emit])[0]),
                             emit)
@@ -103,6 +115,7 @@ class BatchedPrefiller:
     def run(self, admitted, active):
         eng = self.eng
         groups: dict[int, list] = {}
+        eng._begin_prefill_group(admitted)
         for slot, req in admitted:
             _fresh(req)
             seq, emit = eng._prompt_seq(req)
@@ -115,13 +128,16 @@ class BatchedPrefiller:
             for i, (_, _, seq, _) in enumerate(grp):
                 toks[i, :len(seq)] = seq
                 lens[i] = len(seq)
+            slots = [slot for slot, *_ in grp]
             bts = np.stack([eng.batcher.block_table_row(slot)
-                            for slot, *_ in grp])
+                            for slot in slots])
             eng.timing.prefill_calls += 1
-            logits, _ = MDL.prefill(
-                eng.cfg, eng.params, eng.state, eng._tensor(toks),
-                eng._tensor(bts), last_idx=eng._tensor(lens - 1),
-                valid_len=eng._tensor(lens), rt=eng.rt)
+            logits, gstate = MDL.prefill(
+                eng.cfg, eng.params, eng._group_prefill_state(slots),
+                eng._tensor(toks), eng._tensor(bts),
+                last_idx=eng._tensor(lens - 1), valid_len=eng._tensor(lens),
+                rt=eng.rt)
+            eng._merge_group_state(slots, gstate)
             first = eng._first_tokens(logits, [e for *_, e in grp])
             for i, (slot, req, _, emit) in enumerate(grp):
                 req.generated = 1
@@ -152,6 +168,7 @@ class ChunkedPrefiller:
 
     def run(self, admitted, active):
         eng = self.eng
+        eng._begin_prefill_group(admitted)
         for slot, req in admitted:
             _fresh(req)
             self._pos[slot] = 0
@@ -184,11 +201,12 @@ class ChunkedPrefiller:
             # table slice tracks the deepest cursor, not the full prompts
             bts = _group_tables(eng, slots, int((starts + lens).max()))
             eng.timing.prefill_calls += 1
-            logits, _ = MDL.prefill_chunk(
-                eng.cfg, eng.params, eng.state, eng._tensor(toks),
-                eng._tensor(bts), eng._tensor(starts),
+            logits, gstate = MDL.prefill_chunk(
+                eng.cfg, eng.params, eng._group_prefill_state(slots),
+                eng._tensor(toks), eng._tensor(bts), eng._tensor(starts),
                 last_idx=eng._tensor(lens - 1), valid_len=eng._tensor(lens),
                 rt=eng.rt)
+            eng._merge_group_state(slots, gstate)
             fin = [(i, slot, req, emit)
                    for i, (slot, req, prompt, emit, valid) in enumerate(grp)
                    if starts[i] + valid >= len(prompt)]

@@ -77,3 +77,100 @@ def test_flash_kernel_matches_plain(dtype, Sq, Skv, offs, window):
     want = flash_attention_plain(q, k, v, window=window, q_offset=off)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+def _scan_case(gen, dtype, B, S, H, N, P, *, state=True, bcast=True):
+    """Mamba2-like scan inputs on the card: q/k shared by every head
+    (stride-0 views, as ``mamba_forward`` passes them) unless ``bcast`` is
+    False, decays -softplus(z), gains ~1."""
+    f = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    if bcast:
+        q, k = (f(B, S, 1, N).to(dtype).expand(B, S, H, N) for _ in "qk")
+    else:
+        q, k = f(B, S, H, N).to(dtype), f(B, S, H, N).to(dtype)
+    v = f(B, S, H, P).to(dtype)
+    la = -torch.nn.functional.softplus(f(B, S, H))
+    lg = f(B, S, H) * 0.1
+    st = (f(B, H, N, P) * 0.3, f(B, H, N) * 0.3) if state else None
+    return q, k, v, la, lg, st
+
+
+def _scaled_gap(got, want):
+    """max |got - want| over the scale of ``want`` (the two sum fp32
+    products in different orders; bf16 inputs are upcast exactly on both
+    sides, so one tolerance serves both input types)."""
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1.0)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,N,P,chunk,bcast", [
+    (2, 32, 3, 8, 16, 8, False),        # small, dense heads
+    (3, 1, 5, 8, 16, 1, True),          # decode: S = chunk = 1
+    (2, 48, 4, 16, 8, 16, True),
+    (8, 1024, 64, 64, 64, 128, True),   # the zamba2 prefill shape
+])
+def test_ssm_kernel_matches_plain(dtype, B, S, H, N, P, chunk, bcast):
+    _card()
+    from repro_torch.kernels.ssm_scan import (ssm_chunk_scan,
+                                              ssm_chunk_scan_plain)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, la, lg, st = _scan_case(g, dtype, B, S, H, N, P, bcast=bcast)
+    vl = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    vl[0] = max(1, S - 5)                   # a masked tail on row 0
+    y, (C, n) = ssm_chunk_scan(q, k, v, la, lg, chunk=chunk, state=st,
+                               valid_len=vl)
+    from repro_torch.models.ssm import mask_log_gates_tail
+    ma, mg = mask_log_gates_tail(la, lg, vl)
+    yp, (Cp, np_) = ssm_chunk_scan_plain(q, k, v, ma, mg, chunk=chunk,
+                                         state=st)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(C).all()
+    for got, want in ((y[1:], yp[1:]), (y[0, :int(vl[0])],
+                                        yp[0, :int(vl[0])]),
+                      (C, Cp), (n, np_)):
+        assert _scaled_gap(got, want) <= 2e-5
+
+
+@pytest.mark.gpu
+def test_ssm_cuda_tensor_launches_kernel_never_plain(monkeypatch):
+    _card()
+    from repro_torch.kernels import ssm_scan as K
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.kernels.ops import mamba_mixer
+
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(K, "ssm_chunk_scan_plain", boom)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, la, lg, st = _scan_case(g, torch.float32, 2, 16, 4, 8, 8)
+    before = K.ssm_chunk_scan.launches
+    K.ssm_chunk_scan(q, k, v, la, lg, chunk=8, state=st)
+    mamba_mixer(q, k, v, la, lg, chunk=8, kernels=KernelConfig())
+    torch.cuda.synchronize()
+    assert K.ssm_chunk_scan.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_ssm_kernel_raises_off_hopper_or_unbuilt(monkeypatch, tmp_path):
+    _card()
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssm_scan as K
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, la, lg, _ = _scan_case(g, torch.float32, 1, 8, 2, 8, 8,
+                                    state=False)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "get_device_capability", lambda *a: (8, 0))
+        with pytest.raises(RuntimeError, match="sm_90a"):
+            K.ssm_chunk_scan(q, k, v, la, lg, chunk=8)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "nvcc_path", no_nvcc)
+    before = K.ssm_chunk_scan.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        K.ssm_chunk_scan(q, k, v, la, lg, chunk=8)
+    assert K.ssm_chunk_scan.launches == before
