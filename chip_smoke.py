@@ -19,7 +19,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    2e-5 of the output's largest magnitude for both input types (fp32
    arithmetic on both sides — bf16 inputs are upcast exactly — so only the
    reduction order differs, and the sums reach magnitudes of ~100).
-4. engine  — llama3.2-1b and zamba2-1.2b at full width and depth (random
+   K3 (ITPP split-K flash decode) at the kernel bench's shape, at a tail
+   split with dead splits and a ctx = 0 row, and at llama3.2-1b's decode
+   geometry over 32768 tokens, with ``F.scaled_dot_product_attention`` as
+   its library yardstick (it gives the MERGED output, not the partials);
+   K1 also at 256-token pages with D 128 and at the bench's decode-step
+   shape (ctx 262144, ``n_splits`` 1 and 64).
+4. bench   — ``python -m repro_torch.launch.kernel_bench`` at full size,
+   in-process: its asserts must hold and each kernel's launch count must
+   equal the calls the bench made of its wrapper (K3 launches only here).
+5. engine  — llama3.2-1b and zamba2-1.2b at full width and depth (random
    fp32 weights from a seed, fp32 paged pool) served through
    ``repro_torch.serving.DecodeEngine`` in batched and chunked prefill,
    once with the kernels and once with the plain paths: greedy tokens must
@@ -27,8 +36,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    1e-5 is a near tie, ROADMAP C.3: printed, not a fault), every request
    complete, every page released, and each kernel's launch count equal to
    what the run's decode steps and prefill calls imply.
-5. profile — each model's batched configuration under ``torch.profiler``:
+6. profile — each model's batched configuration under ``torch.profiler``:
    device busy time against wall time, and the kernels that take it.
+
+``python3 chip_smoke.py --paged-times SRC`` only times K1 of the package
+under ``SRC`` at the engine's page-16 shapes (to compare two K1 versions
+in one call).
 
 The last three lines: the card's name and power limit, one JSON object
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -121,13 +134,18 @@ def phase_build() -> None:
                                       for n, r in res.items()) + ")",
           flush=True)
     # the kernels take their shared memory dynamically (ptxas does not
-    # report it): 4-byte floats, at the main-path shapes (D=64, page 16,
-    # G=4 rows; flash: 64 query rows and 32-token K/V tiles; ssm_scan:
-    # N=P=64 at chunk 128 and at decode's chunk 1)
+    # report it), at the main-path shapes: paged_attention G=4 rows at D 64
+    # and D 128 (64-token sub-tiles whatever the page size); flash_decode
+    # G=4 at D 128 and 64; flash_attention 64 query rows and 32-token K/V
+    # tiles; ssm_scan N=P=64 at chunk 128 and at decode's chunk 1
+    from repro_torch.kernels.flash_decode import _lib as fd_lib
+    from repro_torch.kernels.paged_attention import _lib as pa_lib
     from repro_torch.kernels.ssm_scan import _lib as ssm_lib
     smem = ssm_lib().ssm_chunk_scan_smem
-    print(f"[build] dynamic shared memory: paged_attention "
-          f"{4 * (4 * 64 + 16 * 65 + 16 * 64)} B, flash_attention "
+    pa, fd = pa_lib().paged_attention_smem, fd_lib().flash_decode_smem
+    print(f"[build] dynamic shared memory: paged_attention {pa(4, 64)} B "
+          f"(D 64) / {pa(4, 128)} B (D 128), flash_decode {fd(4, 128)} B "
+          f"(D 128) / {fd(4, 64)} B (D 64), flash_attention "
           f"{4 * (64 * 64 + 32 * 65 + 32 * 64)} B, ssm_scan "
           f"{smem(64, 64, 128)} B (chunk 128) / {smem(64, 64, 1)} B "
           f"(chunk 1) per block", flush=True)
@@ -142,27 +160,30 @@ def phase_build() -> None:
 # 3. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _pool_case(rng, dev, dtype, B, KVH, G, D, page, W, *, ctx_max, qpos=1):
+def _pool_case(rng, dev, dtype, B, KVH, G, D, page, W, *, ctx_max, qpos=1,
+               ctx_fixed=None):
     P = B * W + 1
     q = torch.randn(B, KVH, G * qpos, D, device=dev).to(dtype)
     kp = torch.randn(P, page, KVH, D, device=dev).to(dtype)
     vp = torch.randn(P, page, KVH, D, device=dev).to(dtype)
     bt = torch.from_numpy(rng.permutation(P)[:B * W].reshape(B, W)
                           .astype(np.int32)).to(dev)
-    ctx = torch.from_numpy(rng.integers(1, ctx_max + 1, B)
-                           .astype(np.int32)).to(dev)
-    return q, kp, vp, bt, ctx
+    ctx = (rng.integers(1, ctx_max + 1, B) if ctx_fixed is None
+           else np.full(B, ctx_fixed))
+    return q, kp, vp, bt, torch.from_numpy(ctx.astype(np.int32)).to(dev)
 
 
 def check_paged(rng, dtype, *, B=8, KVH=8, G=4, D=64, page=16, W=128,
                 ctx_max=2048, n_splits=1, window=0, ring_width=0,
-                windowed_slice=False, qpos=1, idle_row=False, time_it=False):
+                windowed_slice=False, qpos=1, idle_row=False, time_it=False,
+                ctx_fixed=None):
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels.ref import combine_partials
     from repro_torch.kernels.backend import decode_hbm_bytes
     dev = DEV
     q, kp, vp, bt, ctx = _pool_case(rng, dev, dtype, B, KVH, G, D, page, W,
-                                    ctx_max=ctx_max, qpos=qpos)
+                                    ctx_max=ctx_max, qpos=qpos,
+                                    ctx_fixed=ctx_fixed)
     if idle_row:                     # ctx 0, all -1 table: every split dead
         bt[-1] = -1
         ctx[-1] = 0
@@ -320,6 +341,72 @@ def check_ssm(dtype, *, B=8, S=1024, H=64, N=64, P=64, chunk=128,
     return res
 
 
+def check_flash_decode(dtype, *, B, KVH, G, D, T, S, ctx, time_it=False):
+    """K3 against its plain version on the same partials: the merged
+    output, l (relative to max(|l|, 1)) and m; dead splits must hold the
+    exact sentinel (m = -1e30, l = 0, o = 0) and a ctx = 0 row must merge
+    to 0. Timed cases add the bound by live bytes and, as ``library_ms``,
+    one ``F.scaled_dot_product_attention`` call on the same tensors, which
+    gives the MERGED output (GQA, boolean length mask)."""
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.kernels.ref import merge_flash_partials
+    from repro_torch.launch.kernel_bench import attention_bound_us
+    g = torch.Generator(device=DEV).manual_seed(T + S)
+    q = torch.randn(B, KVH, G, D, generator=g, device=DEV).to(dtype)
+    k = torch.randn(B, T, KVH, D, generator=g, device=DEV).to(dtype)
+    v = torch.randn(B, T, KVH, D, generator=g, device=DEV).to(dtype)
+    c = torch.tensor(ctx, dtype=torch.int32, device=DEV)
+
+    def kern():
+        return flash_decode(q, k, v, c, n_splits=S)
+
+    def plain():
+        return flash_decode_plain(q, k, v, c, n_splits=S)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    out_k, out_p = merge_flash_partials(*got), merge_flash_partials(*want)
+    if not torch.isfinite(out_k).all():
+        fail("flash_decode: non-finite merged output")
+    dead = (torch.arange(S, device=DEV)[:, None] * -(-T // S)
+            >= c.clamp_max(T)[None])                          # [S, B]
+    if not (torch.all(got[2][dead] == -1e30) and torch.all(got[1][dead] == 0)
+            and torch.all(got[0][dead] == 0)):
+        fail("flash_decode: a dead split is not m=-1e30, l=0, o=0")
+    if not torch.all(out_k[c == 0] == 0):
+        fail("flash_decode: a ctx = 0 row does not merge to 0")
+    err = (out_k - out_p).abs().max().item()
+    lerr = ((got[1] - want[1]).abs() / want[1].abs().clamp_min(1)).max().item()
+    merr = (got[2] - want[2]).abs().max().item()
+    tol = TOL[dtype]
+    res = {"max_abs_err": err, "ok": err <= tol and lerr <= tol
+           and merr <= tol, "dead_splits": int(dead.sum()) * KVH}
+    if time_it:
+        res["ms"] = cuda_ms(kern)
+        res["plain_ms"] = cuda_ms(plain, iters=5)
+        esz = torch.finfo(dtype).bits // 8
+        live = float(c.clamp_max(T).sum())
+        res["bound_ms"] = 1e-3 * attention_bound_us(live, q, S, esz,
+                                                    4 * B)
+        flops = 4.0 * KVH * G * D * live
+        nbytes = 2.0 * live * KVH * D * esz
+        res["bound_by"] = ("bytes" if nbytes / HBM_BYTES_S
+                           >= flops / PEAK[torch.float32] else "operations")
+        qt = q.reshape(B, KVH * G, 1, D)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(T, device=DEV)[None] < c[:, None].long()
+                )[:, None, None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        res["library_ms"] = cuda_ms(sdpa)
+        lib_err = (sdpa().float().reshape(out_k.shape) - out_k).abs().max()
+        res["library_err"] = lib_err.item()
+    return res
+
+
 def phase_kernels() -> dict:
     torch.manual_seed(0)
     rng = np.random.default_rng(0)
@@ -344,6 +431,39 @@ def phase_kernels() -> dict:
                         n_splits=4, time_it=True)
         cases.append(("paged_attention", tag,
                       "zamba2 G=1 KVH=32 n_splits=4", r))
+        for name, kw in (
+                ("page256 D128 B4 KVH2 G4 W8 (bench)",
+                 dict(B=4, KVH=2, G=4, D=128, page=256, W=8, ctx_max=2048,
+                      time_it=True)),
+                ("page256 D128 n_splits=3", dict(B=4, KVH=2, G=4, D=128,
+                                                 page=256, W=8, ctx_max=2048,
+                                                 n_splits=3))):
+            r = check_paged(rng, dtype, **kw)
+            cases.append(("paged_attention", tag, name, r))
+        if tag == "fp32":
+            # the bench's decode-step shape at ctx 262144: a measurement
+            # of the split count (B x KVH = 2 blocks at n_splits 1)
+            for S in (1, 64):
+                r = check_paged(rng, dtype, B=2, KVH=1, G=4, D=32, page=256,
+                                W=1025, ctx_max=0, ctx_fixed=262144,
+                                n_splits=S, time_it=True)
+                cases.append(("paged_attention", tag,
+                              f"decode-step ctx=262144 n_splits={S}", r))
+        for name, kw in (
+                ("bench B4 KVH2 G4 D128 T4001 S8",
+                 dict(B=4, KVH=2, G=4, D=128, T=4001, S=8,
+                      ctx=[4001, 100, 222, 64], time_it=True)),
+                ("tail/dead/ctx=0 B4 KVH2 G4 D64 T1001 S8",
+                 dict(B=4, KVH=2, G=4, D=64, T=1001, S=8,
+                      ctx=[0, 130, 1001, 5000])),
+                ("llama decode B8 KVH8 G4 D64 T32768 S16",
+                 dict(B=8, KVH=8, G=4, D=64, T=32768, S=16,
+                      ctx=[int(x) for x in np.linspace(8192, 32768, 8)],
+                      time_it=True))):
+            r = check_flash_decode(dtype, **kw)
+            cases.append(("flash_decode", tag, name, r))
+            if tag == "fp32" and name.startswith("bench"):
+                main["flash_decode"] = r
         for name, kw in (
                 ("main Sq=1024", dict(time_it=True)),
                 ("zamba2 H=KVH=32 Sq=1024", dict(KVH=32, time_it=True)),
@@ -377,18 +497,25 @@ def phase_kernels() -> dict:
             line += (f" ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                      f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
                      f"library_ms={r.get('library_ms', 'none')}")
+            if "library_err" in r:
+                line += (" (library: scaled_dot_product_attention, merged "
+                         f"output; its max_abs_err {r['library_err']:.3e})")
+        if "dead_splits" in r:
+            line += f" dead_blocks={r['dead_splits']}"
         print(line, flush=True)
         if not r["ok"]:
             bad.append(f"{kern} {tag} {name}")
     status = {k: ("fail" if any(b.startswith(k) for b in bad) else "ok")
-              for k in ("paged_attention", "flash_attention", "ssm_scan")}
+              for k in ("paged_attention", "flash_attention", "flash_decode",
+                        "ssm_scan")}
     print("[kernels] " + json.dumps({k: {
         "status": status[k], "max_abs_err": max(
             r["max_abs_err"] for kk, t, _, r in cases
             if kk == k and t == "fp32"),
         "max_abs_err_bf16": max(r["max_abs_err"] for kk, t, _, r in cases
                                 if kk == k and t == "bf16"),
-        "launches": "counted on the engine run below"}
+        "launches": ("counted on the bench run below" if k == "flash_decode"
+                     else "counted on the engine run below")}
         for k in status}), flush=True)
     if bad:
         fail("kernels disagree with their plain versions: " + ", ".join(bad))
@@ -396,7 +523,41 @@ def phase_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 4. full-width engine
+# 4. the kernel bench entry point
+# ---------------------------------------------------------------------------
+
+def phase_bench(smi: str) -> dict:
+    """``repro_torch.launch.kernel_bench`` at full size on the card: its
+    asserts must hold (it raises otherwise), its JSON must carry the JAX
+    bench's keys, and each kernel's launches must equal the calls the
+    bench made of its wrapper. Returns the launch counts."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch import kernel_bench
+    fns = dict(_kernel_fns(), flash_decode=flash_decode)
+    path = HERE / "build" / "kernel_bench.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    for fn in fns.values():
+        fn.launches = 0
+    out = kernel_bench.main(["--json", str(path)])
+    la = {k: fn.launches for k, fn in fns.items()}
+    dt = time.perf_counter() - t0
+    doc = json.loads(path.read_text())
+    if sorted(doc) != ["bench", "decode_step", "maxerr", "rows"]:
+        fail(f"kernel_bench JSON keys {sorted(doc)}")
+    want = dict(out["calls"], flash_attention=0)
+    print(f"[bench] kernel_bench: {len(doc['rows'])} rows in {dt:.1f} s, "
+          f"maxerr {doc['maxerr']}, launches " + " ".join(
+              f"{k}={la[k]} (calls {want[k]})" for k in la) + f" | {smi}",
+          flush=True)
+    if la != want or not la["flash_decode"]:
+        fail(f"kernel_bench: kernel launches {la} do not match the bench's "
+             f"calls {want}")
+    return la
+
+
+# ---------------------------------------------------------------------------
+# 5. full-width engine
 # ---------------------------------------------------------------------------
 
 def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
@@ -611,17 +772,46 @@ def phase_profile(cfg, params, prompts, smi: str, serve_kw) -> None:
     sys.stdout.flush()
 
 
+def paged_times(src: str, smi: str) -> None:
+    """``--paged-times SRC``: K1 of the ``repro_torch`` under ``SRC`` (this
+    checkout's ``src`` or another's, e.g. an unpacked parent commit) at
+    the engine's page-16 shapes, timed as in phase 3, then stop. Run
+    parent, change, change, parent in one call to compare two K1s."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    import repro_torch
+    torch.manual_seed(0)
+    rng = np.random.default_rng(0)
+    for name, kw in (("llama n_splits=4", dict(n_splits=4)),
+                     ("llama n_splits=1", dict(n_splits=1)),
+                     ("zamba2 G=1 KVH=32 n_splits=4",
+                      dict(KVH=32, G=1, W=81, ctx_max=1056, n_splits=4))):
+        r = check_paged(rng, torch.float32, time_it=True, **kw)
+        print(f"[paged-times] {Path(repro_torch.__file__).parents[1]} "
+              f"{name}: ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+              f"max_abs_err={r['max_abs_err']:.3e} | {smi}", flush=True)
+        if not r["ok"]:
+            fail(f"paged_attention {name} disagrees with its plain version")
+
+
 def main() -> int:
+    t0 = time.perf_counter()
     smi = phase_device()
+    if sys.argv[1:2] == ["--paged-times"]:
+        paged_times(sys.argv[2], smi)
+        return 0
     sys.path.insert(0, str(HERE / "src"))
     phase_build()
     main_cases = phase_kernels()
+    bench_launches = phase_bench(smi)
     launches = phase_engine(smi)
+    launches["flash_decode"] = bench_launches["flash_decode"]
     meta = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:130"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:77"),
+        "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                         "src/repro/kernels/flash_decode.py:48"),
         "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan.py:73"),
     }
@@ -634,6 +824,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
+    print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

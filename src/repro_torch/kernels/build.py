@@ -1,14 +1,16 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
 Every ``repro_torch/csrc/*.cu`` is compiled on its own by ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface::
+``sm_90a`` into a shared library with a plain C interface (``*.cuh`` are
+headers the sources share)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch_kernels/<name>-<hash>.so
 
 The output lands in ``<checkout>/build/repro_torch_kernels/`` (git-ignored),
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads the library already there. Building takes
+named by a hash of the source, the shared headers and the flags, so an
+edited source rebuilds and an unchanged one loads the library already
+there. Building takes
 seconds per file because no source includes PyTorch's headers: wrappers
 pass raw pointers from ``tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream().cuda_stream``, all as ``ctypes.c_void_p``.
@@ -49,7 +51,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count too: a source that includes an edited header
+    # rebuilds
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     h = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{h}.so"
 

@@ -10,14 +10,26 @@ Port of the parts of ``repro/kernels/ops.py`` this slice runs:
   wrapper (CUDA kernel on a card, plain version on CPU tensors) unless the
   ``KernelConfig`` asks for the plain path;
 * ``mamba_mixer`` — the Mamba2 scan: the chunk-scan kernel wrapper under
-  the same rule, ``models.ssm.chunked_gla`` on the plain path.
+  the same rule, ``models.ssm.chunked_gla`` on the plain path;
+* ``decode_attention``, ``paged_decode_step``, ``itpp_partials`` and
+  ``merge_partials`` — the calls the kernel bench
+  (``launch/kernel_bench.py``) times. JAX's ``use_pallas`` maps onto
+  ``KernelConfig.use_kernels`` (default: the kernel wrappers, which
+  dispatch by tensor device); ``use_kernels=False`` selects the plain
+  reference (``kernels/ref.py``, or the gather-then-dense decode).
+
+``verify_attention`` waits for speculative decoding (ROADMAP A.8).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.itpp import itpp_decode_attention_shard
+from repro_torch.kernels import ref as REF
 from repro_torch.kernels.backend import KernelConfig
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ssm_scan import ssm_chunk_scan
 from repro_torch.models.layers import flash_attention
 from repro_torch.models.ssm import chunked_gla, mask_log_gates_tail
@@ -75,3 +87,49 @@ def mamba_mixer(q, k, v, log_a, log_g, *, chunk: int = 128, state=None,
         return y, (C, n, m)
     return chunked_gla(q, k, v, log_a, log_g, chunk=chunk, normalize=False,
                        state=state)
+
+
+DEFAULT_KERNELS = KernelConfig()
+
+
+def decode_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
+                     kernels: KernelConfig = DEFAULT_KERNELS):
+    """Full-attention decode over the paged pool: q [B, KVH, G, D] ->
+    [B, KVH, G, D] (q.dtype). The paged split-K kernel with
+    ``kernels.n_splits`` splits, merged, or the gather-then-dense oracle
+    when ``use_kernels=False``."""
+    if kernels.enabled:
+        return paged_attention(q, k_pages, v_pages, block_tables, ctx_lens,
+                               n_splits=kernels.n_splits)
+    return REF.paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                   ctx_lens).to(q.dtype)
+
+
+def paged_decode_step(q, k_new, v_new, pool_k, pool_v, block_table, ctx_len,
+                      new_page, new_off, window=0, *, ring_width: int = 0,
+                      cond_window: int = 0,
+                      kernels: KernelConfig = DEFAULT_KERNELS):
+    """One decode step's attention against the paged pool, single shard:
+    the incoming token's K/V write and the attention in one call.
+    q [B, H, D]; k_new/v_new [B, KVH, D]; pool_{k,v} [P+1, page, KVH, D]
+    (trash page last, written in place); block_table [B, maxp]; ctx_len
+    [B] (INCLUDING the new token). Returns (out [B, H, D], pool_k,
+    pool_v)."""
+    return itpp_decode_attention_shard(
+        q, k_new, v_new, pool_k, pool_v, block_table, ctx_len, new_page,
+        new_off, window, max_pages_per_req=block_table.shape[1],
+        ring_width=ring_width, cond_window=cond_window, kernels=kernels)
+
+
+def itpp_partials(q, k, v, ctx_lens, *, n_splits: int = 8,
+                  kernels: KernelConfig = DEFAULT_KERNELS):
+    """Split-K partials (o, l, m) for the stable ITPP/EPU merge: the
+    flash-decode kernel wrapper, or ``ref.flash_decode_ref`` when
+    ``use_kernels=False``."""
+    if kernels.enabled:
+        return flash_decode(q, k, v, ctx_lens, n_splits=n_splits)
+    return REF.flash_decode_ref(q, k, v, ctx_lens, n_splits)
+
+
+def merge_partials(o, l, m):
+    return REF.merge_flash_partials(o, l, m)

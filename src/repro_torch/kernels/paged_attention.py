@@ -9,8 +9,9 @@ context, lies wholly below the sliding window, or is an unwritten ring
 slot.
 
 * CUDA tensors launch ``csrc/paged_attention.cu`` (one thread block per
-  (split, batch row, kv head), looping over that split's table slots; see
-  the note in the source). The wrapper counts each launch in
+  (split, batch row, kv head), looping over that split's table slots and
+  streaming each live page in sub-tiles of at most 64 tokens, so any page
+  size launches; see the note in the source). The wrapper counts each launch in
   ``paged_attention_partials.launches``.
 * CPU tensors take ``paged_attention_partials_plain``: the same function
   with the same split boundaries, tail padding and liveness rules, written
@@ -36,6 +37,7 @@ from repro_torch.kernels.ref import NEG_INF, combine_partials
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 128
 MAX_ROWS = 32
+MAX_SMEM = 232448          # dynamic shared memory a block may use (bytes)
 
 
 def _window_rows(window, B: int, device) -> torch.Tensor:
@@ -113,7 +115,9 @@ def _lib():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                        + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-    return fn
+        lib.paged_attention_smem.restype = ctypes.c_longlong
+        lib.paged_attention_smem.argtypes = [ctypes.c_int] * 2
+    return lib
 
 
 def _launch(q, k_pages, v_pages, bt, ctx, win, *, ring_width, windowed_slice,
@@ -138,6 +142,12 @@ def _launch(q, k_pages, v_pages, bt, ctx, win, *, ring_width, windowed_slice,
         if not t.is_contiguous():
             raise ValueError(f"paged_attention_partials: {name} must be "
                              "contiguous")
+    lib = _lib()
+    smem = lib.paged_attention_smem(R, D)
+    if smem > MAX_SMEM:
+        raise ValueError(f"paged_attention_partials: rows={R}, D={D}, "
+                         f"page={page} needs {smem} B of shared memory a "
+                         f"block (max {MAX_SMEM})")
     W = bt.shape[1]
     S, K = _split_geometry(W, n_splits)
     bt = bt.to(torch.int32).contiguous()
@@ -146,10 +156,11 @@ def _launch(q, k_pages, v_pages, bt, ctx, win, *, ring_width, windowed_slice,
     l = torch.empty((S, B, KVH, R), dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
     p = build.ptr
-    err = _lib()(_DTYPES[q.dtype], p(q), p(k_pages), p(v_pages), p(bt),
-                 p(ctx), p(win), p(o), p(l), p(m), B, KVH, R, D, page, W, S,
-                 K, int(ring_width), int(bool(windowed_slice)), int(qpos),
-                 build.stream_ptr(q.device))
+    err = lib.paged_attention_partials(
+        _DTYPES[q.dtype], p(q), p(k_pages), p(v_pages), p(bt), p(ctx),
+        p(win), p(o), p(l), p(m), B, KVH, R, D, page, W, S, K,
+        int(ring_width), int(bool(windowed_slice)), int(qpos),
+        build.stream_ptr(q.device))
     build.check(err, "paged_attention_partials")
     paged_attention_partials.launches += 1
     return o, l, m

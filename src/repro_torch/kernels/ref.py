@@ -62,6 +62,40 @@ def paged_attention_verify_ref(q, k_pages, v_pages, block_tables, ctx_lens,
     return torch.einsum("bkgqt,btkd->bkgqd", p, v)
 
 
+def flash_decode_ref(q, k, v, ctx_len, n_splits: int):
+    """ITPP split-K decode partials oracle.
+
+    q [B, KVH, G, D]; k/v [B, T, KVH, D]; ctx_len [B]. ``T`` need not divide
+    ``n_splits``: the tail split is zero-padded and masked (same split
+    boundaries as the kernel, so partials compare elementwise).
+    Returns per-split partials (o [S,B,KVH,G,D], l [S,B,KVH,G], m [S,...])
+    whose stable merge equals full attention.
+    """
+    B, KVH, G, D = q.shape
+    T = k.shape[1]
+    w = -(-T // n_splits)
+    if w * n_splits != T:
+        pad = (0, 0, 0, 0, 0, w * n_splits - T)
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    ctx_len = ctx_len.long().clamp_max(T)     # pad tokens are never live
+    outs, ls, ms = [], [], []
+    for s in range(n_splits):
+        ks = k[:, s * w:(s + 1) * w].float()
+        vs = v[:, s * w:(s + 1) * w].float()
+        sc = torch.einsum("bkgd,btkd->bkgt", q.float(), ks) / math.sqrt(D)
+        tok = s * w + torch.arange(w, device=q.device)
+        ok = (tok[None] < ctx_len[:, None])[:, None, None, :]
+        sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
+        m = sc.amax(-1)
+        p = torch.where(ok, torch.exp(sc - m[..., None]),
+                        torch.zeros_like(sc))
+        outs.append(torch.einsum("bkgt,btkd->bkgd", p, vs))
+        ls.append(p.sum(-1))
+        ms.append(m)
+    return torch.stack(outs), torch.stack(ls), torch.stack(ms)
+
+
 def combine_partials(o, l, m):
     """Merge the leading split axis of (o, l, m) partials WITHOUT
     normalizing — the result is itself a valid partial (associativity of

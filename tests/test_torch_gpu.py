@@ -174,3 +174,113 @@ def test_ssm_kernel_raises_off_hopper_or_unbuilt(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         K.ssm_chunk_scan(q, k, v, la, lg, chunk=8)
     assert K.ssm_chunk_scan.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_page256_d128_matches_plain(dtype):
+    """256-token pages at D 128 (the JAX default page size, the kernel
+    bench's paged row): the kernel streams pages in 64-token sub-tiles, so
+    it launches and matches its plain version."""
+    _card()
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_partials, paged_attention_partials_plain)
+    rng = np.random.default_rng(9)
+    q, kp, vp, bt, ctx = _pool_case(rng, dtype, 4, 2, 4, 128, 256, 8, 2048)
+    win = torch.zeros(4, dtype=torch.int32, device="cuda")
+    for n_splits in (1, 3):
+        got = paged_attention_partials(q, kp, vp, bt, ctx, n_splits=n_splits)
+        want = paged_attention_partials_plain(
+            q, kp, vp, bt, ctx, win, ring_width=0, windowed_slice=False,
+            n_splits=n_splits, qpos=1)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=TOL[dtype],
+                                       rtol=TOL[dtype])
+
+
+def _decode_case(gen, dtype, B, KVH, G, D, T, ctx):
+    f = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    return (f(B, KVH, G, D).to(dtype), f(B, T, KVH, D).to(dtype),
+            f(B, T, KVH, D).to(dtype),
+            torch.tensor(ctx, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,KVH,G,D,T,S,ctx", [
+    (2, 2, 3, 16, 32, 4, [11, 32]),          # the JAX sweep
+    (1, 1, 8, 32, 64, 8, [43]),
+    (4, 2, 1, 8, 16, 2, [2, 16, 13, 9]),
+    (2, 2, 2, 8, 21, 4, [21, 5]),            # tail split
+    (3, 2, 4, 64, 100, 4, [0, 30, 500]),     # ctx 0, dead splits, ctx > T
+    (4, 2, 4, 128, 4001, 8, [4001, 100, 222, 64]),   # the bench shape
+])
+def test_flash_decode_kernel_matches_plain(dtype, B, KVH, G, D, T, S, ctx):
+    _card()
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.kernels.ref import merge_flash_partials
+    g = torch.Generator(device="cuda").manual_seed(T + S)
+    q, k, v, c = _decode_case(g, dtype, B, KVH, G, D, T, ctx)
+    got = flash_decode(q, k, v, c, n_splits=S)
+    want = flash_decode_plain(q, k, v, c, n_splits=S)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[2], want[2], atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(got[0], want[0], atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(got[1], want[1], atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    dead = torch.arange(S, device="cuda")[:, None] * (-(-T // S)) \
+        >= c.clamp_max(T)[None]                              # [S, B]
+    assert torch.all(got[2][dead] == -1e30) and torch.all(got[1][dead] == 0)
+    assert torch.all(got[0][dead] == 0)
+    merged = merge_flash_partials(*got)
+    assert torch.isfinite(merged).all()
+    assert torch.all(merged[c == 0] == 0)
+
+
+@pytest.mark.gpu
+def test_flash_decode_cuda_tensor_launches_kernel_never_plain(monkeypatch):
+    _card()
+    from repro_torch.kernels import flash_decode as K
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.backend import KernelConfig
+
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(K, "flash_decode_plain", boom)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, c = _decode_case(g, torch.float32, 2, 2, 4, 32, 50, [50, 7])
+    before = K.flash_decode.launches
+    K.flash_decode(q, k, v, c, n_splits=4)
+    ops.itpp_partials(q, k, v, c, n_splits=4, kernels=KernelConfig())
+    torch.cuda.synchronize()
+    assert K.flash_decode.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_flash_decode_kernel_raises_off_hopper_or_unbuilt(monkeypatch,
+                                                          tmp_path):
+    _card()
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_decode as K
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, c = _decode_case(g, torch.float32, 1, 2, 2, 16, 20, [20])
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "get_device_capability", lambda *a: (8, 0))
+        with pytest.raises(RuntimeError, match="sm_90a"):
+            K.flash_decode(q, k, v, c, n_splits=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.flash_decode(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                       v, c, n_splits=2)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "nvcc_path", no_nvcc)
+    before = K.flash_decode.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        K.flash_decode(q, k, v, c, n_splits=2)
+    assert K.flash_decode.launches == before
