@@ -9,12 +9,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    power limit (``nvidia-smi``).
 2. build   — compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a
    (one nvcc per source, in parallel) and prints ptxas' registers, shared
-   memory and spills per kernel.
+   memory and spills per kernel, and, from ``cuobjdump -sass`` of the
+   built K2 library, its tensor-core instructions per instantiation
+   (``HGMMA`` for bf16, ``HMMA`` for fp32; fails if one has none).
 3. kernels — every CUDA kernel against its plain PyTorch version at the
    shapes the serving paths give it (llama3.2-1b and zamba2-1.2b), in fp32
    and with bf16 inputs, with the kernel's time, its bound, the plain
    version's time and a library call's time where one exists (CUDA events
-   after warm-up). Tolerances: attention fp32 2e-5 and bf16 2e-2 absolute
+   after warm-up). Bounds take each row's input type: bf16 bytes at 2 a
+   value and 989 TF/s; fp32 bytes at 4 and, for K2's 3xTF32 route,
+   495/3 TF/s (67 TF/s, the CUDA cores' rate, printed beside it), else
+   67 TF/s. Tolerances: attention fp32 2e-5 and bf16 2e-2 absolute
    (reduction order; bf16 rounding of the probabilities); the Mamba2 scan
    2e-5 of the output's largest magnitude for both input types (fp32
    arithmetic on both sides — bf16 inputs are upcast exactly — so only the
@@ -39,9 +44,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 6. profile — each model's batched configuration under ``torch.profiler``:
    device busy time against wall time, and the kernels that take it.
 
-``python3 chip_smoke.py --paged-times SRC`` only times K1 of the package
-under ``SRC`` at the engine's page-16 shapes (to compare two K1 versions
-in one call).
+``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
+and 256 tokens), K2 (the llama, zamba2 and chunked shapes) and K3 (the
+bench and long-context shapes) of the package under ``SRC``, each in fp32
+and bf16, against their plain versions: run it on two checkouts in turns
+(parent, change, change, parent) in one call to compare two versions.
+``--paged-times SRC`` prints its fp32 page-16 K1 lines alone.
 
 The last three lines: the card's name and power limit, one JSON object
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -64,6 +72,7 @@ DEV = "cuda"
 HBM_BYTES_S = 3.35e12                       # H100 SXM device memory
 PEAK = {torch.float32: 67e12,               # fp32 outside the tensor cores
         torch.bfloat16: 989e12}             # bf16 tensor cores, dense
+TF32X3 = 495e12 / 3                         # K2's fp32 route: 3 TF32 products
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSM_TOL = 2e-5                              # of the largest magnitude
 TIE_GAP = 1e-5                              # ROADMAP C.3 near-tie rule
@@ -74,18 +83,25 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean time of one call from CUDA events, after warm-up."""
+    """Mean time of one call from CUDA events, after warm-up, over at least
+    ``iters`` calls and, for a short kernel, as many more as fill ~20 ms
+    (a hiccup of the host or the card then weighs little)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    for _ in range(2):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / iters
+        if ms * iters >= 10.0:
+            return ms
+        iters = min(2000, max(iters, int(20.0 / max(ms, 1e-3))))
+    return ms
 
 
 def smi_line() -> str:
@@ -135,18 +151,21 @@ def phase_build() -> None:
           flush=True)
     # the kernels take their shared memory dynamically (ptxas does not
     # report it), at the main-path shapes: paged_attention G=4 rows at D 64
-    # and D 128 (64-token sub-tiles whatever the page size); flash_decode
-    # G=4 at D 128 and 64; flash_attention 64 query rows and 32-token K/V
-    # tiles; ssm_scan N=P=64 at chunk 128 and at decode's chunk 1
+    # and D 128 and flash_decode G=4 at D 128 and 64 (a ring of two K/V
+    # stages whatever the page or split size; the larger of the fp32 and
+    # bf16 needs); flash_attention at D 64 (64 query rows, 64-token K/V
+    # stages); ssm_scan N=P=64 at chunk 128 and at decode's chunk 1
+    from repro_torch.kernels.flash_attention import _lib as fa_lib
     from repro_torch.kernels.flash_decode import _lib as fd_lib
     from repro_torch.kernels.paged_attention import _lib as pa_lib
     from repro_torch.kernels.ssm_scan import _lib as ssm_lib
     smem = ssm_lib().ssm_chunk_scan_smem
     pa, fd = pa_lib().paged_attention_smem, fd_lib().flash_decode_smem
+    fa = fa_lib().flash_attention_smem
     print(f"[build] dynamic shared memory: paged_attention {pa(4, 64)} B "
           f"(D 64) / {pa(4, 128)} B (D 128), flash_decode {fd(4, 128)} B "
-          f"(D 128) / {fd(4, 64)} B (D 64), flash_attention "
-          f"{4 * (64 * 64 + 32 * 65 + 32 * 64)} B, ssm_scan "
+          f"(D 128) / {fd(4, 64)} B (D 64), flash_attention {fa(0, 64)} B "
+          f"(fp32) / {fa(1, 64)} B (bf16), ssm_scan "
           f"{smem(64, 64, 128)} B (chunk 128) / {smem(64, 64, 1)} B "
           f"(chunk 1) per block", flush=True)
     for name, r in res.items():
@@ -154,6 +173,44 @@ def phase_build() -> None:
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {name}: {line.strip()}")
     sys.stdout.flush()
+    tensor_core_check(build)
+
+
+def tensor_core_check(build) -> None:
+    """``cuobjdump -sass`` of the built K2 library: each instantiation of
+    its kernel must hold tensor-core instructions, ``HGMMA`` (wgmma) for
+    bf16 inputs and ``HMMA`` (mma.sync, the 3xTF32 route) for fp32."""
+    import re
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        print("[build] cuobjdump is not in the toolkit: the tensor-core "
+              "check of flash_attention was not made", flush=True)
+        return
+    out = subprocess.run([str(tool), "-sass", str(build._target(
+        "flash_attention"))], capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed: {out.stderr.strip()[:400]}")
+    counts, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if "flash_fwd_" in m.group(1) else None
+            if cur:
+                counts[cur] = {"HGMMA": 0, "HMMA": 0}
+        elif cur:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[cur][op] += 1
+    if not counts:
+        fail("cuobjdump found no flash_fwd_ kernel in the K2 library")
+    for fn, c in counts.items():
+        bf16 = "bf16" in fn
+        tag = "bf16" if bf16 else "fp32"
+        name = fn[fn.index("flash_fwd_"):][:48]
+        print(f"[build] flash_attention SASS {tag} {name}: "
+              f"HGMMA={c['HGMMA']} HMMA={c['HMMA']}", flush=True)
+        if (bf16 and not c["HGMMA"]) or (not bf16 and not c["HMMA"]):
+            fail(f"K2 instantiation {fn} has no tensor-core instructions")
 
 
 # ---------------------------------------------------------------------------
@@ -272,9 +329,13 @@ def check_flash(dtype, *, B=2, Sq=1024, Skv=1024, H=32, KVH=8, D=64,
         esz = torch.finfo(dtype).bits // 8
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
         flops = 4.0 * H * D * _causal_pairs(B, Sq, Skv, offs, window)
-        res["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_S, flops / PEAK[dtype])
+        peak = TF32X3 if dtype == torch.float32 else PEAK[dtype]
+        res["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_S, flops / peak)
         res["bound_by"] = ("bytes" if nbytes / HBM_BYTES_S
-                           >= flops / PEAK[dtype] else "operations")
+                           >= flops / peak else "operations")
+        if dtype == torch.float32:
+            res["bound_ms_cuda_cores"] = 1e3 * max(
+                nbytes / HBM_BYTES_S, flops / PEAK[dtype])
         if not any(offs) and not window and Sq == Skv:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             res["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -392,7 +453,7 @@ def check_flash_decode(dtype, *, B, KVH, G, D, T, S, ctx, time_it=False):
         flops = 4.0 * KVH * G * D * live
         nbytes = 2.0 * live * KVH * D * esz
         res["bound_by"] = ("bytes" if nbytes / HBM_BYTES_S
-                           >= flops / PEAK[torch.float32] else "operations")
+                           >= flops / PEAK[dtype] else "operations")
         qt = q.reshape(B, KVH * G, 1, D)
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
         mask = (torch.arange(T, device=DEV)[None] < c[:, None].long()
@@ -470,7 +531,12 @@ def phase_kernels() -> dict:
                 ("q_offset=[0,512] Skv=1536", dict(offs=(0, 512), Skv=1536,
                                                    time_it=True)),
                 ("window=256", dict(window=256)),
-                ("ragged Sq=1000", dict(Sq=1000, Skv=1000))):
+                ("ragged Sq=1000", dict(Sq=1000, Skv=1000)),
+                ("G=8 D=128 Sq=300", dict(Sq=300, Skv=300, H=16, KVH=2,
+                                          D=128)),
+                ("G=1 D=128 Sq=100 Skv=164 q_offset=[0,64] window=48",
+                 dict(Sq=100, Skv=164, H=4, KVH=4, D=128, offs=(0, 64),
+                      window=48))):
             r = check_flash(dtype, **kw)
             cases.append(("flash_attention", tag, name, r))
             if tag == "fp32" and name == "main Sq=1024":
@@ -495,7 +561,10 @@ def phase_kernels() -> dict:
         line += " ok" if r["ok"] else " FAIL"
         if "ms" in r:
             line += (f" ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-                     f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
+                     f"({r['bound_by']}"
+                     + (f"; at 67 TF/s {r['bound_ms_cuda_cores']:.4f}"
+                        if "bound_ms_cuda_cores" in r else "")
+                     + f") plain_ms={r['plain_ms']:.4f} "
                      f"library_ms={r.get('library_ms', 'none')}")
             if "library_err" in r:
                 line += (" (library: scaled_dot_product_attention, merged "
@@ -772,32 +841,78 @@ def phase_profile(cfg, params, prompts, smi: str, serve_kw) -> None:
     sys.stdout.flush()
 
 
-def paged_times(src: str, smi: str) -> None:
-    """``--paged-times SRC``: K1 of the ``repro_torch`` under ``SRC`` (this
-    checkout's ``src`` or another's, e.g. an unpacked parent commit) at
-    the engine's page-16 shapes, timed as in phase 3, then stop. Run
-    parent, change, change, parent in one call to compare two K1s."""
+def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
+    """``--kernel-times SRC``: K1, K2 and K3 of the ``repro_torch`` under
+    ``SRC`` (this checkout's ``src`` or another's, e.g. an unpacked parent
+    commit) timed as in phase 3, in fp32 and bf16, then stop. Run parent,
+    change, change, parent in one call to compare two versions.
+    ``paged_only`` (``--paged-times``) keeps the fp32 page-16 K1 lines."""
     sys.path.insert(0, str(Path(src).resolve()))
     import repro_torch
+    from repro_torch.kernels import build
+    root = Path(repro_torch.__file__).parents[1]
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"[kernel-times] {root}: built in {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
     torch.manual_seed(0)
     rng = np.random.default_rng(0)
-    for name, kw in (("llama n_splits=4", dict(n_splits=4)),
-                     ("llama n_splits=1", dict(n_splits=1)),
-                     ("zamba2 G=1 KVH=32 n_splits=4",
-                      dict(KVH=32, G=1, W=81, ctx_max=1056, n_splits=4))):
-        r = check_paged(rng, torch.float32, time_it=True, **kw)
-        print(f"[paged-times] {Path(repro_torch.__file__).parents[1]} "
-              f"{name}: ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-              f"max_abs_err={r['max_abs_err']:.3e} | {smi}", flush=True)
-        if not r["ok"]:
-            fail(f"paged_attention {name} disagrees with its plain version")
+    page16 = (("llama n_splits=4", dict(n_splits=4)),
+              ("llama n_splits=1", dict(n_splits=1)),
+              ("zamba2 G=1 KVH=32 n_splits=4",
+               dict(KVH=32, G=1, W=81, ctx_max=1056, n_splits=4)))
+    cases = [("paged_attention", n, check_paged, dict(rng=rng, **kw))
+             for n, kw in page16]
+    if not paged_only:
+        cases += [
+            ("paged_attention", "page256 D128 B4 KVH2 G4 W8 (bench)",
+             check_paged, dict(rng=rng, B=4, KVH=2, G=4, D=128, page=256,
+                               W=8, ctx_max=2048)),
+            ("paged_attention", "decode-step ctx=262144 n_splits=64",
+             check_paged, dict(rng=rng, B=2, KVH=1, G=4, D=32, page=256,
+                               W=1025, ctx_max=0, ctx_fixed=262144,
+                               n_splits=64)),
+            ("flash_attention", "llama Sq=1024", check_flash, {}),
+            ("flash_attention", "zamba2 H=KVH=32 Sq=1024", check_flash,
+             dict(KVH=32)),
+            ("flash_attention", "chunked q_offset=[0,512] Skv=1536",
+             check_flash, dict(offs=(0, 512), Skv=1536)),
+            ("flash_decode", "bench B4 KVH2 G4 D128 T4001 S8",
+             check_flash_decode, dict(B=4, KVH=2, G=4, D=128, T=4001, S=8,
+                                      ctx=[4001, 100, 222, 64])),
+            ("flash_decode", "long B8 KVH8 G4 D64 T32768 S16",
+             check_flash_decode,
+             dict(B=8, KVH=8, G=4, D=64, T=32768, S=16,
+                  ctx=[int(x) for x in np.linspace(8192, 32768, 8)]))]
+    dtypes = ((torch.float32,) if paged_only
+              else (torch.float32, torch.bfloat16))
+    bad = []
+    for kern, name, fn, kw in cases:
+        for dtype in dtypes:
+            tag = "fp32" if dtype == torch.float32 else "bf16"
+            r = fn(dtype=dtype, time_it=True, **kw)
+            if paged_only:
+                print(f"[paged-times] {root} {name}: ms={r['ms']:.4f} "
+                      f"bound_ms={r['bound_ms']:.4f} max_abs_err="
+                      f"{r['max_abs_err']:.3e} | {smi}", flush=True)
+            else:
+                print(f"[kernel-times] {root} {kern} {tag} {name}: "
+                      f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                      f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
+                      f"library_ms={r.get('library_ms', 'none')} "
+                      f"max_abs_err={r['max_abs_err']:.3e} | {smi}",
+                      flush=True)
+            if not r["ok"]:
+                bad.append(f"{kern} {tag} {name}")
+    if bad:
+        fail("kernels disagree with their plain versions: " + ", ".join(bad))
 
 
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
-    if sys.argv[1:2] == ["--paged-times"]:
-        paged_times(sys.argv[2], smi)
+    if sys.argv[1:2] in (["--kernel-times"], ["--paged-times"]):
+        kernel_times(sys.argv[2], smi, sys.argv[1] == "--paged-times")
         return 0
     sys.path.insert(0, str(HERE / "src"))
     phase_build()

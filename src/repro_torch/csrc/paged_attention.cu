@@ -15,18 +15,20 @@
 // least time is (live K+V bytes) / 3.35 TB/s (backend.decode_hbm_bytes).
 //
 // Design: one thread block per (split, batch row, kv head) - the TPU grid's
-// sequential slot axis becomes a loop inside the block, since blocks run in
+// sequential slot axis becomes a walk inside the block, since blocks run in
 // no order and carry nothing between them. The block reads its own
-// bt[b, slot] (there is no scalar prefetch on this card) and streams each
-// live page through shared memory in sub-tiles of at most TILE = 64 tokens
-// as fp32, so the block's shared memory depends on rows and D only, never
-// on the page size (a whole [256, 128] fp32 K+V page would need 265 KB, over
-// the 227 KB a block may use). Sub-tiles past the context or wholly below
-// the window are not read. Each warp runs an fp32 online softmax for its
-// query rows (decode_tile.cuh, shared with flash_decode.cu). A sub-tile is
-// loaded after the previous one is done: no copy/compute overlap yet
-// (first version). A split with no live page emits m = -1e30, l = 0,
-// o = 0 - a finite sentinel, so the merge of an idle slot gives 0 and never
+// bt[b, slot] (there is no scalar prefetch on this card) and streams the
+// live tokens of its slots through a ring of two shared-memory stages in
+// the pool's own type (decode_tile.cuh, shared with flash_decode.cu): a
+// stage holds 64 tokens (32 for fp32 at D > 64), so several pages a stage
+// at page 16 and 64-token sub-tiles of a 256-token page, and the block's
+// shared memory depends on rows and D only, never on the page size. The
+// copies of the next stage (the next live pages) are issued before the
+// current one is scored, so page walks overlap their loads. Slots that are
+// dead, tokens past the context and sub-tiles wholly below the window are
+// never read. Each warp runs an fp32 online softmax for its query rows. A
+// split with no live page emits m = -1e30, l = 0, o = 0 - a finite
+// sentinel, so the merge of an idle slot gives 0 and never
 // exp(-inf - -inf) = NaN.
 #include "decode_tile.cuh"
 
@@ -42,6 +44,52 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return q;
 }
 __device__ __forceinline__ int pymod(int a, int b) { return a - floordiv(a, b) * b; }
+
+// The live tokens of split s's table slots, page by page, in chunks of at
+// most `chunk` tokens (a whole page when pages are no longer than a stage).
+struct PageWalk {
+  const int* bt;   // bt[b, :]
+  int s, K, W, page, chunk, c, w, lo_tok, qpos, ring_width, windowed_slice;
+  size_t tok_stride;
+  int j = 0, sub = 0, t_end = -1, pid = 0, vpg = 0;
+
+  __device__ __forceinline__ bool next(Chunk& ch) {
+    while (j < K) {
+      if (t_end < 0) {   // entering table slot s * K + j
+        const int slot = s * K + j;
+        if (slot >= W) break;
+        if (ring_width) {
+          const int cur = floordiv(c - 1, page);
+          vpg = cur - pymod(cur - slot, ring_width);   // < 0: never written
+        } else if (windowed_slice) {
+          vpg = max(c - w, 0) / page + slot;
+        } else {
+          vpg = slot;
+        }
+        pid = bt[slot];
+        const bool live = pid >= 0 && vpg >= 0 &&
+                          vpg * page < c + qpos - 1 &&
+                          (vpg + 1) * page > lo_tok;
+        // tokens of this page any row can see lie below c + qpos - 1
+        t_end = live ? min(page, c + qpos - 1 - vpg * page) : 0;
+        sub = 0;
+      }
+      if (sub >= t_end) {
+        ++j;
+        t_end = -1;
+        continue;
+      }
+      const int base = sub;
+      sub += chunk;
+      if (w > 0 && vpg * page + base + chunk <= lo_tok) continue;
+      ch.src = ((size_t)pid * page + base) * tok_stride;
+      ch.tok0 = vpg * page + base;
+      ch.n = min(chunk, t_end - base);
+      return true;
+    }
+    return false;
+  }
+};
 
 // q [B, KVH, rows, D]; kp/vp [P, page, KVH, D]; bt [B, W]; ctx, win [B];
 // o [S, B, KVH, rows, D]; l, m [S, B, KVH, rows]. Row r of the q tile sits at
@@ -60,51 +108,24 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int b = (blockIdx.x / KVH) % B;
   const int s = blockIdx.x / (KVH * B);
 
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [rows, D]
-  float* ks = qs + rows * D;        // [TILE, D + 1]
-  float* vs = ks + TILE * (D + 1);  // [TILE, D]
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* qs = reinterpret_cast<float*>(smem);   // [rows, D]
   load_q(qs, q + (size_t)(b * KVH + h) * rows * D, rows, D);
 
   const int c = ctx[b], w = win[b];
-  const float sqrt_d = sqrtf((float)D);
-  const int lo_tok = w > 0 ? c - w : 0;
   const size_t tok_stride = (size_t)KVH * D;
+  constexpr int TOK = stage_tokens((int)sizeof(T), DPL);
+  const int chunk = min(page, TOK);
+  PageWalk walk{bt + (size_t)b * W, s, K, W, page, chunk, c, w,
+                w > 0 ? c - w : 0, qpos, ring_width, windowed_slice,
+                tok_stride};
   Rows<DPL, RPW> acc;
-
-  for (int j = 0; j < K; ++j) {
-    const int slot = s * K + j;
-    if (slot >= W) break;
-    int vpg;
-    if (ring_width) {
-      const int cur = floordiv(c - 1, page);
-      vpg = cur - pymod(cur - slot, ring_width);   // < 0: never written
-    } else if (windowed_slice) {
-      vpg = max(c - w, 0) / page + slot;
-    } else {
-      vpg = slot;
-    }
-    const int pid = bt[(size_t)b * W + slot];
-    const bool live = pid >= 0 && vpg >= 0 && vpg * page < c + qpos - 1 &&
-                      (vpg + 1) * page > lo_tok;
-    if (!live) continue;   // uniform over the block
-
-    const T* kb = kp + (size_t)pid * page * tok_stride + (size_t)h * D;
-    const T* vb = vp + (size_t)pid * page * tok_stride + (size_t)h * D;
-    // tokens of this page any row can see lie below c + qpos - 1
-    const int t_end = min(page, c + qpos - 1 - vpg * page);
-    for (int base = 0; base < t_end; base += TILE) {
-      if (w > 0 && vpg * page + base + TILE <= lo_tok) continue;  // uniform
-      const int n = min(TILE, t_end - base);
-      load_tile(ks, vs, kb + (size_t)base * tok_stride,
-                vb + (size_t)base * tok_stride, n, D, tok_stride);
-      const int tok0 = vpg * page + base;
-      acc.step(qs, ks, vs, n, rows, D, sqrt_d, [&](int r, int t) {
-        const int hi = c + r % qpos;
-        return tok0 + t < hi && (w <= 0 || tok0 + t >= hi - w);
-      });
-    }
-  }
+  stream<T, DPL, RPW>(acc, qs, smem + sizeof(float) * rows * D, walk,
+                      kp + (size_t)h * D, vp + (size_t)h * D, tok_stride,
+                      chunk, rows, D, sqrtf((float)D), [&](int r, int tok) {
+                        const int hi = c + r % qpos;
+                        return tok < hi && (w <= 0 || tok >= hi - w);
+                      });
   acc.store(o, l, m, (((size_t)s * B + b) * KVH + h) * rows, rows, D);
 }
 
@@ -115,7 +136,7 @@ struct Launch {
                  int B, int KVH, int rows, int D, int page, int W, int S,
                  int K, int ring_width, int windowed_slice, int qpos,
                  cudaStream_t stream) {
-    const size_t smem = smem_bytes(rows, D);
+    const size_t smem = smem_bytes(rows, D, (int)sizeof(T), DPL);
     auto kern = paged_partials_kernel<T, DPL, RPW>;
     cudaError_t e = allow_smem(kern, smem);
     if (e != cudaSuccess) return (int)e;
@@ -129,14 +150,16 @@ struct Launch {
 
 }  // namespace
 
-// Dynamic shared memory one block needs: the [rows, D] q tile and one
-// [TILE, D] K and V sub-tile as fp32, whatever the page size.
+// Dynamic shared memory one block needs at most (either input type): the
+// [rows, D] fp32 q tile and the ring of K / V stages, whatever the page
+// size.
 extern "C" long long paged_attention_smem(int rows, int D) {
-  return (long long)smem_bytes(rows, D);
+  return (long long)smem_bytes_max(rows, D);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, K and V pages share it). The caller
-// guarantees D <= 128, rows <= 32 and contiguous int32 bt/ctx/win. Returns
+// guarantees D <= 128 with D * sizeof(dtype) a multiple of 16, rows <= 32,
+// 16-byte aligned pools and contiguous int32 bt/ctx/win. Returns
 // cudaGetLastError() after the launch.
 extern "C" int paged_attention_partials(
     int dtype, const void* q, const void* k, const void* v, const void* bt,

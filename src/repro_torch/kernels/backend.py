@@ -45,6 +45,19 @@ def require_hopper(t: torch.Tensor, what: str) -> None:
                            f"(Hopper); this card reports sm_{cap[0]}{cap[1]}")
 
 
+def require_aligned(what: str, D: int, tensors: dict) -> None:
+    """Raise unless each tensor's rows of ``D`` values are whole 16-byte
+    copies and its base address is 16-byte aligned: the kernels move rows
+    with 16-byte asynchronous copies (TMA or ``cp.async``)."""
+    for name, t in tensors.items():
+        if D * t.element_size() % 16:
+            raise ValueError(f"{what}: rows of D={D} {t.dtype} values are "
+                             f"{D * t.element_size()} bytes, not a multiple "
+                             "of 16")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
+
+
 @dataclass(frozen=True)
 class KernelConfig:
     """How attention executes.

@@ -9,7 +9,9 @@ It carries the model's prefill and chunked-prefill attention
 
 * CUDA tensors launch ``csrc/flash_attention.cu`` (one thread block per
   (batch row, kv head, query tile), all G query heads of the kv head
-  together; see the note in the source). Each launch is counted in
+  together, K/V tiles streamed by TMA; bf16 inputs on ``wgmma``, fp32
+  inputs as three TF32 tensor-core products, see ``tf32_split`` and the
+  note in the source). Each launch is counted in
   ``flash_attention_fwd.launches``.
 * CPU tensors take the plain version, ``flash_attention_plain``
   (= ``models.layers.flash_attention``).
@@ -25,7 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.backend import require_hopper
+from repro_torch.kernels.backend import require_aligned, require_hopper
 from repro_torch.models.layers import flash_attention as flash_attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -33,13 +35,56 @@ MAX_D = 128
 MAX_GROUP = 64
 
 
+def tf32_split(x: torch.Tensor):
+    """``x = hi + lo`` as the kernel splits an fp32 operand for its three
+    TF32 products: ``hi = cvt.rna.tf32(x)``, ``lo = cvt.rna.tf32(x - hi)``
+    (the kernel rounds with integer operations that give the same values).
+
+    ``cvt.rna.tf32.f32`` keeps TF32's 10 mantissa bits of the fp32 value,
+    rounded to nearest with ties away from zero: add half of the 13
+    dropped bits' weight to the magnitude and clear them (the sign bit is
+    untouched; a carry out of the mantissa bumps the exponent, and the
+    largest finite values round to infinity). NaN passes through. A plain
+    model on the fp32 bit pattern, for the CPU tests of the kernel's
+    numerics."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+        return torch.where(torch.isnan(t), t, r)
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 def _lib():
-    fn = build.load("flash_attention").flash_attention_fwd
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    return fn
+        lib.flash_attention_smem.restype = ctypes.c_longlong
+        lib.flash_attention_smem.argtypes = [ctypes.c_int] * 2
+        lib.flash_attention_tf32_split.restype = ctypes.c_int
+        lib.flash_attention_tf32_split.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    return lib
+
+
+def tf32_split_on_card(x: torch.Tensor, *, by_cvt: bool = False):
+    """The kernel's own split of an fp32 CUDA tensor (its device code, the
+    rounding done with integer operations), or with ``by_cvt`` the same
+    split by the ``cvt.rna.tf32`` instruction, for the tests that hold the
+    two and ``tf32_split`` to one another. Not counted as a launch of the
+    attention kernel."""
+    require_hopper(x, "tf32_split_on_card")
+    x = x.float().contiguous()
+    hi, lo = torch.empty_like(x), torch.empty_like(x)
+    p = build.ptr
+    build.check(_lib().flash_attention_tf32_split(
+        p(x), p(hi), p(lo), x.numel(), int(by_cvt),
+        build.stream_ptr(x.device)), "tf32_split_on_card")
+    return hi, lo
 
 
 def _launch(q, k, v, *, causal: bool, window: int, q_offset):
@@ -60,6 +105,7 @@ def _launch(q, k, v, *, causal: bool, window: int, q_offset):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_fwd: {name} must be "
                              "contiguous")
+    require_aligned("flash_attention_fwd", D, {"q": q, "k": k, "v": v})
     if torch.is_tensor(q_offset):
         off = q_offset.to(device=q.device, dtype=torch.int32).reshape(-1) \
             .expand(B).contiguous()
@@ -68,9 +114,9 @@ def _launch(q, k, v, *, causal: bool, window: int, q_offset):
                          device=q.device)
     out = torch.empty_like(q)
     p = build.ptr
-    err = _lib()(_DTYPES[q.dtype], p(q), p(k), p(v), p(out), p(off), B, Sq,
-                 Skv, H, KVH, D, int(bool(causal)), int(window),
-                 build.stream_ptr(q.device))
+    err = _lib().flash_attention_fwd(
+        _DTYPES[q.dtype], p(q), p(k), p(v), p(out), p(off), B, Sq, Skv, H,
+        KVH, D, int(bool(causal)), int(window), build.stream_ptr(q.device))
     build.check(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out

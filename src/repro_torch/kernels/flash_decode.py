@@ -12,9 +12,11 @@ with no live token emits ``m = -1e30, l = 0, o = 0``, so a ``ctx = 0`` row
 merges to 0, not NaN.
 
 * CUDA tensors launch ``csrc/flash_decode.cu`` (one thread block per
-  (split, batch row, kv head), walking the live part of its split in
-  64-token shared-memory tiles; see the note in the source). Each launch is
-  counted in ``flash_decode.launches``.
+  (split, batch row, kv head), streaming the live part of its split
+  through a ring of shared-memory stages filled by asynchronous copies;
+  see the note in the source). Rows must be whole 16-byte copies
+  (``D * itemsize % 16 == 0``) and ``k`` / ``v`` 16-byte aligned. Each
+  launch is counted in ``flash_decode.launches``.
 * CPU tensors take ``flash_decode_plain``: the same function with the same
   split boundaries, written as dense PyTorch.
 
@@ -29,7 +31,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.backend import require_hopper
+from repro_torch.kernels.backend import require_aligned, require_hopper
 from repro_torch.kernels.ref import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -103,6 +105,7 @@ def _launch(q, k, v, ctx_lens, *, n_splits: int):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_decode: {name} must be contiguous")
+    require_aligned("flash_decode", D, {"k": k, "v": v})
     lib = _lib()
     smem = lib.flash_decode_smem(G, D)
     if smem > MAX_SMEM:

@@ -9,9 +9,12 @@ context, lies wholly below the sliding window, or is an unwritten ring
 slot.
 
 * CUDA tensors launch ``csrc/paged_attention.cu`` (one thread block per
-  (split, batch row, kv head), looping over that split's table slots and
-  streaming each live page in sub-tiles of at most 64 tokens, so any page
-  size launches; see the note in the source). The wrapper counts each launch in
+  (split, batch row, kv head), walking that split's table slots and
+  streaming the live pages through a ring of shared-memory stages filled
+  by asynchronous copies - several pages a stage, or sub-tiles of a long
+  page, so any page size launches; see the note in the source). Rows must
+  be whole 16-byte copies (``D * itemsize % 16 == 0``) and the pools
+  16-byte aligned. The wrapper counts each launch in
   ``paged_attention_partials.launches``.
 * CPU tensors take ``paged_attention_partials_plain``: the same function
   with the same split boundaries, tail padding and liveness rules, written
@@ -31,7 +34,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.backend import require_hopper
+from repro_torch.kernels.backend import require_aligned, require_hopper
 from repro_torch.kernels.ref import NEG_INF, combine_partials
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -142,6 +145,8 @@ def _launch(q, k_pages, v_pages, bt, ctx, win, *, ring_width, windowed_slice,
         if not t.is_contiguous():
             raise ValueError(f"paged_attention_partials: {name} must be "
                              "contiguous")
+    require_aligned("paged_attention_partials", D,
+                    {"k_pages": k_pages, "v_pages": v_pages})
     lib = _lib()
     smem = lib.paged_attention_smem(R, D)
     if smem > MAX_SMEM:

@@ -63,18 +63,35 @@ def test_paged_kernel_matches_plain(dtype, kw):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Sq,Skv,offs,window", [
-    (128, 128, [0, 0], 0), (100, 164, [0, 64], 48)])
-def test_flash_kernel_matches_plain(dtype, Sq, Skv, offs, window):
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,D,offs,window", [
+    (2, 128, 128, 8, 2, 64, [0, 0], 0),
+    (2, 100, 164, 8, 2, 64, [0, 64], 48),
+    (2, 1024, 1024, 32, 8, 64, [0, 0], 0),       # llama prefill, G 4
+    (2, 1024, 1024, 32, 32, 64, [0, 0], 0),      # zamba2 prefill, G 1
+    (1, 256, 256, 8, 1, 64, [0], 0),             # G 8
+    (2, 300, 300, 16, 2, 128, [0, 0], 0),        # G 8, D 128
+    (2, 1000, 1000, 8, 2, 64, [0, 0], 0),        # ragged Sq = Skv
+    (2, 100, 164, 4, 4, 128, [0, 64], 48),       # ragged, offsets, window
+    (2, 128, 1536, 32, 8, 64, [1024, 512], 0),   # chunked prefill
+    (2, 200, 200, 8, 2, 64, [0, 0], 64),         # window
+    (2, 77, 77, 4, 2, 32, [0, 0], 0),            # D 32
+], ids=["small", "offsets-window", "llama", "zamba2", "G8", "G8-D128",
+        "ragged1000", "ragged100-D128", "chunked", "window", "D32"])
+def test_flash_kernel_matches_plain(dtype, B, Sq, Skv, H, KVH, D, offs,
+                                    window):
+    """K2 (wgmma for bf16, 3xTF32 mma.sync for fp32) at the shapes the
+    prefill paths give it, G 1 to 8, D 32 to 128."""
     _card()
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain)
-    g = torch.Generator(device="cuda").manual_seed(3)
+    g = torch.Generator(device="cuda").manual_seed(Sq + Skv + H)
     q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
-               for s in ((2, Sq, 8, 64), (2, Skv, 2, 64), (2, Skv, 2, 64)))
+               for s in ((B, Sq, H, D), (B, Skv, KVH, D), (B, Skv, KVH, D)))
     off = torch.tensor(offs, dtype=torch.int32, device="cuda")
     got = flash_attention_fwd(q, k, v, window=window, q_offset=off)
     want = flash_attention_plain(q, k, v, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
 
@@ -214,6 +231,8 @@ def _decode_case(gen, dtype, B, KVH, G, D, T, ctx):
     (2, 2, 2, 8, 21, 4, [21, 5]),            # tail split
     (3, 2, 4, 64, 100, 4, [0, 30, 500]),     # ctx 0, dead splits, ctx > T
     (4, 2, 4, 128, 4001, 8, [4001, 100, 222, 64]),   # the bench shape
+    (8, 8, 4, 64, 32768, 16, [0, 8192, 11702, 15213, 18724, 22235, 25746,
+                              32768]),                # long context
 ])
 def test_flash_decode_kernel_matches_plain(dtype, B, KVH, G, D, T, S, ctx):
     _card()
@@ -284,3 +303,119 @@ def test_flash_decode_kernel_raises_off_hopper_or_unbuilt(monkeypatch,
     with pytest.raises(RuntimeError, match="nvcc"):
         K.flash_decode(q, k, v, c, n_splits=2)
     assert K.flash_decode.launches == before
+
+
+@pytest.mark.gpu
+def test_tf32_split_model_matches_the_card():
+    """The wrapper's plain model of the fp32 operand split equals the
+    kernel's split and the cvt.rna.tf32 instruction's, bit for bit (NaN
+    stays NaN)."""
+    _card()
+    from repro_torch.kernels.flash_attention import (tf32_split,
+                                                     tf32_split_on_card)
+    bits = np.array([0x3F800FFF, 0x3F801000, 0xBF801000, 0x3FFFF000,
+                     0x7F7FFFFF, 0x7F800000, 0xFF800000, 0x00000FFF,
+                     0x00001000, 0x80003000, 0x80000000],
+                    dtype=np.uint32).view(np.float32)
+    rnd = np.random.default_rng(0).standard_normal(1 << 16, np.float32)
+    x = torch.from_numpy(np.concatenate([bits, rnd * 100]))
+    want = tf32_split(x)
+    fin = torch.isfinite(x)     # lo of +-inf: NaN for cvt, -0 for the kernel
+    got = [(h, fin) for h in tf32_split_on_card(x.cuda())] + [
+        (h, torch.ones_like(fin)) for h in tf32_split_on_card(x.cuda(),
+                                                              by_cvt=True)]
+    for (g, on), w in zip(got, want + want):   # NaN payloads not compared
+        g, w, x_on = g.cpu()[on], w[on], x[on]
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        keep = ~torch.isnan(w)
+        bad = (g[keep].view(torch.int32) != w[keep].view(torch.int32))
+        assert not bad.any(), (
+            [hex(v) for v in x_on[keep][bad][:8].view(torch.int32).tolist()],
+            g[keep][bad][:8].tolist(), w[keep][bad][:8].tolist())
+    nan = tf32_split_on_card(torch.tensor([float("nan")], device="cuda"))[0]
+    assert torch.isnan(nan).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page,D,W,ctx_max", [(16, 64, 40, 600),
+                                              (256, 128, 6, 1400)],
+                         ids=["page16", "page256"])
+@pytest.mark.parametrize("n_splits", [1, 4])
+@pytest.mark.parametrize("kw", [dict(), dict(window=100),
+                                dict(ring_width=4)],
+                         ids=["plain", "window", "ring"])
+def test_paged_kernel_pages_splits_match_plain(dtype, page, D, W, ctx_max,
+                                               n_splits, kw):
+    """K1's page walk: several pages a stage at page 16, sub-tiles of a
+    256-token page, with and without splits, windows and ring tables."""
+    _card()
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_partials, paged_attention_partials_plain)
+    rng = np.random.default_rng(page + n_splits)
+    ring = kw.get("ring_width", 0)
+    q, kp, vp, bt, ctx = _pool_case(rng, dtype, 3, 2, 4, D, page,
+                                    ring or W, ctx_max)
+    win = torch.full((3,), kw.get("window", 0), dtype=torch.int32,
+                     device="cuda")
+    got = paged_attention_partials(q, kp, vp, bt, ctx, window=win,
+                                   ring_width=ring, n_splits=n_splits)
+    want = paged_attention_partials_plain(
+        q, kp, vp, bt, ctx, win, ring_width=ring, windowed_slice=False,
+        n_splits=n_splits, qpos=1)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.all(got[0][:, -1] == 0) and torch.all(got[1][:, -1] == 0)
+
+
+@pytest.mark.gpu
+def test_kernels_raise_on_misaligned_rows_and_never_take_plain(monkeypatch):
+    """Rows that are not whole 16-byte copies (D 36 in bf16) and bases off
+    16 bytes are refused by every wrapper, with no launch; a CUDA tensor
+    never reaches a plain version."""
+    _card()
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import paged_attention as PA
+
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(FA, "flash_attention_plain", boom)
+    monkeypatch.setattr(FD, "flash_decode_plain", boom)
+    monkeypatch.setattr(PA, "paged_attention_partials_plain", boom)
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def r(*s, dtype=torch.bfloat16):
+        return torch.randn(s, generator=g, device="cuda").to(dtype)
+    before = (FA.flash_attention_fwd.launches, FD.flash_decode.launches,
+              PA.paged_attention_partials.launches)
+    with pytest.raises(ValueError, match="16"):
+        FA.flash_attention_fwd(r(1, 8, 4, 36), r(1, 8, 2, 36),
+                               r(1, 8, 2, 36))
+    with pytest.raises(ValueError, match="16"):
+        FD.flash_decode(r(1, 2, 2, 36), r(1, 20, 2, 36), r(1, 20, 2, 36),
+                        torch.tensor([20], dtype=torch.int32,
+                                     device="cuda"), n_splits=2)
+    bt = torch.arange(2, dtype=torch.int32, device="cuda")[None]
+    ctx = torch.tensor([20], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="16"):
+        PA.paged_attention_partials(r(1, 2, 4, 36), r(3, 16, 2, 36),
+                                    r(3, 16, 2, 36), bt, ctx)
+    # a base 4 bytes off alignment (fp32, rows of 64 values)
+    big = r(1 * 8 * 2 * 64 + 1, dtype=torch.float32)
+    k_off = big[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention_fwd(r(1, 8, 4, 64, dtype=torch.float32), k_off,
+                               k_off)
+    assert before == (FA.flash_attention_fwd.launches,
+                      FD.flash_decode.launches,
+                      PA.paged_attention_partials.launches)
+    # aligned inputs launch the kernels (the plain versions would raise)
+    q = r(2, 64, 8, 64, dtype=torch.float32)
+    kv = r(2, 64, 2, 64, dtype=torch.float32)
+    FA.flash_attention_fwd(q, kv, kv)
+    PA.paged_attention_partials(r(1, 2, 4, 64), r(3, 16, 2, 64),
+                                r(3, 16, 2, 64), bt, ctx)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_fwd.launches == before[0] + 1
+    assert PA.paged_attention_partials.launches == before[2] + 1

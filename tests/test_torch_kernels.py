@@ -196,3 +196,25 @@ def test_flash_matches_layers_q_offset(dtype, Sq, Skv, offsets, window):
                      kv_chunk=16)
     np.testing.assert_allclose(out.float().numpy(), np.asarray(want),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("D,dtype,offset,match", [
+    (36, torch.bfloat16, 0, "multiple of 16"),   # 72-byte rows
+    (6, torch.float32, 0, "multiple of 16"),     # 24-byte rows
+    (64, torch.float32, 1, "aligned"),           # base 4 bytes off
+    (64, torch.float32, 0, None),
+    (8, torch.bfloat16, 0, None),
+    (36, torch.float32, 0, None),                # 144-byte rows
+])
+def test_kernel_rows_must_be_whole_16_byte_copies(D, dtype, offset, match):
+    """The CUDA wrappers move K/V rows with 16-byte asynchronous copies:
+    ``require_aligned`` refuses rows that are not whole copies and bases
+    off 16 bytes, and takes the rest (checked on CPU tensors here; on the
+    card every wrapper calls it before launching)."""
+    from repro_torch.kernels.backend import require_aligned
+    t = torch.zeros(4 * D + offset, dtype=dtype)[offset:].view(4, D)
+    if match is None:
+        require_aligned("test", D, {"k": t})
+    else:
+        with pytest.raises(ValueError, match=match):
+            require_aligned("test", D, {"k": t})
