@@ -10,26 +10,35 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 2. build   — compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a
    (one nvcc per source, in parallel) and prints ptxas' registers, shared
    memory and spills per kernel, and, from ``cuobjdump -sass`` of the
-   built K2 library, its tensor-core instructions per instantiation
-   (``HGMMA`` for bf16, ``HMMA`` for fp32; fails if one has none).
+   built K2 and K4 libraries, their tensor-core instructions per
+   instantiation (K2: ``HGMMA`` for bf16, ``HMMA`` for fp32; K4's chunk
+   kernel: ``HMMA``; fails if one has none; K4's step kernel has none).
 3. kernels — every CUDA kernel against its plain PyTorch version at the
    shapes the serving paths give it (llama3.2-1b and zamba2-1.2b), in fp32
    and with bf16 inputs, with the kernel's time, its bound, the plain
    version's time and a library call's time where one exists (CUDA events
-   after warm-up). Bounds take each row's input type: bf16 bytes at 2 a
-   value and 989 TF/s; fp32 bytes at 4 and, for K2's 3xTF32 route,
-   495/3 TF/s (67 TF/s, the CUDA cores' rate, printed beside it), else
-   67 TF/s. Tolerances: attention fp32 2e-5 and bf16 2e-2 absolute
-   (reduction order; bf16 rounding of the probabilities); the Mamba2 scan
-   2e-5 of the output's largest magnitude for both input types (fp32
-   arithmetic on both sides — bf16 inputs are upcast exactly — so only the
-   reduction order differs, and the sums reach magnitudes of ~100).
+   after warm-up; K4 also by CUDA-graph replay, which leaves out the
+   host's dispatch, printed beside). Bounds take each row's input type:
+   bf16 bytes at 2 a value and 989 TF/s; fp32 bytes at 4 and, for K2's
+   3xTF32 route, 495/3 TF/s (67 TF/s, the CUDA cores' rate, printed beside
+   it), else 67 TF/s; K4 takes its route's rates: 495/3 TF/s for fp32
+   inputs; for bf16, q k^T at 989 TF/s (bf16 mma) and its three other
+   products at 495/2 (two TF32 products each); the 67 TF/s figure beside
+   it. Tolerances: attention fp32 2e-5 and bf16
+   2e-2 absolute (reduction order; bf16 rounding of the probabilities);
+   the Mamba2 scan 2e-5 of the output's largest magnitude for both input
+   types (its products are split TF32 products good to ~2^-21, bf16
+   inputs are exact in TF32, and otherwise only the reduction order
+   differs; the sums reach magnitudes of ~100).
    K3 (ITPP split-K flash decode) at the kernel bench's shape, at a tail
    split with dead splits and a ctx = 0 row, and at llama3.2-1b's decode
    geometry over 32768 tokens, with ``F.scaled_dot_product_attention`` as
    its library yardstick (it gives the MERGED output, not the partials);
    K1 also at 256-token pages with D 128 and at the bench's decode-step
-   shape (ctx 262144, ``n_splits`` 1 and 64).
+   shape (ctx 262144, ``n_splits`` 1 and 64). K4 at zamba2's prefill (B8
+   S1024, chunk 128), decode (B8 S1, chunk 1), slot prefill (B1 S1024) and
+   chunked prefill (B8 S128) shapes, the two prefill shapes also at the
+   other width of a block's slice of P (32 or 64 columns).
 4. bench   — ``python -m repro_torch.launch.kernel_bench`` at full size,
    in-process: its asserts must hold and each kernel's launch count must
    equal the calls the bench made of its wrapper (K3 launches only here).
@@ -40,22 +49,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    be identical (a first divergence whose plain-path logit gap is below
    1e-5 is a near tie, ROADMAP C.3: printed, not a fault), every request
    complete, every page released, and each kernel's launch count equal to
-   what the run's decode steps and prefill calls imply.
+   what the run's decode steps and prefill calls imply (K4 by route: its
+   chunk kernel 36 x prefill calls, its step kernel 36 x decode steps).
 6. profile — each model's batched configuration under ``torch.profiler``:
    device busy time against wall time, and the kernels that take it.
 
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
-and 256 tokens), K2 (the llama, zamba2 and chunked shapes) and K3 (the
-bench and long-context shapes) of the package under ``SRC``, each in fp32
-and bf16, against their plain versions: run it on two checkouts in turns
+and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
+bench and long-context shapes) and K4 (zamba2 prefill and decode, slot
+and chunked prefill) of the package under ``SRC``, each in fp32 and
+bf16, against their plain versions: run it on two checkouts in turns
 (parent, change, change, parent) in one call to compare two versions.
 ``--paged-times SRC`` prints its fp32 page-16 K1 lines alone.
+``--k4-ablation`` builds K4's timing variants (``ssm_scan.cu``'s
+``SSM_ABLATE`` bits: without the score / W / S v loop, without W's exp,
+without the state update; bf16 q k^T as one TF32 product) and times each
+against the whole kernel at zamba2's prefill shape.
 
 The last three lines: the card's name and power limit, one JSON object
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -72,7 +88,8 @@ DEV = "cuda"
 HBM_BYTES_S = 3.35e12                       # H100 SXM device memory
 PEAK = {torch.float32: 67e12,               # fp32 outside the tensor cores
         torch.bfloat16: 989e12}             # bf16 tensor cores, dense
-TF32X3 = 495e12 / 3                         # K2's fp32 route: 3 TF32 products
+TF32X3 = 495e12 / 3                         # fp32 routes: 3 TF32 products
+TF32X2 = 495e12 / 2                         # K4, bf16 v: 2 TF32 products
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSM_TOL = 2e-5                              # of the largest magnitude
 TIE_GAP = 1e-5                              # ROADMAP C.3 near-tie rule
@@ -101,6 +118,40 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         if ms * iters >= 10.0:
             return ms
         iters = min(2000, max(iters, int(20.0 / max(ms, 1e-3))))
+    return ms
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, replayed (after a warm-up replay) until ~20 ms have passed,
+    timed by CUDA events. Unlike ``cuda_ms`` it leaves out the host's
+    dispatch, which is longer than a short kernel's run."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reps = 1
+    for _ in range(2):
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / (reps * calls)
+        if ms * reps * calls >= 10.0:
+            break
+        reps = min(500, max(reps, int(20.0 / max(ms * calls, 1e-3))))
+    del graph
     return ms
 
 
@@ -154,7 +205,8 @@ def phase_build() -> None:
     # and D 128 and flash_decode G=4 at D 128 and 64 (a ring of two K/V
     # stages whatever the page or split size; the larger of the fp32 and
     # bf16 needs); flash_attention at D 64 (64 query rows, 64-token K/V
-    # stages); ssm_scan N=P=64 at chunk 128 and at decode's chunk 1
+    # stages); ssm_scan N=P=64: the chunk kernel at chunk 128 (64 P columns
+    # a block) and the step kernel (chunk 1)
     from repro_torch.kernels.flash_attention import _lib as fa_lib
     from repro_torch.kernels.flash_decode import _lib as fd_lib
     from repro_torch.kernels.paged_attention import _lib as pa_lib
@@ -166,8 +218,9 @@ def phase_build() -> None:
           f"(D 64) / {pa(4, 128)} B (D 128), flash_decode {fd(4, 128)} B "
           f"(D 128) / {fd(4, 64)} B (D 64), flash_attention {fa(0, 64)} B "
           f"(fp32) / {fa(1, 64)} B (bf16), ssm_scan "
-          f"{smem(64, 64, 128)} B (chunk 128) / {smem(64, 64, 1)} B "
-          f"(chunk 1) per block", flush=True)
+          f"{smem(0, 64, 64, 128, 64)} B (chunk 128, fp32) / "
+          f"{smem(1, 64, 64, 128, 64)} B (chunk 128, bf16) / "
+          f"{smem(0, 64, 64, 1, 64)} B (chunk 1) per block", flush=True)
     for name, r in res.items():
         for line in r["log"].splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
@@ -176,25 +229,21 @@ def phase_build() -> None:
     tensor_core_check(build)
 
 
-def tensor_core_check(build) -> None:
-    """``cuobjdump -sass`` of the built K2 library: each instantiation of
-    its kernel must hold tensor-core instructions, ``HGMMA`` (wgmma) for
-    bf16 inputs and ``HMMA`` (mma.sync, the 3xTF32 route) for fp32."""
+def sass_counts(build, tool, lib: str, prefixes) -> dict:
+    """Tensor-core instructions (``HGMMA``, ``HMMA``) per kernel whose
+    mangled name holds one of ``prefixes``, from ``cuobjdump -sass`` of
+    the built library ``lib``."""
     import re
-    tool = Path(build.nvcc_path()).with_name("cuobjdump")
-    if not tool.exists():
-        print("[build] cuobjdump is not in the toolkit: the tensor-core "
-              "check of flash_attention was not made", flush=True)
-        return
-    out = subprocess.run([str(tool), "-sass", str(build._target(
-        "flash_attention"))], capture_output=True, text=True, timeout=300)
+    out = subprocess.run([str(tool), "-sass", str(build._target(lib))],
+                         capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         fail(f"cuobjdump -sass failed: {out.stderr.strip()[:400]}")
     counts, cur = {}, None
     for line in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = m.group(1) if "flash_fwd_" in m.group(1) else None
+            cur = (m.group(1) if any(p in m.group(1) for p in prefixes)
+                   else None)
             if cur:
                 counts[cur] = {"HGMMA": 0, "HMMA": 0}
         elif cur:
@@ -202,8 +251,24 @@ def tensor_core_check(build) -> None:
                 if re.search(rf"\b{op}\.", line):
                     counts[cur][op] += 1
     if not counts:
-        fail("cuobjdump found no flash_fwd_ kernel in the K2 library")
-    for fn, c in counts.items():
+        fail(f"cuobjdump found no {'/'.join(prefixes)} kernel in {lib}")
+    return counts
+
+
+def tensor_core_check(build) -> None:
+    """``cuobjdump -sass`` of the built K2 and K4 libraries: each
+    instantiation of K2 must hold tensor-core instructions, ``HGMMA``
+    (wgmma) for bf16 inputs and ``HMMA`` (mma.sync, the 3xTF32 route) for
+    fp32; each of K4's chunk kernel ``HMMA`` (its step kernel, the decode
+    route, is bound by bytes and has none)."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        print("[build] cuobjdump is not in the toolkit: the tensor-core "
+              "checks of flash_attention and ssm_scan were not made",
+              flush=True)
+        return
+    for fn, c in sass_counts(build, tool, "flash_attention",
+                             ("flash_fwd_",)).items():
         bf16 = "bf16" in fn
         tag = "bf16" if bf16 else "fp32"
         name = fn[fn.index("flash_fwd_"):][:48]
@@ -211,6 +276,18 @@ def tensor_core_check(build) -> None:
               f"HGMMA={c['HGMMA']} HMMA={c['HMMA']}", flush=True)
         if (bf16 and not c["HGMMA"]) or (not bf16 and not c["HMMA"]):
             fail(f"K2 instantiation {fn} has no tensor-core instructions")
+    counts = sass_counts(build, tool, "ssm_scan",
+                         ("ssm_chunk_kernel", "ssm_step_kernel"))
+    for fn, c in counts.items():
+        kind = ("ssm_chunk_kernel" if "ssm_chunk_kernel" in fn
+                else "ssm_step_kernel")
+        name = fn[fn.index(kind):][:64]
+        print(f"[build] ssm_scan SASS {name}: HGMMA={c['HGMMA']} "
+              f"HMMA={c['HMMA']}", flush=True)
+        if kind == "ssm_chunk_kernel" and not (c["HMMA"] or c["HGMMA"]):
+            fail(f"K4 instantiation {fn} has no tensor-core instructions")
+    if not any("ssm_chunk_kernel" in fn for fn in counts):
+        fail("cuobjdump found no ssm_chunk_kernel in the K4 library")
 
 
 # ---------------------------------------------------------------------------
@@ -343,11 +420,36 @@ def check_flash(dtype, *, B=2, Sq=1024, Skv=1024, H=32, KVH=8, D=64,
     return res
 
 
-def check_ssm(dtype, *, B=8, S=1024, H=64, N=64, P=64, chunk=128,
-              masked=False, time_it=False):
+# K4 at the shapes zamba2-1.2b serves (H 64, N = P = 64): batched prefill,
+# the decode step, slot prefill (one row) and chunked prefill (chunk 128)
+SSM_SHAPES = (("zamba2 prefill B=8 S=1024 chunk=128", dict()),
+              ("zamba2 decode B=8 S=1 chunk=1", dict(S=1, chunk=1)),
+              ("slot prefill B=1 S=1024 chunk=128", dict(B=1)),
+              ("chunked prefill B=8 S=128 chunk=128", dict(S=128)))
+
+
+def check_ssm(dtype, *, p_slice=None, **kw):
+    """``_check_ssm`` with K4's chunk kernel at ``p_slice`` P columns a
+    block in place of its rule's choice (None keeps the rule)."""
+    if p_slice is None:     # (a parent checkout's wrapper may have no rule)
+        return _check_ssm(dtype, **kw)
+    from repro_torch.kernels import ssm_scan
+    rule = ssm_scan.default_p_slice
+    ssm_scan.default_p_slice = lambda *_: p_slice
+    try:
+        return _check_ssm(dtype, **kw)
+    finally:
+        ssm_scan.default_p_slice = rule
+
+
+def _check_ssm(dtype, *, B=8, S=1024, H=64, N=64, P=64, chunk=128,
+               masked=False, time_it=False):
     """K4 against its plain version on Mamba2-like inputs: q/k shared by
     every head (stride-0 views, as ``mamba_forward`` passes them), decays
-    -softplus(z), a non-zero carried (C, n) state."""
+    -softplus(z), a non-zero carried (C, n) state. ``ms`` is an eager
+    call's time, as for every kernel; ``graph_ms`` the device time of a
+    call from CUDA-graph replays (the decode step's host dispatch is longer
+    than its kernel)."""
     from repro_torch.kernels.ssm_scan import (ssm_chunk_scan,
                                               ssm_chunk_scan_plain)
     from repro_torch.models.ssm import mask_log_gates_tail
@@ -362,7 +464,6 @@ def check_ssm(dtype, *, B=8, S=1024, H=64, N=64, P=64, chunk=128,
     vl = (torch.randint(1, S + 1, (B,), generator=g, device=DEV)
           if masked else None)
     ma, mg = (la, lg) if vl is None else mask_log_gates_tail(la, lg, vl)
-
     def kern():
         return ssm_chunk_scan(q, k, v, la, lg, chunk=chunk, state=st,
                               valid_len=vl)
@@ -385,6 +486,7 @@ def check_ssm(dtype, *, B=8, S=1024, H=64, N=64, P=64, chunk=128,
     res = {"max_abs_err": err, "max_rel_err": rel, "ok": rel <= SSM_TOL}
     if time_it:
         res["ms"] = cuda_ms(kern)
+        res["graph_ms"] = graph_ms(kern)
         res["plain_ms"] = cuda_ms(plain, iters=5)
         esz = torch.finfo(dtype).bits // 8
         # each input read once (q/k hold B*S*N values: one row shared by
@@ -392,13 +494,21 @@ def check_ssm(dtype, *, B=8, S=1024, H=64, N=64, P=64, chunk=128,
         nbytes = (esz * (2 * B * S * N + B * S * H * P) + 4 * 2 * B * S * H
                   + 4 * 2 * (B * H * N * P + B * H * N) + 4 * B * S * H * P)
         # per chunk and (b, h): q k^T and S v on the causal half, q C and
-        # k^T v in full; fp32 arithmetic for either input type
+        # k^T v in full
         c = min(chunk, S)
-        flops = B * H * (S // c) * (c * (c + 1) * (N + P) + 4 * c * N * P)
-        fp32 = PEAK[torch.float32]
-        res["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_S, flops / fp32)
-        res["bound_by"] = ("bytes" if nbytes / HBM_BYTES_S >= flops / fp32
+        f_qk = B * H * (S // c) * c * (c + 1) * N
+        f_rest = B * H * (S // c) * (c * (c + 1) * P + 4 * c * N * P)
+        flops = f_qk + f_rest
+        # the chunk route's rates: three TF32 products a product for fp32
+        # inputs; for bf16, q k^T on bf16 mma and the others two TF32
+        # products each (the step route is bound by bytes)
+        t_ops = (flops / TF32X3 if dtype == torch.float32
+                 else f_qk / PEAK[torch.bfloat16] + f_rest / TF32X2)
+        res["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_S, t_ops)
+        res["bound_by"] = ("bytes" if nbytes / HBM_BYTES_S >= t_ops
                            else "operations")
+        res["bound_ms_cuda_cores"] = 1e3 * max(
+            nbytes / HBM_BYTES_S, flops / PEAK[torch.float32])
     return res
 
 
@@ -541,17 +651,23 @@ def phase_kernels() -> dict:
             cases.append(("flash_attention", tag, name, r))
             if tag == "fp32" and name == "main Sq=1024":
                 main["flash_attention"] = r
-        for name, kw in (
-                ("zamba2 prefill B=8 S=1024 chunk=128",
-                 dict(time_it=True)),
-                ("zamba2 decode B=8 S=1 chunk=1",
-                 dict(S=1, chunk=1, time_it=True)),
-                ("chunked-prefill S=128 chunk=128", dict(S=128)),
-                ("valid_len tail S=1024 chunk=128", dict(masked=True))):
-            r = check_ssm(dtype, **kw)
+        for name, kw in SSM_SHAPES + (
+                ("zamba2 prefill, 32 P columns a block",
+                 dict(p_slice=32)),
+                ("slot prefill, 64 P columns a block",
+                 dict(B=1, p_slice=64)),
+                ("valid_len tail S=1024 chunk=128", dict(masked=True)),
+                ("valid_len tail S=7 chunk=1",
+                 dict(S=7, chunk=1, masked=True)),
+                ("chunk 100 S=200 N=P=128 H=8",
+                 dict(S=200, chunk=100, H=8, N=128, P=128, masked=True))):
+            r = check_ssm(dtype, time_it="valid_len" not in name
+                          and "N=P" not in name, **kw)
             cases.append(("ssm_scan", tag, name, r))
-            if tag == "fp32" and name.startswith("zamba2 prefill"):
+            if tag == "fp32" and name.startswith("zamba2 prefill B"):
                 main["ssm_scan"] = r
+            if tag == "fp32" and name.startswith("zamba2 decode"):
+                main["ssm_scan_decode"] = r
     bad = []
     for kern, tag, name, r in cases:
         line = (f"[kernels] {kern} {tag} {name}: max_abs_err="
@@ -560,7 +676,10 @@ def phase_kernels() -> dict:
             line += f" max_rel_err={r['max_rel_err']:.3e}"
         line += " ok" if r["ok"] else " FAIL"
         if "ms" in r:
-            line += (f" ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            line += (f" ms={r['ms']:.4f}"
+                     + (f" (graph replay {r['graph_ms']:.4f})"
+                        if "graph_ms" in r else "")
+                     + f" bound_ms={r['bound_ms']:.4f} "
                      f"({r['bound_by']}"
                      + (f"; at 67 TF/s {r['bound_ms_cuda_cores']:.4f}"
                         if "bound_ms_cuda_cores" in r else "")
@@ -681,7 +800,24 @@ def expected_launches(cfg, m) -> dict:
     n_mamba = sum(1 for k in kinds if k == "mamba")
     return {"paged_attention": n_attn * m["decode_steps"],
             "flash_attention": n_attn * m["prefill_calls"],
-            "ssm_scan": n_mamba * (m["decode_steps"] + m["prefill_calls"])}
+            "ssm_scan": n_mamba * (m["decode_steps"] + m["prefill_calls"]),
+            "ssm_scan chunk": n_mamba * m["prefill_calls"],
+            "ssm_scan step": n_mamba * m["decode_steps"]}
+
+
+def launch_counts(fns) -> dict:
+    """Each wrapper's launch count, and K4's by route (its chunk kernel
+    carries prefill, its step kernel the decode step)."""
+    la = {k: fn.launches for k, fn in fns.items()}
+    la["ssm_scan chunk"] = fns["ssm_scan"].launches_chunk
+    la["ssm_scan step"] = fns["ssm_scan"].launches_step
+    return la
+
+
+def reset_counts(fns) -> None:
+    for fn in fns.values():
+        fn.launches = 0
+    fns["ssm_scan"].launches_chunk = fns["ssm_scan"].launches_step = 0
 
 
 def near_tie_gap(cfg, params, seq) -> float:
@@ -756,14 +892,13 @@ def run_arch(arch: str, smi: str, launches: dict, **serve_kw) -> None:
                       ("chunked", dict(mode="chunked", horizon=1, splits=4,
                                        n_req=4, chunk=128))):
         label = f"{arch} {label}"
-        for fn in fns.values():
-            fn.launches = 0
+        reset_counts(fns)
         out_k, mk = serve(cfg, params, use_kernels=None, prompts=prompts,
                           **kw, **serve_kw)
-        la = {k: fn.launches for k, fn in fns.items()}
+        la = launch_counts(fns)
         out_p, mp = serve(cfg, params, use_kernels=False, prompts=prompts,
                           **kw, **serve_kw)
-        if any(fn.launches != la[k] for k, fn in fns.items()):
+        if launch_counts(fns) != la:
             fail(f"{label}: the plain-path engine launched a kernel")
         for lbl, m in (("kernels", mk), ("plain", mp)):
             dec = m["decode_tokens"]
@@ -842,10 +977,10 @@ def phase_profile(cfg, params, prompts, smi: str, serve_kw) -> None:
 
 
 def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
-    """``--kernel-times SRC``: K1, K2 and K3 of the ``repro_torch`` under
-    ``SRC`` (this checkout's ``src`` or another's, e.g. an unpacked parent
-    commit) timed as in phase 3, in fp32 and bf16, then stop. Run parent,
-    change, change, parent in one call to compare two versions.
+    """``--kernel-times SRC``: K1, K2, K3 and K4 of the ``repro_torch``
+    under ``SRC`` (this checkout's ``src`` or another's, e.g. an unpacked
+    parent commit) timed as in phase 3, in fp32 and bf16, then stop. Run
+    parent, change, change, parent in one call to compare two versions.
     ``paged_only`` (``--paged-times``) keeps the fp32 page-16 K1 lines."""
     sys.path.insert(0, str(Path(src).resolve()))
     import repro_torch
@@ -884,6 +1019,7 @@ def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
              check_flash_decode,
              dict(B=8, KVH=8, G=4, D=64, T=32768, S=16,
                   ctx=[int(x) for x in np.linspace(8192, 32768, 8)]))]
+        cases += [("ssm_scan", n, check_ssm, kw) for n, kw in SSM_SHAPES]
     dtypes = ((torch.float32,) if paged_only
               else (torch.float32, torch.bfloat16))
     bad = []
@@ -897,7 +1033,10 @@ def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
                       f"{r['max_abs_err']:.3e} | {smi}", flush=True)
             else:
                 print(f"[kernel-times] {root} {kern} {tag} {name}: "
-                      f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                      f"ms={r['ms']:.4f} "
+                      + (f"(graph replay {r['graph_ms']:.4f}) "
+                         if "graph_ms" in r else "")
+                      + f"bound_ms={r['bound_ms']:.4f} "
                       f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
                       f"library_ms={r.get('library_ms', 'none')} "
                       f"max_abs_err={r['max_abs_err']:.3e} | {smi}",
@@ -908,11 +1047,58 @@ def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
         fail("kernels disagree with their plain versions: " + ", ".join(bad))
 
 
+# K4's timing variants: ssm_scan.cu's SSM_ABLATE bits and what each drops
+K4_ABLATIONS = (("whole kernel", 0), ("no score / W / S v loop", 1),
+                ("no exp of W", 2), ("no state update", 4),
+                ("bf16 q k^T as one TF32 product", 8))
+
+
+def k4_ablation(smi: str) -> None:
+    """``--k4-ablation``: ``ssm_scan.cu`` built once per SSM_ABLATE
+    variant (one nvcc each, all started together) and timed as in phase 3
+    at zamba2's prefill shape (B8 S1024 chunk 128), fp32 and bf16, at 64
+    and 32 P columns a block. Variants 1, 2 and 4 are wrong by design:
+    what each saves against the whole kernel is the time of the part it
+    drops. Variant 8 (bf16 only) must stay right."""
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.kernels import build
+    out = build.BUILD_DIR.parent / "k4_ablation"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {m: subprocess.Popen(
+        [build.nvcc_path(), *build.FLAGS, f"-DSSM_ABLATE={m}", "-o",
+         str(out / f"ssm_scan_{m}.so"), str(build.CSRC / "ssm_scan.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for _, m in K4_ABLATIONS}
+    for m, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"ssm_scan.cu with SSM_ABLATE={m} did not build:\n{text}")
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for name, m in K4_ABLATIONS:
+            if m == 8 and dtype == torch.float32:
+                continue
+            build._LIBS["ssm_scan"] = ctypes.CDLL(str(out /
+                                                      f"ssm_scan_{m}.so"))
+            for ps in (64, 32):
+                r = check_ssm(dtype, p_slice=ps, time_it=True)
+                if m in (0, 8) and not r["ok"]:
+                    fail(f"ssm_scan {tag} SSM_ABLATE={m} p_slice={ps} "
+                         "disagrees with its plain version")
+                print(f"[k4-ablation] {tag} SSM_ABLATE={m} ({name}) "
+                      f"p_slice={ps}: ms={r['ms']:.4f} (graph replay "
+                      f"{r['graph_ms']:.4f}) max_rel_err="
+                      f"{r['max_rel_err']:.3e} | {smi}", flush=True)
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     if sys.argv[1:2] in (["--kernel-times"], ["--paged-times"]):
         kernel_times(sys.argv[2], smi, sys.argv[1] == "--paged-times")
+        return 0
+    if sys.argv[1:2] == ["--k4-ablation"]:
+        k4_ablation(smi)
         return 0
     sys.path.insert(0, str(HERE / "src"))
     phase_build()
@@ -939,6 +1125,14 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
+        if name == "ssm_scan":    # its decode route, the step kernel
+            d = main_cases["ssm_scan_decode"]
+            kernels[-1].update({
+                "launches_chunk": launches["ssm_scan chunk"],
+                "launches_step": launches["ssm_scan step"],
+                "graph_ms": r["graph_ms"], "decode_ms": d["ms"],
+                "decode_graph_ms": d["graph_ms"],
+                "decode_bound_ms": d["bound_ms"]})
     print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(smi)

@@ -48,7 +48,7 @@
 //   0.061 ms at the llama shape.
 // * fp32 inputs: every product is three TF32 tensor-core products, x = hi +
 //   lo with hi = rna(x), lo = rna(x - hi) where rna is cvt.rna.tf32's
-//   rounding (done with integer operations, see tf32_rna), and a.b =
+//   rounding (integer operations: tf32_mma.cuh's tf32_rna), and a.b =
 //   hi.hi + hi.lo + lo.hi with fp32 accumulation (the dropped lo.lo term is
 //   ~2^-22 of the product), which holds the fp32 tolerance where one TF32
 //   product (~3 digits) would not. The route is mma.sync.m16n8k8.tf32, each
@@ -69,6 +69,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -260,65 +262,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// ---- mma.sync tf32 (fp32 inputs) -----------------------------------------
-
-// cvt.rna.tf32.f32: round to nearest, ties away from zero, on the 13 bits
-// below TF32's mantissa. Here as two integer operations on the bit pattern
-// (the same value for every finite input; measured 18% faster for the
-// whole kernel than the cvt instruction); the tests hold both, and the
-// wrapper's plain model tf32_split, to one another.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-__device__ __forceinline__ uint32_t tf32_rna_cvt(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-// x = hi + lo, both TF32 (the wrapper's tf32_split models this)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-__device__ __forceinline__ void mma_tf32(float& d0, float& d1, float& d2,
-                                         float& d3, const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// An A fragment split once, reused across the B fragments it meets.
-struct SplitA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ SplitA(float a0, float a1, float a2, float a3) {
-    split(a0, hi[0], lo[0]);
-    split(a1, hi[1], lo[1]);
-    split(a2, hi[2], lo[2]);
-    split(a3, hi[3], lo[3]);
-  }
-};
-// d[4 * j .. 4 * j + 3] += a.b as hi.hi + hi.lo + lo.hi, the small terms
-// first
-template <int N>
-__device__ __forceinline__ void mma_3xtf32(float (&d)[N], int j,
-                                           const SplitA& a, float b0,
-                                           float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma_tf32(d[4 * j], d[4 * j + 1], d[4 * j + 2], d[4 * j + 3], a.lo, bh0,
-           bh1);
-  mma_tf32(d[4 * j], d[4 * j + 1], d[4 * j + 2], d[4 * j + 3], a.hi, bl0,
-           bl1);
-  mma_tf32(d[4 * j], d[4 * j + 1], d[4 * j + 2], d[4 * j + 3], a.hi, bh0,
-           bh1);
-}
-
-__device__ __forceinline__ float lds(const uint8_t* p) {
-  return *reinterpret_cast<const float*>(p);
-}
+using namespace tf32mma;
 
 // ---- the two products of a tile --------------------------------------------
 //
@@ -391,12 +335,13 @@ struct Mma<float, NSLAB> {
       const uint8_t* qsl = qs + (ks / 4) * ROWS * 128 + 4 * c4;
       const uint8_t* ksl = kst + (ks / 4) * TOK * 128 + 4 * c4;
       const int ch0 = 2 * (ks % 4), ch1 = ch0 + 1;
-      const SplitA a(lds(qsl + swz(ra, ch0)), lds(qsl + swz(rb, ch0)),
-                     lds(qsl + swz(ra, ch1)), lds(qsl + swz(rb, ch1)));
+      const FragA<RNA> a(lds(qsl + swz(ra, ch0)), lds(qsl + swz(rb, ch0)),
+                         lds(qsl + swz(ra, ch1)), lds(qsl + swz(rb, ch1)));
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int rk = 8 * j + g8;
-        mma_3xtf32(s, j, a, lds(ksl + swz(rk, ch0)), lds(ksl + swz(rk, ch1)));
+        mma_acc<RNA, RNA>(&s[4 * j], a, lds(ksl + swz(rk, ch0)),
+                          lds(ksl + swz(rk, ch1)));
       }
     }
   }
@@ -407,14 +352,15 @@ struct Mma<float, NSLAB> {
 #pragma unroll
     for (int kt = 0; kt < 8; ++kt) {
       // A column c <- token 2c, c + 4 <- token 2c + 1 (see the note)
-      const SplitA a(p[4 * kt], p[4 * kt + 2], p[4 * kt + 1], p[4 * kt + 3]);
+      const FragA<RNA> a(p[4 * kt], p[4 * kt + 2], p[4 * kt + 1],
+                         p[4 * kt + 3]);
       const int r0 = 8 * kt + 2 * c4;
 #pragma unroll
       for (int dn = 0; dn < 4 * NSLAB; ++dn) {
         const uint8_t* vsl = vst + (dn / 4) * TOK * 128 + 4 * (g8 & 3);
         const int ch = 2 * (dn % 4) + (g8 >> 2);
-        mma_3xtf32(o, dn, a, lds(vsl + swz(r0, ch)),
-                   lds(vsl + swz(r0 + 1, ch)));
+        mma_acc<RNA, RNA>(&o[4 * dn], a, lds(vsl + swz(r0, ch)),
+                          lds(vsl + swz(r0 + 1, ch)));
       }
     }
   }
@@ -745,7 +691,7 @@ __global__ void tf32_split_kernel(const float* __restrict__ x,
     h = tf32_rna_cvt(x[i]);
     l = tf32_rna_cvt(x[i] - __uint_as_float(h));
   } else {
-    split(x[i], h, l);
+    as_tf32<RNA>(x[i], h, l);
   }
   hi[i] = __uint_as_float(h);
   lo[i] = __uint_as_float(l);

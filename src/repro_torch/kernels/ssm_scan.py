@@ -8,9 +8,14 @@ mixer of the model (``models/ssm.mamba_forward`` through
 ``kernels/ops.mamba_mixer``): prefill at chunk ``min(128, S)``, chunked
 prefill at the engine's chunk, and decode at ``S = chunk = 1``.
 
-* CUDA tensors launch ``csrc/ssm_scan.cu`` (one thread block per (batch
-  row, head), the chunk loop inside the block; see the note in the
-  source). Each launch is counted in ``ssm_chunk_scan.launches``.
+* CUDA tensors launch one of the two kernels of ``csrc/ssm_scan.cu``,
+  picked by the chunk (see the note in the source): for ``chunk > 1``
+  (prefill, chunked prefill) the chunk kernel, one thread block per (batch
+  row, head, slice of P; ``default_p_slice``) running the chunk loop with
+  the four products on the TF32 tensor cores; for ``chunk == 1`` (the decode
+  step) the step kernel, which streams the ``[N, P]`` state once. Each
+  launch is counted in ``ssm_chunk_scan.launches``, and by route in
+  ``ssm_chunk_scan.launches_chunk`` / ``ssm_chunk_scan.launches_step``.
 * CPU tensors take the plain version, ``ssm_chunk_scan_plain``: the same
   per-chunk arithmetic in dense PyTorch.
 
@@ -23,6 +28,7 @@ copied per head.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,15 +41,34 @@ MAX_CHUNK = 128
 MAX_SMEM = 232448          # dynamic shared memory a block may use (bytes)
 
 
+def default_p_slice(P: int, bh: int, n_sm: int) -> int:
+    """P columns a chunk-kernel block owns, for ``bh`` = B x H (batch row,
+    head) pairs on a card of ``n_sm`` SMs: 64, unless P fits in 32 or the
+    blocks of 64 columns would fill at most half the SMs (one row of
+    zamba2's slot prefill: 64 blocks on the H100's 132), then 32. Each
+    block computes its rows' scores q k^T in full, so 32 columns a block
+    at P = 64 computes them twice: on the H100 that measured slower from
+    B = 2 (128 blocks) up, for both input types, and faster at B = 1
+    (``chip_smoke.py`` phase 3 times both)."""
+    if P <= 32 or 2 * bh * -(-P // 64) <= n_sm:
+        return 32
+    return 64
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _lib():
     lib = build.load("ssm_scan")
     fn = lib.ssm_chunk_scan
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.ssm_chunk_scan_smem.restype = ctypes.c_longlong
-        lib.ssm_chunk_scan_smem.argtypes = [ctypes.c_int] * 3
+        lib.ssm_chunk_scan_smem.argtypes = [ctypes.c_int] * 5
     return lib
 
 
@@ -116,13 +141,17 @@ def _launch(q, k, v, log_a, log_g, *, chunk: int, state):
                         f"bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     B, S, H, N, P = _check(q, k, v, log_a, log_g, chunk)
     lib = _lib()
-    smem = lib.ssm_chunk_scan_smem(N, P, chunk)
+    dt = _DTYPES[q.dtype]
+    p_slice = default_p_slice(P, B * H, _sm_count(q.device.index or 0))
+    smem = lib.ssm_chunk_scan_smem(dt, N, P, chunk, p_slice)
     if smem > MAX_SMEM:
-        raise ValueError(f"ssm_chunk_scan: N={N}, P={P}, chunk={chunk} needs "
-                         f"{smem} B of shared memory a block (max "
-                         f"{MAX_SMEM})")
+        raise ValueError(f"ssm_chunk_scan: N={N}, P={P}, chunk={chunk} "
+                         f"({q.dtype}, p_slice {p_slice}) needs {smem} B of "
+                         f"shared memory a block (max {MAX_SMEM})")
     dev = q.device
     C0, n0 = _state_in(state, B, H, N, P, dev)
+    if C0 is not None and C0.data_ptr() % 16:
+        C0 = C0.clone()        # the step kernel reads the state 16 B a load
     la = log_a.to(torch.float32).contiguous()
     lg = log_g.to(torch.float32).contiguous()
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
@@ -134,11 +163,15 @@ def _launch(q, k, v, log_a, log_g, *, chunk: int, state):
     def opt(t):
         return ctypes.c_void_p(None if t is None else t.data_ptr())
     err = lib.ssm_chunk_scan(
-        _DTYPES[q.dtype], p(q), p(k), p(v), p(la), p(lg), opt(C0), opt(n0),
-        p(y), p(C), p(n), ctypes.cast(strides, ctypes.c_void_p), B, S, H, N,
-        P, chunk, build.stream_ptr(dev))
+        dt, p(q), p(k), p(v), p(la), p(lg), opt(C0), opt(n0), p(y), p(C),
+        p(n), ctypes.cast(strides, ctypes.c_void_p), B, S, H, N, P, chunk,
+        p_slice, build.stream_ptr(dev))
     build.check(err, "ssm_chunk_scan")
     ssm_chunk_scan.launches += 1
+    if chunk == 1:
+        ssm_chunk_scan.launches_step += 1
+    else:
+        ssm_chunk_scan.launches_chunk += 1
     return y, (C, n)
 
 
@@ -162,4 +195,6 @@ def ssm_chunk_scan(q, k, v, log_a, log_g, *, chunk: int = 128, state=None,
     return _launch(q, k, v, log_a, log_g, chunk=chunk, state=state)
 
 
-ssm_chunk_scan.launches = 0
+ssm_chunk_scan.launches = 0          # every launch
+ssm_chunk_scan.launches_chunk = 0    # the chunk kernel (chunk > 1)
+ssm_chunk_scan.launches_step = 0     # the step kernel (chunk == 1)

@@ -122,18 +122,36 @@ def _scaled_gap(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,N,P,chunk,bcast", [
-    (2, 32, 3, 8, 16, 8, False),        # small, dense heads
-    (3, 1, 5, 8, 16, 1, True),          # decode: S = chunk = 1
-    (2, 48, 4, 16, 8, 16, True),
-    (8, 1024, 64, 64, 64, 128, True),   # the zamba2 prefill shape
+@pytest.mark.parametrize("B,S,H,N,P,chunk,bcast,state", [
+    (2, 32, 3, 8, 16, 8, False, True),        # small, dense heads
+    (3, 1, 5, 8, 16, 1, True, True),          # decode: S = chunk = 1
+    (2, 48, 4, 16, 8, 16, True, True),
+    (8, 1024, 64, 64, 64, 128, True, True),   # the zamba2 prefill shape
+    (8, 1, 64, 64, 64, 1, True, True),        # the zamba2 decode step
+    (1, 1, 64, 64, 64, 1, True, False),       # one row, fresh state
+    (1, 1024, 64, 64, 64, 128, True, False),  # slot prefill, one row
+    (8, 128, 64, 64, 64, 128, True, True),    # chunked prefill
+    (2, 200, 3, 64, 64, 100, True, True),     # chunk off 16
+    (3, 24, 2, 32, 32, 24, False, False),     # chunk off 16, dense heads
+    (2, 64, 2, 8, 8, 16, True, True),         # N = P = 8
+    (2, 64, 2, 16, 16, 32, False, True),      # N = P = 16
+    (2, 128, 2, 128, 64, 64, False, True),    # N 128: one stage
+    (2, 128, 2, 64, 128, 128, True, False),   # P 128: two P slices
+    (2, 200, 2, 128, 128, 100, True, True),   # both 128, chunk 100
+    (2, 7, 3, 64, 64, 1, True, True),         # chunk 1 over 7 tokens
+    (2, 9, 3, 12, 20, 3, False, True),        # N, P off 16
+    (2, 6, 2, 6, 6, 1, False, True),          # the step kernel at P % 4
 ])
-def test_ssm_kernel_matches_plain(dtype, B, S, H, N, P, chunk, bcast):
+def test_ssm_kernel_matches_plain(dtype, B, S, H, N, P, chunk, bcast, state):
+    """Both routes (chunk kernel for chunk > 1, step kernel for chunk 1)
+    against the plain version, with and without a carried state, with a
+    valid_len tail on row 0."""
     _card()
     from repro_torch.kernels.ssm_scan import (ssm_chunk_scan,
                                               ssm_chunk_scan_plain)
     g = torch.Generator(device="cuda").manual_seed(7)
-    q, k, v, la, lg, st = _scan_case(g, dtype, B, S, H, N, P, bcast=bcast)
+    q, k, v, la, lg, st = _scan_case(g, dtype, B, S, H, N, P, bcast=bcast,
+                                     state=state)
     vl = torch.full((B,), S, dtype=torch.int32, device="cuda")
     vl[0] = max(1, S - 5)                   # a masked tail on row 0
     y, (C, n) = ssm_chunk_scan(q, k, v, la, lg, chunk=chunk, state=st,
@@ -147,11 +165,33 @@ def test_ssm_kernel_matches_plain(dtype, B, S, H, N, P, chunk, bcast):
     for got, want in ((y[1:], yp[1:]), (y[0, :int(vl[0])],
                                         yp[0, :int(vl[0])]),
                       (C, Cp), (n, np_)):
+        if want.numel():                    # B = 1 has no rows past row 0
+            assert _scaled_gap(got, want) <= 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p_slice", [32, 64])
+def test_ssm_p_slice_does_not_change_the_result(monkeypatch, p_slice):
+    """The P columns a chunk-kernel block owns are a schedule, not a
+    different function."""
+    _card()
+    from repro_torch.kernels import ssm_scan as K
+    from repro_torch.kernels.ssm_scan import (ssm_chunk_scan,
+                                              ssm_chunk_scan_plain)
+    monkeypatch.setattr(K, "default_p_slice", lambda *_: p_slice)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, la, lg, st = _scan_case(g, torch.float32, 2, 256, 4, 64, 96)
+    y, (C, n) = ssm_chunk_scan(q, k, v, la, lg, chunk=128, state=st)
+    yp, (Cp, np_) = ssm_chunk_scan_plain(q, k, v, la, lg, chunk=128,
+                                         state=st)
+    for got, want in ((y, yp), (C, Cp), (n, np_)):
         assert _scaled_gap(got, want) <= 2e-5
 
 
 @pytest.mark.gpu
 def test_ssm_cuda_tensor_launches_kernel_never_plain(monkeypatch):
+    """Both routes launch their kernel (counted in total and by route) and
+    never reach the plain version, directly and through mamba_mixer."""
     _card()
     from repro_torch.kernels import ssm_scan as K
     from repro_torch.kernels.backend import KernelConfig
@@ -162,11 +202,68 @@ def test_ssm_cuda_tensor_launches_kernel_never_plain(monkeypatch):
     monkeypatch.setattr(K, "ssm_chunk_scan_plain", boom)
     g = torch.Generator(device="cuda").manual_seed(1)
     q, k, v, la, lg, st = _scan_case(g, torch.float32, 2, 16, 4, 8, 8)
-    before = K.ssm_chunk_scan.launches
+    fn = K.ssm_chunk_scan
+    before = (fn.launches, fn.launches_chunk, fn.launches_step)
     K.ssm_chunk_scan(q, k, v, la, lg, chunk=8, state=st)
     mamba_mixer(q, k, v, la, lg, chunk=8, kernels=KernelConfig())
+    K.ssm_chunk_scan(q[:, :1], k[:, :1], v[:, :1], la[:, :1], lg[:, :1],
+                     chunk=1, state=st)
+    mamba_mixer(q[:, :1], k[:, :1], v[:, :1], la[:, :1], lg[:, :1],
+                chunk=1, kernels=KernelConfig())
     torch.cuda.synchronize()
-    assert K.ssm_chunk_scan.launches == before + 2
+    assert (fn.launches, fn.launches_chunk, fn.launches_step) == (
+        before[0] + 4, before[1] + 2, before[2] + 2)
+
+
+@pytest.mark.gpu
+def test_ssm_layouts_without_16_byte_copies_run_right(monkeypatch):
+    """Layouts that forbid 16-byte copies (a base 4 bytes off, rows of 12
+    or 7 bf16 values, a value stride not 1) take value-by-value staging,
+    and an unaligned carried state is copied for the step kernel: every
+    one matches the plain version and none reaches it."""
+    _card()
+    from repro_torch.kernels import ssm_scan as K
+    g = torch.Generator(device="cuda").manual_seed(4)
+    B, S, H = 2, 64, 3
+
+    def r(*s, dtype=torch.float32):
+        return torch.randn(s, generator=g, device="cuda").to(dtype)
+    la = -torch.nn.functional.softplus(r(B, S, H))
+    lg = r(B, S, H) * 0.1
+    cases = []
+    big = r(B * S * H * 16 + 1)
+    cases.append(("base 4 B off", big[1:].view(B, S, H, 16), r(B, S, H, 16),
+                  r(B, S, H, 16)))
+    cases.append(("bf16 N 12", r(B, S, H, 12, dtype=torch.bfloat16),
+                  r(B, S, H, 12, dtype=torch.bfloat16),
+                  r(B, S, H, 8, dtype=torch.bfloat16)))
+    cases.append(("bf16 N 7", r(B, S, H, 7, dtype=torch.bfloat16),
+                  r(B, S, H, 7, dtype=torch.bfloat16),
+                  r(B, S, H, 8, dtype=torch.bfloat16)))
+    cases.append(("value stride 2", r(B, S, H, 32)[..., ::2],
+                  r(B, S, H, 16), r(B, S, H, 32)[..., ::2]))
+    want = {}
+    for name, q, k, v in cases:
+        N, P = q.shape[-1], v.shape[-1]
+        st = (r(B, H, N, P), r(B, H, N))
+        for chunk in (16, 1):
+            want[name, chunk] = K.ssm_chunk_scan_plain(
+                q, k, v, la, lg, chunk=chunk, state=st), st
+
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(K, "ssm_chunk_scan_plain", boom)
+    for name, q, k, v in cases:
+        for chunk in (16, 1):
+            (yp, (Cp, np_)), st = want[name, chunk]
+            if chunk == 1:       # a state 4 bytes off 16-byte alignment
+                C0 = torch.empty(st[0].numel() + 1, device="cuda")[1:]
+                C0.copy_(st[0].reshape(-1))
+                st = (C0.view(st[0].shape), st[1])
+            y, (C, n) = K.ssm_chunk_scan(q, k, v, la, lg, chunk=chunk,
+                                         state=st)
+            for got, ref in ((y, yp), (C, Cp), (n, np_)):
+                assert _scaled_gap(got, ref) <= 2e-5, (name, chunk)
 
 
 @pytest.mark.gpu
@@ -181,6 +278,9 @@ def test_ssm_kernel_raises_off_hopper_or_unbuilt(monkeypatch, tmp_path):
         m.setattr(torch.cuda, "get_device_capability", lambda *a: (8, 0))
         with pytest.raises(RuntimeError, match="sm_90a"):
             K.ssm_chunk_scan(q, k, v, la, lg, chunk=8)
+        with pytest.raises(RuntimeError, match="sm_90a"):
+            K.ssm_chunk_scan(q[:, :1], k[:, :1], v[:, :1], la[:, :1],
+                             lg[:, :1], chunk=1)
 
     def no_nvcc():
         raise RuntimeError("nvcc not found")
@@ -190,6 +290,9 @@ def test_ssm_kernel_raises_off_hopper_or_unbuilt(monkeypatch, tmp_path):
     before = K.ssm_chunk_scan.launches
     with pytest.raises(RuntimeError, match="nvcc"):
         K.ssm_chunk_scan(q, k, v, la, lg, chunk=8)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        K.ssm_chunk_scan(q[:, :1], k[:, :1], v[:, :1], la[:, :1],
+                         lg[:, :1], chunk=1)
     assert K.ssm_chunk_scan.launches == before
 
 
