@@ -17,8 +17,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    shapes the serving paths give it (llama3.2-1b and zamba2-1.2b), in fp32
    and with bf16 inputs, with the kernel's time, its bound, the plain
    version's time and a library call's time where one exists (CUDA events
-   after warm-up; K4 also by CUDA-graph replay, which leaves out the
-   host's dispatch, printed beside). Bounds take each row's input type:
+   after warm-up; K1, K3 and K4 also by CUDA-graph replay, which leaves
+   out the host's dispatch, printed beside). Bounds take each row's input type:
    bf16 bytes at 2 a value and 989 TF/s; fp32 bytes at 4 and, for K2's
    3xTF32 route, 495/3 TF/s (67 TF/s, the CUDA cores' rate, printed beside
    it), else 67 TF/s; K4 takes its route's rates: 495/3 TF/s for fp32
@@ -38,21 +38,30 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    shape (ctx 262144, ``n_splits`` 1 and 64). K4 at zamba2's prefill (B8
    S1024, chunk 128), decode (B8 S1, chunk 1), slot prefill (B1 S1024) and
    chunked prefill (B8 S128) shapes, the two prefill shapes also at the
-   other width of a block's slice of P (32 or 64 columns).
+   other width of a block's slice of P (32 or 64 columns), and at a prime
+   slot prompt (B1 S1031: chunk 1 as the scan ran it unpadded, and S1056
+   chunk 96 with the tail as identity steps, as ``models/ssm.py`` pads it;
+   ROADMAP C.6) beside S1024.
 4. bench   — ``python -m repro_torch.launch.kernel_bench`` at full size,
    in-process: its asserts must hold and each kernel's launch count must
    equal the calls the bench made of its wrapper (K3 launches only here).
 5. engine  — llama3.2-1b and zamba2-1.2b at full width and depth (random
    fp32 weights from a seed, fp32 paged pool) served through
    ``repro_torch.serving.DecodeEngine`` in batched and chunked prefill,
-   once with the kernels and once with the plain paths: greedy tokens must
-   be identical (a first divergence whose plain-path logit gap is below
-   1e-5 is a near tie, ROADMAP C.3: printed, not a fault), every request
-   complete, every page released, and each kernel's launch count equal to
-   what the run's decode steps and prefill calls imply (K4 by route: its
-   chunk kernel 36 x prefill calls, its step kernel 36 x decode steps).
-6. profile — each model's batched configuration under ``torch.profiler``:
-   device busy time against wall time, and the kernels that take it.
+   three ways: the decode horizon as CUDA graphs (the default), dispatched
+   eagerly (``decode_graphs=False``) and on the plain paths
+   (``use_kernels=False``). Greedy tokens must be identical (a first
+   divergence whose plain-path logit gap is below 1e-5 is a near tie,
+   ROADMAP C.3: printed, not a fault), device syncs equal, every request
+   complete, every page released, and, for graphs and eager, each
+   kernel's launch count equal to what the run's decode steps and prefill
+   calls imply (K4 by route: its chunk kernel 36 x prefill calls, its step
+   kernel 36 x decode steps). Each way prints decode tok/s, decode step
+   ms, TTFT, syncs per token and its graph captures and capture time.
+6. profile — each model's batched configuration on the graph path under
+   ``torch.profiler``: device busy time against wall time (also without
+   the captures' time), and the kernels that take it, once K1's calls
+   show that the kernels inside the graphs are attributed.
 
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
 and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
@@ -72,6 +81,7 @@ The last three lines: the card's name and power limit, one JSON object
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import subprocess
 import sys
@@ -352,6 +362,7 @@ def check_paged(rng, dtype, *, B=8, KVH=8, G=4, D=64, page=16, W=128,
     res = {"max_abs_err": err, "ok": ok}
     if time_it:
         res["ms"] = cuda_ms(kern)
+        res["graph_ms"] = graph_ms(kern)
         res["plain_ms"] = cuda_ms(plain, iters=5)
         esz = torch.finfo(dtype).bits // 8
         S = max(1, min(n_splits, W))
@@ -461,8 +472,11 @@ def _check_ssm(dtype, *, B=8, S=1024, H=64, N=64, P=64, chunk=128,
     v = f(B, S, H, P).to(dtype)
     la, lg = -F.softplus(f(B, S, H)), f(B, S, H) * 0.1
     st = (f(B, H, N, P) * 0.3, f(B, H, N) * 0.3)
-    vl = (torch.randint(1, S + 1, (B,), generator=g, device=DEV)
-          if masked else None)
+    if masked is True:
+        vl = torch.randint(1, S + 1, (B,), generator=g, device=DEV)
+    else:               # False, or one valid length for every row
+        vl = (torch.full((B,), int(masked), device=DEV) if masked
+              else None)
     ma, mg = (la, lg) if vl is None else mask_log_gates_tail(la, lg, vl)
     def kern():
         return ssm_chunk_scan(q, k, v, la, lg, chunk=chunk, state=st,
@@ -555,6 +569,7 @@ def check_flash_decode(dtype, *, B, KVH, G, D, T, S, ctx, time_it=False):
            and merr <= tol, "dead_splits": int(dead.sum()) * KVH}
     if time_it:
         res["ms"] = cuda_ms(kern)
+        res["graph_ms"] = graph_ms(kern)
         res["plain_ms"] = cuda_ms(plain, iters=5)
         esz = torch.finfo(dtype).bits // 8
         live = float(c.clamp_max(T).sum())
@@ -660,9 +675,17 @@ def phase_kernels() -> dict:
                 ("valid_len tail S=7 chunk=1",
                  dict(S=7, chunk=1, masked=True)),
                 ("chunk 100 S=200 N=P=128 H=8",
-                 dict(S=200, chunk=100, H=8, N=128, P=128, masked=True))):
-            r = check_ssm(dtype, time_it="valid_len" not in name
-                          and "N=P" not in name, **kw)
+                 dict(S=200, chunk=100, H=8, N=128, P=128, masked=True)),
+                # ROADMAP C.6: a prime slot prompt, as the scan ran it
+                # before (chunk 1: the step kernel over every token) and as
+                # models/ssm.py pads it now (to S 1056, chunk 96, the tail
+                # as identity steps)
+                ("slot prefill B=1 S=1031 chunk=1 (prime, unpadded)",
+                 dict(B=1, S=1031, chunk=1)),
+                ("slot prefill B=1 S=1056 chunk=96 valid 1031 (padded)",
+                 dict(B=1, S=1056, chunk=96, masked=1031))):
+            r = check_ssm(dtype, time_it=("valid_len" not in name
+                                          and "N=P" not in name), **kw)
             cases.append(("ssm_scan", tag, name, r))
             if tag == "fp32" and name.startswith("zamba2 prefill B"):
                 main["ssm_scan"] = r
@@ -749,13 +772,13 @@ def phase_bench(smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
-          prompts, max_prefill=64):
+          prompts, max_prefill=64, decode_graphs=None, time_replay=True):
     from repro_torch.serving import DecodeEngine, EngineConfig, Request
     ecfg = EngineConfig(n_slots=8, page_size=16, n_pages=1024,
                         max_context=1280, eos_token=-1, prefill_mode=mode,
                         prefill_chunk=chunk, decode_horizon=horizon,
                         kernel_splits=splits, use_kernels=use_kernels,
-                        max_prefill=max_prefill)
+                        max_prefill=max_prefill, decode_graphs=decode_graphs)
     eng = DecodeEngine(cfg, ecfg, params, device=DEV)
     for i, p in enumerate(prompts[:n_req]):
         eng.submit(Request(i, p, 32))
@@ -775,10 +798,41 @@ def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
          "ttft_max_ms": 1e3 * float(np.max(ttft)),
          "decode_steps": tm.decode_steps, "prefill_calls": tm.prefill_calls,
          "decode_tokens": tm.decode_tokens, "device_syncs": tm.device_syncs,
-         "decode_s": tm.decode_s, "prefill_s": tm.prefill_s}
+         "decode_s": tm.decode_s, "prefill_s": tm.prefill_s,
+         "graphs": eng.horizons.graphs, "graph_captures": tm.graph_captures,
+         "capture_s": tm.capture_s, "keys": sorted(eng.horizons.captured),
+         "replay_step_ms": (replay_step_ms(eng) if eng.horizons.graphs
+                            and time_replay else None)}
+    # the engine (and its graphs and their memory pool) goes here; the
+    # prefiller refers back to it, so the cycle needs the collector
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
     return {k: list(v) for k, v in out.items()}, m
+
+
+def replay_step_ms(eng, reps: int = 10) -> float:
+    """Device time of one decode step on the graph path, after a run: the
+    widest captured horizon replayed ``reps`` times with ``allow`` zeroed
+    (no slot runs: the same kernels at the same shapes, KV writes to the
+    trash page, every slot's state kept), by CUDA events, over its K steps.
+    The slot table is as the run left it (slots freed before its last
+    horizon hold no context), so K1's share may fall below a served
+    step's. The graph is replayed directly, so the launch counters stay as
+    the run left them."""
+    key = max(eng.horizons.captured)
+    graph = eng.horizons.captured[key].graph
+    eng.horizons.allow.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * key[1])
 
 
 def _kernel_fns():
@@ -838,36 +892,45 @@ def near_tie_gap(cfg, params, seq) -> float:
     return float(top[0] - top[1])
 
 
-def compare_tokens(label, cfg, params, prompts, out_k, out_p) -> None:
-    """Greedy tokens of the kernel and plain engines must agree; a first
-    divergence whose plain-path logit gap is below ``TIE_GAP`` is a near
-    tie (ROADMAP C.3) and is printed, anything else fails."""
+def compare_tokens(label, cfg, params, prompts, out_a, out_b,
+                   names) -> None:
+    """Greedy tokens of two engines must agree; a first divergence whose
+    plain-path logit gap is below ``TIE_GAP`` is a near tie (ROADMAP C.3)
+    and is printed, anything else fails."""
     faults = []
-    for r in sorted(out_k):
-        a, b = out_k[r], out_p[r]
+    for r in sorted(out_a):
+        a, b = out_a[r], out_b[r]
         if a == b:
             continue
         t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                  min(len(a), len(b)))
         gap = near_tie_gap(cfg, params, list(prompts[r]) + b[:t])
         print(f"[engine] {label}: request {r} diverges at step {t} "
-              f"(kernels {a[t:t + 1]} vs plain {b[t:t + 1]}), plain-path "
-              f"logit gap {gap:.3e}"
+              f"({names[0]} {a[t:t + 1]} vs {names[1]} {b[t:t + 1]}), "
+              f"plain-path logit gap {gap:.3e}"
               + (" - a near tie" if gap < TIE_GAP else " - a fault"),
               flush=True)
         if gap >= TIE_GAP:
             faults.append(r)
     if faults:
-        fail(f"{label}: greedy tokens differ between the kernel and plain "
-             f"engines for requests {faults}")
-    print(f"[engine] {label}: greedy tokens identical (kernels vs plain) "
-          f"for {sum(out_k[r] == out_p[r] for r in out_k)}/{len(out_k)} "
-          f"requests", flush=True)
+        fail(f"{label}: greedy tokens differ between the {names[0]} and "
+             f"{names[1]} engines for requests {faults}")
+    print(f"[engine] {label}: greedy tokens identical ({names[0]} vs "
+          f"{names[1]}) for {sum(out_a[r] == out_b[r] for r in out_a)}/"
+          f"{len(out_a)} requests", flush=True)
+
+
+# the three ways phase 5 serves each configuration: the decode horizon as
+# CUDA graphs (the default), dispatched eagerly, and the plain paths
+WAYS = (("graphs", dict(use_kernels=None)),
+        ("eager", dict(use_kernels=None, decode_graphs=False)),
+        ("plain", dict(use_kernels=False)))
 
 
 def run_arch(arch: str, smi: str, launches: dict, **serve_kw) -> None:
-    """Serve ``arch`` at full width in batched and chunked prefill, kernels
-    and plain, then profile the batched configuration."""
+    """Serve ``arch`` at full width in batched and chunked prefill, each
+    three ways (``WAYS``), then profile the batched configuration on the
+    graph path."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params, param_count_actual
     cfg = replace(get_config(arch), dtype="float32")
@@ -892,17 +955,17 @@ def run_arch(arch: str, smi: str, launches: dict, **serve_kw) -> None:
                       ("chunked", dict(mode="chunked", horizon=1, splits=4,
                                        n_req=4, chunk=128))):
         label = f"{arch} {label}"
-        reset_counts(fns)
-        out_k, mk = serve(cfg, params, use_kernels=None, prompts=prompts,
-                          **kw, **serve_kw)
-        la = launch_counts(fns)
-        out_p, mp = serve(cfg, params, use_kernels=False, prompts=prompts,
-                          **kw, **serve_kw)
-        if launch_counts(fns) != la:
-            fail(f"{label}: the plain-path engine launched a kernel")
-        for lbl, m in (("kernels", mk), ("plain", mp)):
+        outs, ms, las = {}, {}, {}
+        for way, wkw in WAYS:
+            # the counts are set to 0 just before each run and read just
+            # after it; the graph run is the main path's
+            reset_counts(fns)
+            outs[way], ms[way] = serve(cfg, params, prompts=prompts, **kw,
+                                       **wkw, **serve_kw)
+            las[way] = launch_counts(fns)
+        for way, m in ms.items():
             dec = m["decode_tokens"]
-            print(f"[engine] {label} {lbl}: completed={m['completed']}/"
+            print(f"[engine] {label} {way}: completed={m['completed']}/"
                   f"{m['n']} page balance max={m['bal_max']} "
                   f"min={m['bal_min']} tokens={m['tokens']} "
                   f"wall={m['wall_s']:.3f} s "
@@ -912,22 +975,40 @@ def run_arch(arch: str, smi: str, launches: dict, **serve_kw) -> None:
                   f"{m['ttft_max_ms']:.1f} ms decode step "
                   f"ms={1e3 * m['decode_s'] / max(1, m['decode_steps']):.2f}"
                   f" syncs/token={m['device_syncs'] / max(1, dec):.4f} "
-                  f"decode_steps={m['decode_steps']} "
+                  f"graph captures={m['graph_captures']} (width, K) "
+                  f"{m['keys']} capture ms={1e3 * m['capture_s']:.1f} "
+                  + (f"replay device ms/step={m['replay_step_ms']:.3f} "
+                     if m["replay_step_ms"] is not None else "")
+                  + f"decode_steps={m['decode_steps']} "
                   f"prefill_calls={m['prefill_calls']} | {smi}", flush=True)
-        want = expected_launches(cfg, mk)
-        print(f"[engine] {label} launches: " + " ".join(
-            f"{k}={la[k]} (expected {want[k]})" for k in la)
-            + f" for decode steps {mk['decode_steps']}, prefill calls "
-            f"{mk['prefill_calls']}", flush=True)
-        compare_tokens(label, cfg, params, prompts, out_k, out_p)
-        for lbl, m in (("kernels", mk), ("plain", mp)):
+        if not ms["graphs"]["graphs"] or ms["eager"]["graphs"]:
+            fail(f"{label}: the default engine did not run the horizon as "
+                 "graphs, or decode_graphs=False did")
+        for way in ("graphs", "eager"):
+            want = expected_launches(cfg, ms[way])
+            la = las[way]
+            print(f"[engine] {label} {way} launches: " + " ".join(
+                f"{k}={la[k]} (expected {want[k]})" for k in la)
+                + f" for decode steps {ms[way]['decode_steps']}, prefill "
+                f"calls {ms[way]['prefill_calls']}", flush=True)
+            if la != want or not all(la[k] for k in la if want[k]):
+                fail(f"{label} {way}: kernel launches {la} do not match the "
+                     f"main path's {want}")
+        if any(las["plain"].values()):
+            fail(f"{label}: the plain-path engine launched a kernel "
+                 f"{las['plain']}")
+        compare_tokens(label, cfg, params, prompts, outs["graphs"],
+                       outs["eager"], ("graphs", "eager"))
+        compare_tokens(label, cfg, params, prompts, outs["graphs"],
+                       outs["plain"], ("graphs", "plain"))
+        for way, m in ms.items():
             if m["completed"] != m["n"] or m["bal_max"] or m["bal_min"]:
-                fail(f"{label} {lbl}: completed {m['completed']}/{m['n']}, "
+                fail(f"{label} {way}: completed {m['completed']}/{m['n']}, "
                      f"page balance {m['bal_max']}/{m['bal_min']}")
-        if la != want or not all(la[k] for k in la if want[k]):
-            fail(f"{label}: kernel launches {la} do not match the main "
-                 f"path's {want}")
-        for k, v in la.items():
+        syncs = {way: m["device_syncs"] for way, m in ms.items()}
+        if len(set(syncs.values())) != 1:
+            fail(f"{label}: device syncs differ across the ways: {syncs}")
+        for k, v in las["graphs"].items():
             launches[k] = launches.get(k, 0) + v
     phase_profile(cfg, params, prompts, smi, serve_kw)
     del params
@@ -944,15 +1025,18 @@ def phase_engine(smi: str) -> dict:
 
 
 def phase_profile(cfg, params, prompts, smi: str, serve_kw) -> None:
-    """Where the time goes: the batched configuration with the kernels
+    """Where the time goes: the batched configuration on the graph path
     under torch.profiler — device busy time against wall time, and the
-    kernels that take it."""
+    kernels that take it. The idle share is trusted only once the profiler
+    is seen to attribute the kernels that run inside the graphs: K1's
+    kernel must show one call per attention layer and decode step replayed
+    plus those of the captures' warm-up passes (a capture runs nothing)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, m = serve(cfg, params, use_kernels=None, prompts=prompts,
                      mode="batched", horizon=4, splits=4, n_req=8, chunk=32,
-                     **serve_kw)
+                     time_replay=False, **serve_kw)
 
     def dev_us(e):
         return (getattr(e, "self_device_time_total", None)
@@ -964,12 +1048,27 @@ def phase_profile(cfg, params, prompts, smi: str, serve_kw) -> None:
         print(f"[profile] {cfg.name}: the profiler recorded no device "
               "kernels; device time not measured", flush=True)
         return
+    n_attn = sum(1 for k in cfg.block_kinds() if k in ("attn", "local"))
+    k1 = sum(e.count for e in ka if "paged_partials_kernel" in e.key)
+    want = n_attn * (m["decode_steps"] + sum(K for _, K in m["keys"]))
+    seen = k1 == want
+    print(f"[profile] {cfg.name}: K1 calls under the profiler {k1}, "
+          f"expected {want} = {n_attn} x ({m['decode_steps']} decode steps "
+          f"replayed + warm-up steps of captures {m['keys']}): "
+          + ("kernels inside the graphs are attributed" if seen else
+             "NOT attributed; the idle share below is not measured"),
+          flush=True)
     busy = sum(dev_us(e) for e in ka) / 1e3
     wall = 1e3 * m["wall_s"]
-    print(f"[profile] {cfg.name} batched kernels under torch.profiler: "
+    cap = 1e3 * m["capture_s"]
+    print(f"[profile] {cfg.name} batched, graph path, under torch.profiler: "
           f"wall={wall:.1f} ms device busy={busy:.1f} ms idle share="
-          f"{1 - busy / wall:.3f} (prefill {1e3 * m['prefill_s']:.1f} ms, "
-          f"decode {1e3 * m['decode_s']:.1f} ms) | {smi}", flush=True)
+          f"{1 - busy / wall:.3f}; without the {m['graph_captures']} "
+          f"captures ({cap:.1f} ms) idle share={1 - busy / (wall - cap):.3f}"
+          f" (prefill {1e3 * m['prefill_s']:.1f} ms, decode "
+          f"{1e3 * m['decode_s']:.1f} ms over {m['decode_steps']} steps)"
+          f"{'' if seen else ' [not measured: attribution failed]'} | {smi}",
+          flush=True)
     for e in sorted(ka, key=dev_us, reverse=True)[:12]:
         print(f"[profile] {cfg.name} {dev_us(e) / 1e3:9.3f} ms "
               f"{e.count:6d} calls {e.key[:90]}")
@@ -1124,13 +1223,14 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r.get("library_ms")})
+                        "library_ms": r.get("library_ms"),
+                        "graph_ms": r.get("graph_ms")})
         if name == "ssm_scan":    # its decode route, the step kernel
             d = main_cases["ssm_scan_decode"]
             kernels[-1].update({
                 "launches_chunk": launches["ssm_scan chunk"],
                 "launches_step": launches["ssm_scan step"],
-                "graph_ms": r["graph_ms"], "decode_ms": d["ms"],
+                "decode_ms": d["ms"],
                 "decode_graph_ms": d["graph_ms"],
                 "decode_bound_ms": d["bound_ms"]})
     print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s",

@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace decode_tile {
 
 constexpr int WARPS = 4;
@@ -379,15 +381,6 @@ int dispatch(int dtype, int rows, int D, A... args) {
   if (dpl <= 1) return by_rows<Launch, float, 1>(rows, args...);
   if (dpl <= 2) return by_rows<Launch, float, 2>(rows, args...);
   return by_rows<Launch, float, 4>(rows, args...);
-}
-
-// Raise the block's dynamic shared memory limit when it is over 48 KB.
-template <typename K>
-cudaError_t allow_smem(K kern, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
 }
 
 }  // namespace decode_tile

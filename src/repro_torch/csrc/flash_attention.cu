@@ -70,6 +70,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -663,8 +664,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const int n_qt = (Sq + qblk - 1) / qblk;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   auto go = [&](auto kern) {
-    cudaError_t ce = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    const cudaError_t ce = allow_smem(kern, C::SMEM);
     if (ce != cudaSuccess) return (int)ce;
     kern<<<n_qt * B * KVH, THREADS, C::SMEM, stream>>>(
         kmap, vmap, (const T*)q, (T*)out, (const int*)q_off, B, Sq, Skv, H,

@@ -73,6 +73,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -752,11 +753,8 @@ int launch_chunk(const void* q, const void* k, const void* v, const void* la,
   const size_t smem = Layout(N, PD, chunk, es, stages).total;
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   auto kern = ssm_chunk_kernel<T, PD, CACHEQ>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
   // v slices start at multiples of PD values (multiples of 64 bytes), so
   // the shortest slice, the last, decides v's copies
   const Copy16 w{copies16(q, st.q, es, N), copies16(k, st.k, es, N),
@@ -779,11 +777,8 @@ int launch_step(const void* q, const void* k, const void* v, const void* la,
   const size_t smem = step_smem(N, P, vec);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   auto kern = vec == 4 ? ssm_step_kernel<T, 4> : ssm_step_kernel<T, 1>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
   kern<<<B * H, STEP_THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)la,
       (const float*)lg, (const float*)c0, (const float*)n0, (float*)y,

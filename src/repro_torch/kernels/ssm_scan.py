@@ -150,6 +150,9 @@ def _launch(q, k, v, log_a, log_g, *, chunk: int, state):
                          f"shared memory a block (max {MAX_SMEM})")
     dev = q.device
     C0, n0 = _state_in(state, B, H, N, P, dev)
+    # inside a captured decode horizon (serving/graphs.py) this clone and
+    # the host stride array below are decided once, at capture: sound
+    # because a graph's shapes and addresses never change between replays
     if C0 is not None and C0.data_ptr() % 16:
         C0 = C0.clone()        # the step kernel reads the state 16 B a load
     la = log_a.to(torch.float32).contiguous()

@@ -100,6 +100,12 @@ def main(argv=None):
           f"host_us/step={tm['host_us_per_step']:.0f} "
           f"horizon={args.decode_horizon} "
           f"syncs/tok={tm['syncs_per_token']:.3f}", flush=True)
+    print(f"[serve] decode step ms="
+          f"{1e3 * tm['decode_s'] / max(1, tm['decode_steps']):.3f} "
+          f"graph captures={tm['graph_captures']} "
+          f"capture ms={1e3 * tm['capture_s']:.1f} "
+          f"({'CUDA graphs' if eng.horizons.graphs else 'eager'})",
+          flush=True)
     bal = eng.alloc.shard_balance()
     print(f"[serve] page balance per shard: max={bal.max()} min={bal.min()}",
           flush=True)

@@ -460,13 +460,6 @@ def _mamba_prefill(cfg, rt: Runtime, mask):
     return mamba
 
 
-def _last_rows(x, last_idx):
-    if last_idx is None:
-        return x[:, -1]
-    idx = torch.as_tensor(last_idx, device=x.device).long()
-    return x[torch.arange(x.shape[0], device=x.device), idx]
-
-
 def prefill(cfg, params, state, tokens, bt, *, last_idx=None, valid_len=None,
             rt: Runtime = DEFAULT_RT):
     """Run the prompt through the model, writing its KV pages and (hybrids)

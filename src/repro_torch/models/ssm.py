@@ -196,6 +196,60 @@ def _masked_tail(full, mask, width: int):
                                                        full.shape[2]))
 
 
+# The shortest scan chunk a long sequence runs at. A length whose largest
+# divisor up to ``chunk`` is shorter (a prime such as 1031 has only 1) is
+# padded with identity steps to a multiple of it: at chunk 1 the scan would
+# take one token a step (the kernel's step route on the card, a Python loop
+# over the tokens on the plain path).
+CHUNK_FLOOR = 32
+
+
+def scan_geometry(S: int, chunk: int) -> tuple[int, int]:
+    """(scan chunk, scanned length) for S positions at a chunk of at most
+    ``chunk``: the largest chunk that divides S; where that is below
+    ``CHUNK_FLOOR`` (and ``min(chunk, S)`` is not), S rounded up to a
+    multiple of ``CHUNK_FLOOR`` and the largest chunk that divides that."""
+    c = min(chunk, S)
+
+    def divisor(n):
+        d = c
+        while n % d:
+            d -= 1
+        return d
+    d = divisor(S)
+    if d >= CHUNK_FLOOR or c < CHUNK_FLOOR:
+        return d, S
+    padded = -(-S // CHUNK_FLOOR) * CHUNK_FLOOR
+    return divisor(padded), padded
+
+
+def mamba_scan(Cm, Bm, xh, log_a, log_g, *, chunk: int, state=None,
+               kernels=None):
+    """The Mamba2 scan: Cm/Bm [B, S, N] are q/k shared by every head
+    (stride-0 views over the heads, never copied per head), xh
+    [B, S, H, P] the values, log_a/log_g [B, S, H]. Runs
+    ``ops.mamba_mixer`` at ``scan_geometry(S, chunk)``; positions padded
+    past S are identity steps (``valid_len`` S), so y [B, S, H, P] and the
+    state equal the unpadded scan's."""
+    from repro_torch.kernels import ops
+    Bsz, S, nh = log_a.shape
+    N = Cm.shape[-1]
+    chunk, S_scan = scan_geometry(S, chunk)
+    valid_len = None
+    if S_scan > S:
+        def pad(t):
+            return torch.cat([t, t.new_zeros((Bsz, S_scan - S,
+                                              *t.shape[2:]))], dim=1)
+        Cm, Bm, xh, log_a, log_g = map(pad, (Cm, Bm, xh, log_a, log_g))
+        valid_len = torch.full((Bsz,), S, device=log_a.device)
+    q = Cm[:, :, None, :].expand(Bsz, S_scan, nh, N)
+    k = Bm[:, :, None, :].expand(Bsz, S_scan, nh, N)
+    y, ssm_state = ops.mamba_mixer(q, k, xh, log_a, log_g, chunk=chunk,
+                                   state=state, valid_len=valid_len,
+                                   kernels=kernels)
+    return y[:, :S], ssm_state
+
+
 def mamba_forward(p, cfg, x, state=None, *, chunk: int = 128, mask=None,
                   kernels=None):
     """x [B, S, D] -> (y [B, S, D], state). state = {"conv": tail
@@ -203,15 +257,13 @@ def mamba_forward(p, cfg, x, state=None, *, chunk: int = 128, mask=None,
 
     ``mask`` [B, S] bool marks real tokens (end-padded rows of a
     length-bucketed batch): pad positions neither advance the SSM state nor
-    enter the carried conv tail. The scan goes through
+    enter the carried conv tail. The scan is ``mamba_scan``: through
     ``ops.mamba_mixer`` with ``kernels`` (the chunk-scan kernel when
-    enabled, ``chunked_gla`` otherwise), at the largest chunk not above
-    ``chunk`` that divides S (JAX asserts that ``chunk`` does; the result
-    does not depend on the chunking).
+    enabled, ``chunked_gla`` otherwise) at ``scan_geometry``'s chunk (JAX
+    asserts that ``chunk`` divides S; the result does not depend on the
+    chunking).
     """
-    from repro_torch.kernels import ops
     Bsz, S, _ = x.shape
-    nh, N = cfg.ssm_n_heads, cfg.ssm_state
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
     z, xbc, dt_raw = _mamba_proj(p, cfg, xin)
     carried = cfg.ssm_conv - 1
@@ -229,17 +281,11 @@ def mamba_forward(p, cfg, x, state=None, *, chunk: int = 128, mask=None,
     else:
         new_conv_tail = _masked_tail(xbc_full, mask, carried)
     xh, Bm, Cm, dt, log_a = _mamba_ssm_inputs(p, cfg, xbc_act, dt_raw)
-    # q/k are shared by every head: stride-0 views, never copied per head
-    q = Cm[:, :, None, :].expand(Bsz, S, nh, N)
-    k = Bm[:, :, None, :].expand(Bsz, S, nh, N)
     log_g = torch.log(dt + 1e-20)
-    chunk = min(chunk, S)
-    while S % chunk:
-        chunk -= 1
     if mask is not None:
         log_a, log_g = mask_log_gates(log_a, log_g, mask)
-    y, ssm_state = ops.mamba_mixer(
-        q, k, xh, log_a, log_g, chunk=chunk,
+    y, ssm_state = mamba_scan(
+        Cm, Bm, xh, log_a, log_g, chunk=chunk,
         state=state["ssm"] if state is not None else None, kernels=kernels)
     y = y + xh.float() * p["D"][None, None, :, None]
     y = y.reshape(Bsz, S, cfg.d_inner).to(x.dtype)

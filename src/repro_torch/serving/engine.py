@@ -14,6 +14,9 @@ from the queue.
 * decode — ``EngineConfig.decode_horizon`` decode steps per tick
   (``models.model.decode_multi``): decode, on-device greedy sampling, KV
   write-position advance and per-slot EOS/budget masking stay on the card.
+  On a card the horizon is one CUDA graph per (table width, horizon),
+  captured at first use and replayed (``serving.graphs``): JAX's one jit
+  per ``(horizon, width)``.
 
 The per-slot state (block table, context, current token, remaining budget)
 lives on the device (``DeviceSlotState``), is advanced in place by the
@@ -51,6 +54,7 @@ from repro_torch.core.paged_kv import PoolSpec
 from repro_torch.core.scheduler import ContinuousBatcher, Request
 from repro_torch.kernels.backend import KernelConfig, resolve_device
 from repro_torch.models import model as MDL
+from repro_torch.serving.graphs import HorizonRunner
 from repro_torch.serving.policies import make_policy
 from repro_torch.serving.prefill import decode_table_bucket, make_prefiller
 from repro_torch.serving.request import Request as RequestSpec
@@ -91,6 +95,11 @@ class EngineConfig:
     kernel_splits: int = 1
     # pow2 bucketing of the decode block-table width by live-page count
     decode_bucket: bool = True
+    # the decode horizon as CUDA graphs (serving/graphs.py): None = graphs
+    # on a CUDA engine, False = eager dispatch (the counterpart of
+    # jax.disable_jit(): the paired comparison, debugging); True on a CPU
+    # engine raises
+    decode_graphs: bool | None = None
     # ---- features not ported yet: must keep these defaults ----
     draft_config: Any = None
     prefix_cache: bool = False
@@ -120,6 +129,8 @@ class EngineTiming:
     host_s: float = 0.0               # schedule + config-buffer assembly
     prefill_s: float = 0.0
     decode_s: float = 0.0             # decode dispatch + horizon readback
+    capture_s: float = 0.0            # one-time graph captures (not decode)
+    graph_captures: int = 0           # (width, horizon) graphs captured
     device_syncs: int = 0             # host<->device decode rendezvous
     decode_tokens: int = 0            # tokens emitted by decode dispatches
     decode_steps: int = 0             # decode steps dispatched (sum of K)
@@ -129,6 +140,8 @@ class EngineTiming:
         n = max(1, self.steps)
         return {"steps": self.steps, "host_us_per_step": 1e6 * self.host_s / n,
                 "prefill_s": self.prefill_s, "decode_s": self.decode_s,
+                "capture_s": self.capture_s,
+                "graph_captures": self.graph_captures,
                 "host_s": self.host_s, "device_syncs": self.device_syncs,
                 "decode_tokens": self.decode_tokens,
                 "decode_steps": self.decode_steps,
@@ -142,7 +155,8 @@ class DeviceSlotState:
     block table [n_slots, W], context lengths, current tokens and remaining
     budgets, all int32 on the engine's device. The horizon advances them in
     place; the host only patches the rows the scheduler marked dirty
-    (admission / page growth / free)."""
+    (admission / page growth / free). The tensors are never rebound: a
+    captured horizon reads them at fixed addresses."""
 
     def __init__(self, n_slots: int, width: int, device):
         self.bt = torch.full((n_slots, width), -1, dtype=torch.int32,
@@ -208,6 +222,13 @@ class DecodeEngine:
         self.prefiller = make_prefiller(ecfg.prefill_mode, self)
         self.timing = EngineTiming()
         self.dev = DeviceSlotState(ecfg.n_slots, maxp, self.device)
+        graphs = ecfg.decode_graphs
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        elif graphs and self.device.type != "cuda":
+            raise ValueError("EngineConfig.decode_graphs=True needs a CUDA "
+                             f"engine; this one runs on {self.device}")
+        self.horizons = HorizonRunner(self, graphs=bool(graphs))
         # in-flight horizon: (packed device readback, K, [(slot, req)]),
         # collected at the next tick's sync point
         self._inflight: tuple | None = None
@@ -390,20 +411,14 @@ class DecodeEngine:
             if E.decode_bucket and W > 16:
                 width = decode_table_bucket(self.batcher.max_live_pages(), W)
 
+        key = (int(width), int(K))
+        if self.horizons.needs_capture(key):
+            with self._phase("capture_s"):
+                self.horizons.capture(key)
+            self.timing.graph_captures += 1
         with self._phase("decode_s"):
-            toks, emit, fin, self.state, self.dev.tokens, self.dev.ctx, \
-                self.dev.rem = MDL.decode_multi(
-                    self.cfg, self.params, self.state, self.dev.tokens,
-                    self.dev.bt, self.dev.ctx, self.dev.rem,
-                    self._tensor(np.asarray(allow, np.int32)),
-                    horizon=int(K), table_width=int(width),
-                    page_size=E.page_size, n_pages=E.n_pages,
-                    eos_token=E.eos_token, sample=self._scan_sample,
-                    rt=self.rt)
+            packed = self.horizons.run(key, allow)
             self.timing.decode_steps += int(K)
-            packed = torch.cat([toks.reshape(-1).to(torch.int32),
-                                emit.reshape(-1).to(torch.int32),
-                                fin.to(torch.int32)])
             self._inflight = (packed, int(K),
                               [(s, self.batcher.slots[s]) for s in active])
 

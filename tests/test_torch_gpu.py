@@ -522,3 +522,89 @@ def test_kernels_raise_on_misaligned_rows_and_never_take_plain(monkeypatch):
     torch.cuda.synchronize()
     assert FA.flash_attention_fwd.launches == before[0] + 1
     assert PA.paged_attention_partials.launches == before[2] + 1
+
+
+# ---------------------------------------------------------------------------
+# the decode horizon as CUDA graphs (serving/graphs.py)
+# ---------------------------------------------------------------------------
+
+# 2-token pages and a 41-slot table: the decode table width is bucketed (16
+# or 32 slots), so runs dispatch more than one (width, K)
+ENGINE_KW = dict(n_slots=2, page_size=2, n_pages=64, max_context=80,
+                 eos_token=-1)
+
+
+def _engines(arch, ways, **kw):
+    """One engine per entry of ``ways`` (EngineConfig overrides) on the
+    card, all serving the same reduced ``arch`` weights and requests."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DecodeEngine, EngineConfig, Request
+    cfg = replace(reduced(get_config(arch)), dtype="float32")
+    params = init_params(cfg, 0, torch.float32, "cuda")
+    rng = np.random.default_rng(7)
+    reqs = [(r, rng.integers(0, 256, int(rng.integers(3, 30))), 9)
+            for r in range(5)]
+    engs = []
+    for way in ways:
+        eng = DecodeEngine(cfg, EngineConfig(**ENGINE_KW, **kw, **way),
+                           params, device="cuda")
+        for r, prompt, n in reqs:
+            eng.submit(Request(r, prompt, n))
+        engs.append(eng)
+    return engs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-1.2b"])
+@pytest.mark.parametrize("mode,horizon", [("batched", 4), ("chunked", 1),
+                                          ("slot", 8)])
+def test_graph_engine_matches_eager_and_plain(arch, mode, horizon):
+    """The default engine replays its horizons as CUDA graphs; its tokens
+    and sync counts equal the eager (``decode_graphs=False``) and plain
+    (``use_kernels=False``) engines'."""
+    _card()
+    graphs, eager, plain = _engines(
+        arch, ({}, dict(decode_graphs=False), dict(use_kernels=False)),
+        prefill_mode=mode, decode_horizon=horizon, prefill_chunk=8)
+    outs = [e.run(1000) for e in (graphs, eager, plain)]
+    assert outs[0] == outs[1] == outs[2]
+    assert graphs.horizons.graphs and graphs.timing.graph_captures >= 1
+    assert not eager.horizons.graphs and eager.timing.graph_captures == 0
+    assert (graphs.timing.device_syncs == eager.timing.device_syncs
+            == plain.timing.device_syncs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-1.2b"])
+def test_graph_engine_tracks_eager_tick_by_tick(arch):
+    """Tick by tick, the graph engine's device slot state equals the eager
+    engine's: dirty-row patches (admissions into freed slots, page growth)
+    made between two replays of one graph are read by the next replay,
+    and a table-width change mid-run captures a new graph."""
+    _card()
+    graphs, eager = _engines(arch, ({}, dict(decode_graphs=False)),
+                             prefill_mode="batched", decode_horizon=4)
+    patches = []
+    patch = graphs.dev.patch
+    graphs.dev.patch = lambda *a: patches.append(1) or patch(*a)
+    patched_before_replay = 0
+    for _ in range(1000):
+        if graphs._inflight is None and graphs.batcher.done():
+            break
+        n_captured, n_patches = len(graphs.horizons.captured), len(patches)
+        graphs.tick()
+        eager.tick()
+        # this tick patched rows and replayed a graph captured before it
+        if n_captured == len(graphs.horizons.captured) >= 1 \
+                and len(patches) > n_patches:
+            patched_before_replay += 1
+        for name in ("bt", "ctx", "tokens", "rem"):
+            assert torch.equal(getattr(graphs.dev, name),
+                               getattr(eager.dev, name)), name
+    assert eager._inflight is None and eager.batcher.done()
+    assert graphs.outputs == eager.outputs
+    assert patched_before_replay > 0
+    widths = {w for w, _ in graphs.horizons.captured}
+    assert len(widths) >= 2, graphs.horizons.captured

@@ -274,3 +274,78 @@ def test_mamba_mixer_paths_agree():
     for x, y in zip(a[1], b[1]):
         _close(x, y, 1e-5)
     assert torch.equal(a[1][2], st[2])
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP C.6: lengths without a long divisor are padded with identity steps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,chunk,want", [
+    (1024, 128, (128, 1024)),      # a multiple of the chunk: no padding
+    (192, 128, (96, 192)),         # a divisor of 32 or more: no padding
+    (1031, 128, (96, 1056)),       # a prime: padded to a multiple of 32
+    (131, 128, (80, 160)),
+    (1, 128, (1, 1)),              # the decode step
+    (13, 8, (1, 13)),              # chunk below the floor: as it was
+    (40, 128, (40, 40)),           # one chunk
+])
+def test_scan_geometry(S, chunk, want):
+    assert SSM.scan_geometry(S, chunk) == want
+
+
+def _gap(got, want) -> float:
+    """Largest difference relative to the reference's scale (at least 1)."""
+    want = np.asarray(want)
+    return float(np.abs(np.asarray(got) - want).max()
+                 / max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("kernels", [None, KernelConfig()],
+                         ids=["plain", "kernel-wrapper"])
+@pytest.mark.parametrize("S,masked", [(131, False), (131, True)])
+def test_padded_scan_equals_unpadded(kernels, S, masked):
+    """``mamba_scan`` at a prime length (padded to 160, chunk 80) gives the
+    unpadded scan's y and state within 1e-5 of scale: held to
+    ``ssm_chunk_scan_plain`` and ``ref.ssm_chunk_scan_ref`` at chunk 1,
+    since ``repro`` refuses the length (``chunked_gla`` asserts
+    ``S % min(128, S) == 0``). ``masked``: rows end-padded before the
+    scan's own padding (a batched bucket), as identity steps too."""
+    B, H, N, P = 2, 3, 8, 6
+    rng = np.random.default_rng(S)
+    f = lambda *s: _t(rng.standard_normal(s))  # noqa: E731
+    Cm, Bm, xh = f(B, S, N), f(B, S, N), f(B, S, H, P)
+    la = -torch.nn.functional.softplus(f(B, S, H))
+    lg = f(B, S, H) * 0.1
+    state = (f(B, H, N, P) * 0.3, f(B, H, N) * 0.3, torch.zeros(B, H))
+    if masked:
+        mask = torch.arange(S)[None] < torch.tensor([97, S])[:, None]
+        la, lg = SSM.mask_log_gates(la, lg, mask)
+    y, (C, n, m) = SSM.mamba_scan(Cm, Bm, xh, la, lg, chunk=128,
+                                  state=state, kernels=kernels)
+    q = Cm[:, :, None].expand(B, S, H, N)
+    k = Bm[:, :, None].expand(B, S, H, N)
+    yp, (Cp, np_) = ssm_chunk_scan_plain(q, k, xh, la, lg, chunk=1,
+                                         state=state[:2])
+    yr, (Cr, nr, mr) = REF.ssm_chunk_scan_ref(q, k, xh, la, lg, state, 1)
+    assert y.shape == (B, S, H, P)
+    live = slice(None, 97) if masked else slice(None)
+    for want_y, want_C, want_n in ((yp, Cp, np_), (yr, Cr, nr)):
+        assert _gap(y[0, live], want_y[0, live]) <= 1e-5
+        assert _gap(y[1], want_y[1]) <= 1e-5
+        assert _gap(C, want_C) <= 1e-5
+        assert _gap(n, want_n) <= 1e-5
+    assert torch.equal(m, state[2]) and torch.equal(mr, state[2])
+
+
+def test_mamba_forward_pads_prime_lengths(mamba):
+    """The Mamba2 block at a prime length S 131 (scanned padded to 160 at
+    chunk 80) equals the same block scanned as one 131-token chunk."""
+    _, cfg, _, p = mamba
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (2, 131, cfg.d_model)).astype(np.float32) * 0.5)
+    y, st = SSM.mamba_forward(p, cfg, x, chunk=128, kernels=KernelConfig())
+    y1, st1 = SSM.mamba_forward(p, cfg, x, chunk=131)
+    assert _gap(y, y1) <= 1e-5
+    assert _gap(st["conv"], st1["conv"]) <= 1e-5
+    for a, b in zip(st["ssm"], st1["ssm"]):
+        assert _gap(a, b) <= 1e-5
