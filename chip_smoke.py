@@ -62,6 +62,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``torch.profiler``: device busy time against wall time (also without
    the captures' time), and the kernels that take it, once K1's calls
    show that the kernels inside the graphs are attributed.
+7. kvcache — the KV-cache hierarchy at full width and depth on the graph
+   path (fp32 pool, page 16, 8 slots). llama3.2-1b serves 16 requests of
+   512-1024 tokens whose prompts share 90% with a system prompt (as
+   ``launch/serve.py --shared-frac 0.9`` builds them), 32 new tokens each:
+   (a) without the prefix cache on an ample pool (the reference), (b)
+   with it in batched and chunked prefill, (c) with it on a pool of ~40%
+   of (a)'s peak pages and a host tier for the rest (no same-tick dedup),
+   so watermark offload and swap-in both run. Tokens must equal (a)'s
+   (the near-tie rule of phase 5), (b) and (c) must hit and copy on write,
+   (c) must swap both ways, every page must end free or held by the
+   tree, the pool must keep its tensors, and launches must equal what the
+   decode steps and prefill calls (suffix calls included) imply. Prints
+   TTFT of hit against cold requests, peak pages with and without the
+   cache, swap pages, bytes, device ms and GB/s. zamba2-1.2b serves 8
+   requests in batched and chunked prefill on an ample pool and on a
+   120-page pool that preempts, with preemption snapshots
+   (``state_resume``) and without: tokens equal the ample pool's,
+   restores only with snapshots, none left behind.
 
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
 and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
@@ -1075,6 +1093,276 @@ def phase_profile(cfg, params, prompts, smi: str, serve_kw) -> None:
     sys.stdout.flush()
 
 
+# ---------------------------------------------------------------------------
+# 7. the KV-cache hierarchy
+# ---------------------------------------------------------------------------
+
+def shared_prompts(vocab: int, n: int, lo: int, hi: int, frac: float,
+                   max_context: int, seed: int = 0) -> list:
+    """Prompts as ``launch/serve.py --shared-frac`` builds them: a common
+    system prompt of ``max_context`` random ids opens every prompt over
+    ``frac`` of its length (at least one private token); lengths uniform in
+    [lo, hi]."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, size=max_context)
+    out = []
+    for n_tok in rng.integers(lo, hi + 1, n):
+        prompt = rng.integers(0, vocab, size=int(n_tok))
+        k = min(int(n_tok * frac), int(n_tok) - 1)
+        prompt[:k] = system[:k]
+        out.append(prompt)
+    return out
+
+
+def serve_kv(cfg, params, prompts, *, device=DEV, n_pages=1024, new=32,
+             **ecfg_kw):
+    """Serve ``prompts`` tick by tick on the engine's default path (graphs
+    on a card) and return (outputs, measures): TTFT by whether admission
+    hit the prefix cache, the peak of pages in use, the cache and tier
+    counters, the copies' bytes and device ms, and whether the pool kept
+    its tensors."""
+    from repro_torch.serving import DecodeEngine, EngineConfig, Request
+    ecfg = EngineConfig(n_slots=8, page_size=16, n_pages=n_pages,
+                        max_context=1280, eos_token=-1, **ecfg_kw)
+    eng = DecodeEngine(cfg, ecfg, params, device=device)
+    matched: dict[int, int] = {}
+    if eng.cache is not None:
+        lookup = eng.cache.lookup
+
+        def record(req_id, tokens):
+            hit = lookup(req_id, tokens)
+            matched.setdefault(req_id, hit.matched)   # first admission
+            return hit
+        eng.cache.lookup = record
+    pool = eng.state.get("pool")
+    ptrs = {k: t.data_ptr() for k, t in pool.items()} if pool else {}
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, new))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    peak = ticks = 0
+    while not (eng._inflight is None and eng.batcher.done()):
+        eng.tick()
+        peak = max(peak, eng.alloc.pages_in_use)
+        ticks += 1
+        if ticks > 100_000:
+            fail(f"{cfg.name}: serving did not finish")
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {k: list(v) for k, v in eng.outputs.items()}
+    ttft = {r: eng.first_tok_t[r] - eng.submit_t[r] for r in out}
+    hit = [1e3 * ttft[r] for r in out if matched.get(r, 0) > 0]
+    cold = [1e3 * ttft[r] for r in out if matched.get(r, 0) == 0]
+    tm, st = eng.timing, eng.batcher.stats
+    m = {"completed": st.completed, "n": len(prompts), "wall_s": wall,
+         "preempted": st.preempted, "peak_pages": peak,
+         "pages_in_use": eng.alloc.pages_in_use,
+         "ttft_hit_ms": float(np.mean(hit)) if hit else None,
+         "ttft_cold_ms": float(np.mean(cold)) if cold else None,
+         "n_hit": len(hit), "n_cold": len(cold),
+         "ttft_mean_ms": 1e3 * float(np.mean(list(ttft.values()))),
+         "decode_steps": tm.decode_steps, "prefill_calls": tm.prefill_calls,
+         "decode_s": tm.decode_s, "prefill_s": tm.prefill_s,
+         "device_syncs": tm.device_syncs, "graphs": eng.horizons.graphs,
+         "graph_captures": tm.graph_captures,
+         "ptrs_kept": bool(pool) and ptrs == {
+             k: t.data_ptr() for k, t in eng.state["pool"].items()},
+         "rstate_snapshots": eng.rstate_snapshots,
+         "rstate_restores": eng.rstate_restores,
+         "rsnaps_left": len(eng.rsnaps), "cache": None, "tier": None,
+         "copy": None, "tree_pages": 0,
+         "page_bytes": eng.pool_spec.bytes(4) // eng.pool_spec.n_pages}
+    if eng.cache is not None:
+        m["cache"] = eng.cache.stats.as_dict()
+        m["tree_pages"] = eng.cache.tree.device_pages()
+        if eng.cache.host is not None:
+            eng.cache.host.copier.settle()
+            m["tier"] = eng.cache.host.stats.as_dict()
+            m["copy"] = eng.cache.host.copier.stats.as_dict()
+    del eng
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return out, m
+
+
+def _gbs(nbytes: int, ms: float) -> str:
+    return f"{nbytes / 1e6 / ms:.2f} GB/s" if ms > 0 else "not measured"
+
+
+def kv_line(label: str, m: dict, smi: str) -> str:
+    def ms(x):
+        return "-" if x is None else f"{x:.1f}"
+    line = (f"[kvcache] {label}: completed={m['completed']}/{m['n']} "
+            f"preempted={m['preempted']} peak pages={m['peak_pages']} "
+            f"ttft mean={m['ttft_mean_ms']:.1f} ms, hit {ms(m['ttft_hit_ms'])}"
+            f" ms ({m['n_hit']} requests) / cold {ms(m['ttft_cold_ms'])} ms "
+            f"({m['n_cold']}) decode step ms="
+            f"{1e3 * m['decode_s'] / max(1, m['decode_steps']):.2f} "
+            f"prefill calls={m['prefill_calls']} prefill "
+            f"s={m['prefill_s']:.3f} wall={m['wall_s']:.3f} s "
+            f"syncs={m['device_syncs']} captures={m['graph_captures']}")
+    if m["cache"] is not None:
+        c = m["cache"]
+        line += (f" | hits={c['hits']}/{c['lookups']} hit_tokens="
+                 f"{c['hit_tokens']} cow={c['cow_copies']} evicted="
+                 f"{c['evicted_pages']} tree pages={m['tree_pages']}")
+    if m["tier"] is not None:
+        t, cp = m["tier"], m["copy"]
+        prefix58 = 58 * m["page_bytes"] * cp["h2d_ms"] / max(1,
+                                                             cp["h2d_bytes"])
+        line += (f" | swap out {t['swapped_out_pages']} pages "
+                 f"{cp['d2h_bytes']} B {cp['d2h_ms']:.3f} ms "
+                 f"{_gbs(cp['d2h_bytes'], cp['d2h_ms'])}, in "
+                 f"{t['swapped_in_pages']} pages {cp['h2d_bytes']} B "
+                 f"{cp['h2d_ms']:.3f} ms {_gbs(cp['h2d_bytes'], cp['h2d_ms'])}"
+                 f" (swap-ins and host copies on write; a 58-page prefix "
+                 f"at this rate: {prefix58:.3f} ms), peak host pages "
+                 f"{t['peak_host_pages']}, pinned allocation "
+                 f"{cp['pin_alloc_ms']:.1f} ms of host time")
+    if m["rstate_snapshots"] or m["rstate_restores"]:
+        line += (f" | rstate snapshots={m['rstate_snapshots']} restores="
+                 f"{m['rstate_restores']}")
+    return line + f" | {smi}"
+
+
+def kv_llama(cfg, params, smi: str, launches: dict, *, device=DEV,
+             n_req: int = 16) -> dict:
+    """llama3.2-1b: a 0.9-shared trace served (a) without the cache on an
+    ample pool, (b) with it on the same pool in batched and chunked
+    prefill, (c) with it on a pool of ~40% of (a)'s peak pages and a host
+    tier for the rest (watermark offload and swap-in). Returns the
+    measures by label."""
+    prompts = shared_prompts(cfg.vocab_size, n_req, 512, 1024, 0.9, 1280)
+    fns = _kernel_fns()
+    batched = dict(prefill_mode="batched", decode_horizon=4,
+                   kernel_splits=4)
+    chunked = dict(prefill_mode="chunked", prefill_chunk=128,
+                   decode_horizon=1, kernel_splits=4)
+    runs = {}
+
+    def run(label, **kw):
+        reset_counts(fns)
+        out, m = serve_kv(cfg, params, prompts, device=device, **kw)
+        la = launch_counts(fns)
+        runs[label] = out, m
+        print(kv_line(f"{cfg.name} {label}", m, smi), flush=True)
+        if device == "cpu":
+            return out, m
+        want = expected_launches(cfg, m)
+        print(f"[kvcache] {cfg.name} {label} launches: " + " ".join(
+            f"{k}={la[k]} (expected {want[k]})" for k in la), flush=True)
+        if la != want or not all(la[k] for k in la if want[k]):
+            fail(f"{label}: kernel launches {la} do not match {want}")
+        if not m["graphs"]:
+            fail(f"{label}: the engine did not run the horizon as graphs")
+        for k, v in la.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, m
+
+    ref, ma = run("(a) cache off, ample pool", **batched)
+    tight = max(16, int(0.4 * ma["peak_pages"]))
+    run("(b) prefix cache, ample pool, batched", prefix_cache=True,
+        **batched)
+    run("(b) prefix cache, ample pool, chunked", prefix_cache=True,
+        **chunked)
+    run(f"(c) prefix cache, {tight}-page pool, host tier", n_pages=tight,
+        prefix_cache=True, host_pages=ma["peak_pages"],
+        prefill_dedup=False, **batched)
+    for label, (out, m) in runs.items():
+        if m["completed"] != m["n"]:
+            fail(f"{label}: completed {m['completed']}/{m['n']}")
+        if not m["ptrs_kept"]:
+            fail(f"{label}: the pool was rebound")
+        if m["pages_in_use"] != m["tree_pages"]:
+            fail(f"{label}: {m['pages_in_use']} pages in use, "
+                 f"{m['tree_pages']} held by the tree")
+        if m["cache"] is not None:
+            c = m["cache"]
+            if not (c["hits"] > 0 and c["cow_copies"] > 0):
+                fail(f"{label}: no hits or no copies on write: {c}")
+        if m["tier"] is not None:
+            t = m["tier"]
+            if not (t["swapped_out_pages"] > 0 and t["swapped_in_pages"] > 0):
+                fail(f"{label}: the host tier did not swap both ways: {t}")
+        if out is not ref:
+            compare_tokens(f"{cfg.name} {label}", cfg, params, prompts,
+                           ref, out, ("cache off", "cache on"))
+    return {label: m for label, (_, m) in runs.items()}
+
+
+def kv_zamba(cfg, params, smi: str, launches: dict, *, device=DEV,
+             n_req: int = 8, tight: int = 120) -> dict:
+    """zamba2-1.2b: preemption snapshots. Each prefill mode on an ample
+    pool, then on a ``tight``-page pool with ``state_resume`` on (the
+    default: the carry rows and KV pages go to pinned host memory and
+    come back) and off (recompute)."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n_tok))
+               for n_tok in rng.integers(256, 1025, n_req)]
+    fns = _kernel_fns()
+    out_m = {}
+    for mode, kw in (("batched", dict(prefill_mode="batched",
+                                      decode_horizon=4)),
+                     ("chunked", dict(prefill_mode="chunked",
+                                      prefill_chunk=128, decode_horizon=1))):
+        runs = {}
+        for label, extra in (("ample pool", dict(n_pages=1024)),
+                             ("state_resume", dict(n_pages=tight)),
+                             ("recompute", dict(n_pages=tight,
+                                                state_resume=False))):
+            reset_counts(fns)
+            out, m = serve_kv(cfg, params, prompts, device=device,
+                              max_prefill=1024, kernel_splits=4, **kw,
+                              **extra)
+            la = launch_counts(fns)
+            name = f"{cfg.name} {mode} {label}"
+            print(kv_line(name, m, smi), flush=True)
+            runs[label] = out, m
+            out_m[f"{mode} {label}"] = m
+            if m["completed"] != m["n"] or m["pages_in_use"]:
+                fail(f"{name}: completed {m['completed']}/{m['n']}, "
+                     f"{m['pages_in_use']} pages left")
+            if not m["ptrs_kept"] or m["rsnaps_left"]:
+                fail(f"{name}: pool rebound or snapshots left")
+            if device == "cpu":
+                continue
+            want = expected_launches(cfg, m)
+            print(f"[kvcache] {name} launches: " + " ".join(
+                f"{k}={la[k]} (expected {want[k]})" for k in la), flush=True)
+            if la != want or not all(la[k] for k in la if want[k]):
+                fail(f"{name}: kernel launches {la} do not match {want}")
+            for k, v in la.items():
+                launches[k] = launches.get(k, 0) + v
+        on, off = runs["state_resume"][1], runs["recompute"][1]
+        if not (on["preempted"] > 0 and on["rstate_restores"] > 0):
+            fail(f"{cfg.name} {mode}: no preemption restored ({on})")
+        if off["rstate_restores"] or not off["preempted"]:
+            fail(f"{cfg.name} {mode}: the recompute run restored or never "
+                 "preempted")
+        ref = runs["ample pool"][0]
+        for label in ("state_resume", "recompute"):
+            compare_tokens(f"{cfg.name} {mode} {label}", cfg, params,
+                           prompts, ref, runs[label][0],
+                           ("ample pool", label))
+    return out_m
+
+
+def phase_kvcache(smi: str, launches: dict) -> None:
+    """Phase 7: the KV-cache hierarchy at full width on the graph path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    for arch, fn in (("llama3.2-1b", kv_llama), ("zamba2-1.2b", kv_zamba)):
+        cfg = replace(get_config(arch), dtype="float32")
+        params = init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+        fn(cfg, params, smi, launches)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
     """``--kernel-times SRC``: K1, K2, K3 and K4 of the ``repro_torch``
     under ``SRC`` (this checkout's ``src`` or another's, e.g. an unpacked
@@ -1204,6 +1492,7 @@ def main() -> int:
     main_cases = phase_kernels()
     bench_launches = phase_bench(smi)
     launches = phase_engine(smi)
+    phase_kvcache(smi, launches)
     launches["flash_decode"] = bench_launches["flash_decode"]
     meta = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",

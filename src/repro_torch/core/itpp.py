@@ -13,8 +13,8 @@ decode step it
     * by the plain gather-then-dense path (``kernels=None`` or
       ``use_kernels=False``): Va2Pa compaction, gather, masked partials.
 
-Sharded specs (queue A.12) and the ``cond_window`` branch of mixed
-local:global stacks (queue A.9, gemma3) are not ported yet.
+Sharded specs (queue A.10) and the ``cond_window`` branch of mixed
+local:global stacks (queue A.6, gemma3) are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ def itpp_decode_attention_shard(q, k_new, v_new, pool_k, pool_v, block_table,
     """
     if cond_window:
         raise NotImplementedError(
-            "cond_window (mixed local:global stacks) is ROADMAP queue A.9")
+            "cond_window (mixed local:global stacks) is ROADMAP queue A.6")
     B, maxp = block_table.shape
     P_loc, page = pool_k.shape[0] - 1, pool_k.shape[1]
     dev = q.device

@@ -5,7 +5,10 @@ block tables and context lengths are runtime data, so one program serves
 every context length and memory grows page by page.
 
 The port updates the pool IN PLACE (the JAX functions return new arrays;
-here they return the same tensors they were given, written).
+here they return the same tensors they were given, written). That covers
+the page operations of the KV-cache hierarchy too (``gather_pages``,
+``scatter_pages``, ``copy_page``): the pool is never rebound, because
+every captured decode horizon (``serving/graphs.py``) holds its address.
 
 Trash page. JAX scatters with ``mode="drop"`` so writes aimed out of bounds
 (idle slots, pad positions, ``-1`` table entries) vanish. PyTorch has no
@@ -113,6 +116,49 @@ def write_prefill(pool_layer_k, pool_layer_v, k_seq, v_seq, block_table,
     pool_layer_k[pids, off] = k_seq.to(pool_layer_k.dtype)
     pool_layer_v[pids, off] = v_seq.to(pool_layer_v.dtype)
     return pool_layer_k, pool_layer_v
+
+
+def _page_index(page_ids, pool) -> torch.Tensor:
+    """Page ids as a long index on the pool's device; ids outside the real
+    pages name the trash page."""
+    ids = torch.as_tensor(page_ids, dtype=torch.long)
+    return _to_trash(ids.to(pool.device, non_blocking=True),
+                     pool.shape[1] - 1)
+
+
+def gather_pages(pool_k, pool_v, page_ids):
+    """Lift whole pages out of the pool (host-offload swap-out, preemption
+    snapshots).
+
+    pool_{k,v} [L, P+1, page, KVH, D]; page_ids [n]. Returns NEW tensors
+    k, v [L, n, page, KVH, D] on the pool's device: a snapshot that later
+    writes to those pages do not touch (stream order makes the gather read
+    them first). Ids outside the real pages read the trash page.
+    """
+    ix = _page_index(page_ids, pool_k)
+    return pool_k.index_select(1, ix), pool_v.index_select(1, ix)
+
+
+def scatter_pages(pool_k, pool_v, page_ids, k_data, v_data):
+    """Write whole pages back into the pool, in place (swap-in, snapshot
+    restore, host-side copy-on-write).
+
+    page_ids [n]; k_data/v_data [L, n, page, KVH, D] on the pool's device.
+    Ids outside the real pages land on the trash page. The pool tensors
+    are never rebound: captured decode graphs hold their addresses.
+    """
+    ix = _page_index(page_ids, pool_k)
+    pool_k.index_copy_(1, ix, k_data.to(pool_k.dtype))
+    pool_v.index_copy_(1, ix, v_data.to(pool_v.dtype))
+    return pool_k, pool_v
+
+
+def copy_page(pool_k, pool_v, src: int, dst: int):
+    """Device-side page copy (copy-on-write divergence): page ``dst`` :=
+    page ``src`` across all layers, in place."""
+    pool_k[:, dst].copy_(pool_k[:, src])
+    pool_v[:, dst].copy_(pool_v[:, src])
+    return pool_k, pool_v
 
 
 def gather_kv(pool_layer_k, pool_layer_v, block_table):

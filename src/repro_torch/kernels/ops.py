@@ -18,7 +18,7 @@ Port of the parts of ``repro/kernels/ops.py`` this slice runs:
   dispatch by tensor device); ``use_kernels=False`` selects the plain
   reference (``kernels/ref.py``, or the gather-then-dense decode).
 
-``verify_attention`` waits for speculative decoding (ROADMAP A.8).
+``verify_attention`` waits for speculative decoding (ROADMAP A.5).
 """
 from __future__ import annotations
 

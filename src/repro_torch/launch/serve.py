@@ -10,8 +10,12 @@ and depth with random weights from a seed. ``--arch`` picks
 ``llama3.2-1b`` (default) or the Mamba2 + shared-attention hybrid
 ``zamba2-1.2b``. Prompts are random token ids
 whose lengths follow the task's LongBench distribution, scaled into
-``--max-context``. The run ends with ``completed=N/N`` and the page
-balance (``max=0 min=0`` once every page is released).
+``--max-context``; ``--shared-frac f`` opens each prompt with a common
+system prompt covering that fraction of it, the traffic
+``--prefix-cache`` (radix prefix sharing) and ``--host-pages N`` (a host
+offload tier) pay off on. The run ends with ``completed=N/N`` and the page
+balance (``max=0 min=0`` once every page is released or held by the
+prefix cache's tree), then the ``kvcache:`` counters when the cache is on.
 """
 from __future__ import annotations
 
@@ -37,7 +41,11 @@ def build_engine(args) -> DecodeEngine:
                         prefill_chunk=args.chunk,
                         decode_horizon=args.decode_horizon,
                         use_kernels={"on": None, "off": False}[args.kernel],
-                        kernel_splits=args.kernel_splits)
+                        kernel_splits=args.kernel_splits,
+                        prefix_cache=args.prefix_cache,
+                        host_pages=args.host_pages,
+                        reserve_gentle=args.reserve_gentle,
+                        state_resume=not args.no_state_resume)
     return DecodeEngine(cfg, ecfg, device=args.device)
 
 
@@ -48,9 +56,16 @@ def submit_trace(eng: DecodeEngine, args) -> None:
     factor = (args.max_context / 2) / LONGBENCH_STATS[args.task]["mean"]
     trace = request_trace(args.task, args.requests, seed=0,
                           mean_new_tokens=args.mean_new)
+    # common system prompt: every request opens with the same token run —
+    # the multi-tenant traffic shape radix prefix sharing pays off on
+    system = rng.integers(0, eng.cfg.vocab_size,
+                          size=args.max_context) if args.shared_frac else None
     for i, (plen, new) in enumerate(trace):
         plen = max(1, min(int(plen * factor), args.max_context - new - 1))
         prompt = rng.integers(0, eng.cfg.vocab_size, size=plen)
+        if system is not None:
+            k = min(int(plen * args.shared_frac), plen - 1)
+            prompt[:k] = system[:k]
         eng.submit(Request(i, prompt, new))
 
 
@@ -67,6 +82,20 @@ def main(argv=None):
     ap.add_argument("--prefill-mode", default="batched",
                     choices=["slot", "batched", "chunked"])
     ap.add_argument("--chunk", type=int, default=32)
+    ap.add_argument("--shared-frac", type=float, default=0.0,
+                    help="fraction of each prompt drawn from a common "
+                         "system prompt")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix sharing across requests")
+    ap.add_argument("--host-pages", type=int, default=0,
+                    help="host offload tier capacity in pages (0 = none)")
+    ap.add_argument("--reserve-gentle", action="store_true",
+                    help="horizon reservation declines to evict radix-"
+                         "cached pages, shortening the horizon instead")
+    ap.add_argument("--no-state-resume", action="store_true",
+                    help="hybrids: no preemption snapshots of the recurrent "
+                         "carry (+ written KV); a preempted request "
+                         "re-prefills")
     ap.add_argument("--decode-horizon", type=int, default=8,
                     help="fused decode steps per engine tick (one host sync "
                          "per horizon); 1 = per-token")
@@ -106,9 +135,26 @@ def main(argv=None):
           f"capture ms={1e3 * tm['capture_s']:.1f} "
           f"({'CUDA graphs' if eng.horizons.graphs else 'eager'})",
           flush=True)
+    held = ""
+    if eng.cache is not None:
+        cs = eng.cache.stats_dict()     # the run's counters, before the
+        # tree gives back its pages: they are cached, not leaked, and the
+        # balance is read without them
+        tree_pages = eng.cache.tree.device_pages()
+        eng.cache.reclaim(eng.alloc.n_pages)
+        held = f" (after the prefix cache returned {tree_pages} tree pages)"
     bal = eng.alloc.shard_balance()
-    print(f"[serve] page balance per shard: max={bal.max()} min={bal.min()}",
-          flush=True)
+    print(f"[serve] page balance per shard: max={bal.max()} min={bal.min()}"
+          + held, flush=True)
+    if eng.has_rstate:
+        print(f"[serve] rstate: snapshots={eng.rstate_snapshots} "
+              f"restores={eng.rstate_restores}", flush=True)
+    if eng.cache is not None:
+        print(f"[serve] kvcache: hits={cs['hits']}/{cs['lookups']} "
+              f"reused_tokens={cs['hit_tokens']} cow={cs['cow_copies']} "
+              f"evicted={cs['evicted_pages']} "
+              f"swap_out={cs.get('swapped_out_pages', 0)} "
+              f"swap_in={cs.get('swapped_in_pages', 0)}", flush=True)
     return st.completed
 
 

@@ -16,7 +16,7 @@ keeps its own pool layer. Mamba2 weights are stacked leaves
 ``mamba/* [L_mamba, ...]`` and the state rows ``mamba`` are stacked
 ``[L_mamba, B, ...]``, as in JAX.
 
-xLSTM, MoE, enc-dec and VLM families wait for ROADMAP queue A.9.
+xLSTM, MoE, enc-dec and VLM families wait for ROADMAP queue A.6.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ class Runtime:
     def __post_init__(self):
         if self.ring_width:
             raise NotImplementedError(
-                "ring pools (all-windowed stacks) are ROADMAP queue A.9")
+                "ring pools (all-windowed stacks) are ROADMAP queue A.6")
 
     def itpp_apply(self, q, k, v, pk, pv, bt, ctx, npage, noff, window):
         return itpp_decode_attention_shard(
@@ -68,7 +68,7 @@ def _check_family(cfg) -> None:
             or not (attn_only or _is_hybrid(cfg)):
         raise NotImplementedError(
             f"{cfg.name}: only dense attention-only stacks and the zamba2 "
-            "hybrid are ported (ROADMAP queue A.9)")
+            "hybrid are ported (ROADMAP queue A.6)")
     if _is_hybrid(cfg) and cfg.n_layers % len(cfg.pattern):
         raise ValueError(f"{cfg.name}: a hybrid runs whole pattern cycles; "
                          f"{cfg.n_layers} layers is not a multiple of "
@@ -173,7 +173,7 @@ def _cos_sin(cfg, positions):
 # the recurrent carry the serving engine resets, gathers and scatters per
 # slot for state-carrying batched / chunked prefill. The paged ``pool`` is
 # not here (pages are per request via the block table). Only ``mamba``
-# exists in the port so far; the rest come with their families (A.9).
+# exists in the port so far; the rest come with their families (A.6).
 RSTATE_KEYS = ("mamba", "mlstm", "slstm", "cross_k", "cross_v")
 
 

@@ -26,18 +26,29 @@ at the start of the next tick, in ONE readback of ``(toks, emit, fin)`` —
 the only host<->device rendezvous of decode, counted in
 ``EngineTiming.device_syncs``.
 
+KV reuse (``EngineConfig.prefix_cache``, ``host_pages``): the radix
+prefix cache and its host tier (``repro_torch.kvcache``). Admission
+borrows cached pages and prefill covers only the suffix beyond the hit
+(``serving.prefill.prefill_suffix``); swap-ins and copy-on-write copies are
+applied to the pool in place after the scheduler step and before prefill;
+the tick's overlap window, while the previous horizon still runs, drains
+last tick's swap-out copies, applies the occupancy watermarks and peeks
+the queue's prefixes. The pool is never rebound: every captured horizon
+holds its address.
+
 Recurrent rows (hybrids): the Mamba2 carry of each slot lives in the
 decode state as ``[L, n_slots, ...]`` rows. Admission resets a slot's rows
-to zero; group prefill gathers the group's rows, runs, and scatters them
-back; the decode horizon's ``run`` mask keeps idle, paused and
-mid-chunk-prefill rows unchanged.
+to zero, or restores them from a preemption snapshot
+(``EngineConfig.state_resume``: the rows and the written KV pages are
+copied to pinned host memory at preemption and back at re-admission, so
+the request resumes instead of recomputing); group prefill gathers the
+group's rows, runs, and scatters them back; the decode horizon's ``run``
+mask keeps idle, paused and mid-chunk-prefill rows unchanged.
 
-Not ported yet (ROADMAP queue A): speculative decode, the prefix cache and
-host tier, telemetry, fault injection, serving snapshots, cluster roles,
-stochastic sampling, the per-token ``step()`` API and preemption snapshots
-of the recurrent carry (``state_resume``: a preempted hybrid request
-recomputes, JAX's ``state_resume=False`` path). Their config fields keep
-the port's defaults; setting another value raises.
+Not ported yet (ROADMAP queue A): speculative decode, telemetry, fault
+injection, serving snapshots, cluster roles, stochastic sampling and the
+per-token ``step()`` API. Their config fields keep the port's defaults;
+setting another value raises.
 """
 from __future__ import annotations
 
@@ -50,9 +61,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.allocator import PageAllocator
-from repro_torch.core.paged_kv import PoolSpec
+from repro_torch.core.paged_kv import PoolSpec, scatter_pages
 from repro_torch.core.scheduler import ContinuousBatcher, Request
 from repro_torch.kernels.backend import KernelConfig, resolve_device
+from repro_torch.kvcache import (HostCopier, PrefixCache, WatermarkConfig,
+                                 make_cache_policy)
 from repro_torch.models import model as MDL
 from repro_torch.serving.graphs import HorizonRunner
 from repro_torch.serving.policies import make_policy
@@ -62,10 +75,9 @@ from repro_torch.serving.sampling import make_sampler, make_scan_sampler
 
 # EngineConfig fields of features the port does not serve yet, with the
 # only value it accepts (see the module docstring)
-_UNPORTED = {"sampler": "greedy", "draft_config": None,
-             "prefix_cache": False, "host_pages": 0, "telemetry": None,
+_UNPORTED = {"sampler": "greedy", "draft_config": None, "telemetry": None,
              "faults": None, "snapshot_dir": None, "snapshot_every": 0,
-             "role": "both", "state_resume": False}
+             "role": "both"}
 
 
 @dataclass
@@ -88,6 +100,20 @@ class EngineConfig:
     # Greedy outputs are horizon-invariant; clamped to 1 while chunked
     # prefill is streaming.
     decode_horizon: int = 1
+    # gentle horizon reservation: decline to evict radix-cached pages for
+    # speculative (beyond-next-token) growth, shortening the horizon instead
+    reserve_gentle: bool = False
+    # ---- KV-cache hierarchy (repro_torch.kvcache) ----
+    prefix_cache: bool = False        # radix prefix sharing across requests
+    prefill_dedup: bool = True        # same-tick prefix dedup at admission
+    host_pages: int = 0               # host offload tier capacity (0 = none)
+    offload_high: float = 0.85        # device watermarks driving offload
+    offload_low: float = 0.60
+    cache_evict: str = "lru"
+    # consecutive failed swap-ins (the pool could not take the payload)
+    # absorbed by retry + capped exponential backoff (kvcache/cache.py)
+    swap_retry_limit: int = 3
+    swap_backoff_cap: int = 8
     # attention kernels (kernels/backend.py KernelConfig): None/True = the
     # hand-written kernels on a card (their plain versions on CPU tensors),
     # False = the plain reference paths
@@ -100,18 +126,19 @@ class EngineConfig:
     # jax.disable_jit(): the paired comparison, debugging); True on a CPU
     # engine raises
     decode_graphs: bool | None = None
+    # ---- recurrent-state preemption snapshots ----
+    # a preempted hybrid request's carry rows and written KV pages go to
+    # pinned host memory, and re-admission restores them instead of
+    # re-prefilling. Off = full recompute on resume. Slot-mode prefill
+    # never consumes snapshots (it is the recompute reference path).
+    state_resume: bool = True
     # ---- features not ported yet: must keep these defaults ----
     draft_config: Any = None
-    prefix_cache: bool = False
-    host_pages: int = 0
     telemetry: Any = None
     faults: Any = None
     snapshot_dir: str | None = None
     snapshot_every: int = 0
     role: str = "both"
-    # preemption snapshots of the recurrent carry (ROADMAP A.7); JAX's
-    # default is True, the port recomputes (ROADMAP C.4)
-    state_resume: bool = False
 
     def __post_init__(self):
         for f in fields(self):
@@ -211,6 +238,35 @@ class DecodeEngine:
         self.has_rstate = bool(MDL.rstate_entries(self.state))
         self._zero_rows = (MDL.init_rstate(cfg, 1, device=self.device)
                            if self.has_rstate else None)
+        # preemption snapshots: req_id -> {len, rows, kv?}, host copies
+        # started at preemption and drained in the next overlap window
+        self.rsnaps: dict[int, dict] = {}
+        self.rstate_snapshots = 0
+        self.rstate_restores = 0
+        self._snap_copy = HostCopier()
+        self.batcher.rstate_hook = self._rstate_hook
+        # prefix cache: uniform-attention stacks with plain lazy allocation
+        # only (static reservations can't share pages, row-affine placement
+        # would break borrowing across rows, and recurrent families can't
+        # resume from shared pages without the matching dense carry: a
+        # hybrid's prefix_cache=True serves without a cache, as in repro)
+        self.cacheable = "layers" in self.params and cfg.family != "encdec"
+        self.cache = None
+        if ecfg.prefix_cache and self.cacheable and not ecfg.static_alloc \
+                and ecfg.policy == "striped":
+            self.cache = PrefixCache(
+                self.alloc,
+                policy=make_cache_policy(ecfg.cache_evict,
+                                         watermark=WatermarkConfig(
+                                             ecfg.offload_high,
+                                             ecfg.offload_low)),
+                host_pages=ecfg.host_pages,
+                pool_ref=lambda: self.state["pool"],
+                swap_retry_limit=ecfg.swap_retry_limit,
+                swap_backoff_cap=ecfg.swap_backoff_cap)
+            self.batcher.cache = self.cache
+            self.batcher.cache_tokens = self._cache_tokens
+            self.batcher.dedup = ecfg.prefill_dedup
         self.tokens = np.zeros((ecfg.n_slots,), np.int32)
         self.prompts: dict[int, np.ndarray] = {}
         self.outputs: dict[int, list[int]] = {}
@@ -282,9 +338,26 @@ class DecodeEngine:
         return np.concatenate(
             [prompt, np.asarray(out[:-1], np.int32)])[:req.prompt_len], False
 
+    def _cache_tokens(self, req, finished: bool = False) -> np.ndarray:
+        """Token-sequence oracle for the prefix cache (the batcher holds no
+        token ids). ``finished=False``: the context a (re)admission must
+        cover — exactly ``_prompt_seq``. ``finished=True``: every token
+        whose KV was written — prompt plus all generated tokens except the
+        final sample (EOS / budget hit), whose KV never landed."""
+        if not finished:
+            return self._prompt_seq(req)[0]
+        prompt = self.prompts[req.req_id]
+        out = np.asarray(self.outputs[req.req_id], np.int32)
+        return np.concatenate([prompt, out])[:req.total_len - 1]
+
     def _emit_first(self, slot: int, req, tok: int | None,
                     emit: bool) -> None:
+        # the whole prompt's KV is in the pool now: publish the prefix to
+        # the radix cache so later same-prefix admissions hit while this
+        # request is still running
         req.kv_written = True
+        if self.cache is not None:
+            self.cache.insert(req.req_id, self._prompt_seq(req)[0])
         if emit:
             self.tokens[slot] = tok
             self.outputs[req.req_id].append(int(tok))
@@ -293,17 +366,94 @@ class DecodeEngine:
             self.tokens[slot] = self.outputs[req.req_id][-1]
         self.batcher.dirty.add(slot)
 
-    # ---- recurrent rows: reset at admission, group gather / scatter ----
-    def _begin_prefill_group(self, admitted) -> None:
-        """Reset the admitted slots' recurrent rows to zero in ONE scatter
-        (a row may still hold a freed request's carry), so group prefill
-        gathers a clean carry."""
-        if not (self.has_rstate and admitted):
+    # ---- recurrent rows: snapshots, restore, group gather / scatter ----
+    def _rstate_hook(self, req, slot: int, finished: bool) -> None:
+        """Scheduler callback at page release. Preemption (finished=False)
+        snapshots the slot's recurrent rows plus its written KV pages to
+        host memory — the dense-state analogue of the kvcache swap-out — so
+        re-admission restores instead of recomputing. Completion drops any
+        stored snapshot."""
+        if finished:
+            self.rsnaps.pop(req.req_id, None)
             return
-        slots = [slot for slot, _ in admitted]
-        MDL.scatter_rstate(self.state, slots, MDL.tree_map(
-            lambda z: z.expand(z.shape[0], len(slots), *z.shape[2:]),
-            self._zero_rows))
+        if not (self.has_rstate and self.ecfg.state_resume
+                and req.kv_written and self.prefiller.name != "slot"):
+            return
+        if not self.outputs.get(req.req_id):
+            # no token ever sampled (prefill finished but the finish-line
+            # growth page failed): a pure restore could never produce the
+            # first token, so resume must recompute
+            return
+        # written context: the last sampled token's KV/state never landed
+        # (it re-enters as the next decode input), and ``generated`` was
+        # pre-incremented this tick
+        depth = req.total_len - (1 if req.generated else 0)
+        if depth <= 0:
+            return
+        # the gathers are enqueued here, on the compute stream, so they
+        # read the rows and pages before anything rewrites them (the
+        # released pages may be handed out this very tick); their copies
+        # to pinned host memory run on the side stream and are waited for
+        # in the next tick's overlap window (_drain_snapshots)
+        snap = {"len": depth, "rows": self._snap_copy.to_host(
+            MDL.gather_rstate(self.state, [slot]))}
+        if "pool" in self.state:
+            n = -(-depth // self.ecfg.page_size)
+            pages = np.asarray(self.batcher.block_table_row(slot)[:n])
+            snap["kv"] = self._snap_copy.pages_to_host(self.state["pool"],
+                                                       pages)
+        self.rsnaps[req.req_id] = snap
+        self.rstate_snapshots += 1
+
+    def _drain_snapshots(self) -> None:
+        """The drain half of the snapshot ping-pong: wait for last tick's
+        snapshot copies and drop their device gathers. A restore that
+        comes first orders itself after the copy (``HostCopier``)."""
+        self._snap_copy.drain()
+
+    def _take_snapshot(self, req) -> dict | None:
+        if not self.ecfg.state_resume:
+            return None
+        return self.rsnaps.pop(req.req_id, None)
+
+    def _begin_prefill_group(self, admitted) -> tuple[dict, set]:
+        """Prepare the tick's admitted slots for prefill in ONE rows
+        scatter: preemption snapshots restore the carry (and their KV
+        pages, in place) at their depth, everything else resets to zero so
+        group prefill gathers a clean carry (the row may hold a freed
+        request's state). Returns ``({slot: resume_depth}, {restored
+        slots})`` — depth is the snapshot depth or the prefix-cache depth
+        (0 when cold)."""
+        starts: dict[int, int] = {}
+        fresh: list[int] = []
+        restores: list[tuple[int, dict]] = []
+        for slot, req in admitted:
+            snap = self._take_snapshot(req)
+            if snap is not None:
+                restores.append((slot, snap))
+                starts[slot] = snap["len"]
+            else:
+                fresh.append(slot)
+                starts[slot] = req.cached_len
+        if self.has_rstate and (fresh or restores):
+            parts = []
+            if fresh:
+                parts.append(MDL.tree_map(
+                    lambda z: z.expand(z.shape[0], len(fresh), *z.shape[2:]),
+                    self._zero_rows))
+            parts += [self._snap_copy.to_device(snap["rows"], self.device)
+                      for _, snap in restores]
+            MDL.scatter_rstate(
+                self.state, fresh + [s for s, _ in restores],
+                MDL.tree_map(lambda *xs: torch.cat(xs, dim=1), *parts))
+        for slot, snap in restores:
+            if "kv" in snap:
+                kv = self._snap_copy.to_device(snap["kv"], self.device)
+                pages = self.batcher.block_table_row(slot)[:kv["k"].shape[1]]
+                scatter_pages(self.state["pool"]["k"], self.state["pool"]["v"],
+                              np.asarray(pages), kv["k"], kv["v"])
+        self.rstate_restores += len(restores)
+        return starts, {s for s, _ in restores}
 
     def _group_prefill_state(self, slots: list[int]) -> dict:
         """State for a group prefill call: the shared pool plus the group's
@@ -386,12 +536,30 @@ class DecodeEngine:
         """One pipelined tick: collect the previous horizon, schedule and
         prefill, then dispatch the next horizon WITHOUT blocking on it."""
         E = self.ecfg
+        # ---- overlap window: host work that does not need the horizon's
+        # results, done while it runs. Watermark offload gathers pages here
+        # with the horizon still queued: stream order puts the gathers
+        # after it, and they take only tree pages no running slot writes
+        # (a node pinned by a request, or with a queued write, is never a
+        # victim: the policy's ``_eligible``; tree pages are whole prompt
+        # pages, written once)
+        with self._phase("host_s"):
+            if self.cache is not None:
+                self.cache.maintain()
+            self._drain_snapshots()
+            if self._inflight is not None and self.batcher.queue:
+                self.batcher.prefetch_peeks(limit=2 * E.n_slots)
+
         finished = self._collect_horizon()
         if finished is None:
             finished, self._pending_fin = self._pending_fin, None
 
         with self._phase("host_s"):
             admitted, active = self.batcher.step(finished)
+            if self.cache is not None and self.cache.has_pending:
+                # swap-ins and CoW copies queued by this tick's admissions
+                # land, in place, before prefill or decode read the pages
+                self.cache.apply_pending(self.state["pool"])
         if admitted or self.prefiller.busy:
             with self._phase("prefill_s"):
                 active = self.prefiller.run(admitted, active)
@@ -404,7 +572,8 @@ class DecodeEngine:
             cap = self.prefiller.max_horizon
             if cap is not None:
                 K = min(K, cap)
-            allow = self.batcher.reserve_horizon(active, K)
+            allow = self.batcher.reserve_horizon(active, K,
+                                                 gentle=E.reserve_gentle)
             self._sync_device_slots()
             W = self.pool_spec.max_pages_per_req
             width = W

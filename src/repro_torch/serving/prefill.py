@@ -19,9 +19,19 @@ Batched and chunked prefill reset the admitted slots' recurrent rows
 call as an explicit carry (gather -> prefill -> scatter).
 
 ``max_horizon`` is the cap a prefiller puts on the fused decode horizon
-this tick: chunked prefill caps it to 1 while chunks stream. Resumes at a
-depth (prefix-cache hits, recurrent snapshots: ``prefill_suffix``) wait
-for the KV-cache hierarchy (ROADMAP queue A.7).
+this tick: chunked prefill caps it to 1 while chunks stream.
+
+Resume depths: prefix-cache hits (``req.cached_len > 0``, attention
+stacks) and preemption snapshots of the recurrent carry
+(``engine._take_snapshot``, hybrids) both mean prefill covers only the
+suffix beyond the resume depth. ``chunked`` starts its chunk cursor there;
+``batched`` groups resumes into suffix-length buckets and runs each as one
+``prefill_chunk`` call with the per-request depths as the ``ctx_start``
+vector (``prefill_suffix``: on a card, the flash-attention kernel at a
+per-row ``q_offset`` and, for zamba2, the chunk-scan kernel from the
+restored carry); ``slot`` takes the batch-1 suffix call for cache hits
+only. A snapshot whose depth covers the whole reconstructable context
+restores without any model call.
 """
 from __future__ import annotations
 
@@ -53,17 +63,44 @@ def _group_tables(eng, slots, span: int) -> np.ndarray:
     return bts[:, :min(_suffix_bucket(need, need), bts.shape[1])]
 
 
-def _fresh(req) -> None:
-    """Every admission prefills from position 0: resumes at a depth
-    (``prefill_suffix`` in ``repro``) come with the prefix cache."""
-    if req.cached_len:
-        raise NotImplementedError(
-            "suffix prefill (prefix-cache hits / snapshot resume) is "
-            "ROADMAP queue A.7")
+def prefill_suffix(eng, grp) -> None:
+    """One ``prefill_chunk`` call covering a group of resumed requests:
+    suffixes padded to a shared bucket length, per-request resume depths
+    as the ``ctx_start`` vector, recurrent carries riding along as the
+    group's state rows. ``grp``: [(slot, req, seq, emit, start)] with equal
+    bucket sizes."""
+    cap = max(8, eng.ecfg.max_prefill)
+    blen = max(_suffix_bucket(len(seq) - start, cap)
+               for _, _, seq, _, start in grp)
+    toks = np.zeros((len(grp), blen), np.int32)
+    starts = np.zeros((len(grp),), np.int32)
+    lens = np.zeros((len(grp),), np.int32)
+    for i, (_, _, seq, _, start) in enumerate(grp):
+        suf = seq[start:]
+        toks[i, :len(suf)] = suf
+        starts[i] = start
+        lens[i] = len(suf)
+    slots = [slot for slot, *_ in grp]
+    bts = _group_tables(eng, slots,
+                        max(len(seq) for _, _, seq, _, _ in grp))
+    eng.timing.prefill_calls += 1
+    logits, gstate = MDL.prefill_chunk(
+        eng.cfg, eng.params, eng._group_prefill_state(slots),
+        eng._tensor(toks), eng._tensor(bts), eng._tensor(starts),
+        last_idx=eng._tensor(lens - 1), valid_len=eng._tensor(lens),
+        rt=eng.rt)
+    eng._merge_group_state(slots, gstate)
+    emits = [emit for _, _, _, emit, _ in grp]
+    first = eng._first_tokens(logits, emits)     # one batched sample call
+    for i, (slot, req, _, emit, _) in enumerate(grp):
+        req.generated = 1
+        eng._emit_first(slot, req, int(first[i]), emit)
 
 
 class SlotPrefiller:
-    """Per-request whole-prompt prefill — the recompute reference path."""
+    """Per-request whole-prompt prefill (the recompute reference path):
+    preemption snapshots are never consumed here, and only prefix-cache
+    hits take the batch-1 suffix shortcut."""
     name = "slot"
     max_horizon = None                 # never caps the fused decode horizon
 
@@ -77,7 +114,10 @@ class SlotPrefiller:
     def run(self, admitted, active):
         eng = self.eng
         for slot, req in admitted:
-            _fresh(req)
+            if req.cached_len > 0:
+                seq, emit = eng._prompt_seq(req)
+                prefill_suffix(eng, [(slot, req, seq, emit, req.cached_len)])
+                continue
             req.generated = 1          # prefill emits the first token
             prompt, emit = eng._prompt_seq(req)
             bt = eng.batcher.block_table_row(slot)
@@ -98,7 +138,11 @@ class SlotPrefiller:
 
 
 class BatchedPrefiller:
-    """Length-bucketed batched prefill: every bucket is one call."""
+    """Length-bucketed batched prefill: every bucket is one call. Resumed
+    requests (prefix-cache hits / preemption snapshots) go through
+    suffix-length buckets instead (``prefill_suffix``: one call per
+    bucket, mixed resume depths); snapshot-covered requests restore with
+    no model call at all."""
     name = "batched"
     max_horizon = None
 
@@ -114,13 +158,27 @@ class BatchedPrefiller:
 
     def run(self, admitted, active):
         eng = self.eng
+        if not admitted:
+            return active
         groups: dict[int, list] = {}
-        eng._begin_prefill_group(admitted)
+        sgroups: dict[int, list] = {}
+        starts, _ = eng._begin_prefill_group(admitted)
         for slot, req in admitted:
-            _fresh(req)
             seq, emit = eng._prompt_seq(req)
+            start = starts[slot]
+            if start >= len(seq):      # snapshot covers everything: restored
+                req.generated = 1
+                eng._emit_first(slot, req, None, emit=False)
+                continue
+            if start > 0:
+                sgroups.setdefault(
+                    self._bucket(len(seq) - start), []).append(
+                        (slot, req, seq, emit, start))
+                continue
             groups.setdefault(self._bucket(len(seq)), []).append(
                 (slot, req, seq, emit))
+        for blen in sorted(sgroups):
+            prefill_suffix(eng, sgroups[blen])
         for blen in sorted(groups):
             grp = groups[blen]
             toks = np.zeros((len(grp), blen), np.int32)
@@ -168,10 +226,10 @@ class ChunkedPrefiller:
 
     def run(self, admitted, active):
         eng = self.eng
-        eng._begin_prefill_group(admitted)
-        for slot, req in admitted:
-            _fresh(req)
-            self._pos[slot] = 0
+        # resumes (prefix-cache hit / preemption snapshot) start the chunk
+        # cursor at the covered depth
+        starts, _ = eng._begin_prefill_group(admitted)
+        self._pos.update(starts)
         if not self._pos:
             return active
         C = max(1, eng.ecfg.prefill_chunk)
@@ -185,6 +243,19 @@ class ChunkedPrefiller:
                 del self._pos[slot]
                 continue
             prompt, emit = eng._prompt_seq(req)
+            if self._pos[slot] >= len(prompt):
+                # snapshot covered the whole context: restored, no chunks.
+                # kv_written is set BEFORE the growth-page grab: the
+                # restored pages/state hold the context, so a
+                # mark_prefill_done MemoryError re-snapshots instead of
+                # degrading the next resume to a full recompute
+                del self._pos[slot]
+                req.generated = 1
+                req.kv_written = True
+                if eng.batcher.mark_prefill_done(slot):
+                    eng._emit_first(slot, req, None, emit=False)
+                    completed.append(slot)
+                continue
             grp.append((slot, req, prompt, emit,
                         min(C, len(prompt) - self._pos[slot])))
         if grp:
@@ -215,12 +286,16 @@ class ChunkedPrefiller:
             for j, (i, slot, req, emit) in enumerate(fin):
                 del self._pos[slot]
                 req.generated = 1
+                # every chunk is through the model: the pages/state hold
+                # the full context, so a finish-line preemption may
+                # snapshot it (resume restores instead of re-chunking)
                 req.kv_written = True
                 if eng.batcher.mark_prefill_done(slot):
                     eng._emit_first(slot, req, int(first[j]), emit)
                     completed.append(slot)
                 # else: pool exhausted at the finish line — the batcher
-                # preempted and requeued the bare prompt
+                # preempted and requeued the bare prompt, with a snapshot
+                # when the family carries one
             for i, (slot, _, _, _, valid) in enumerate(grp):
                 if slot in self._pos:
                     self._pos[slot] += valid

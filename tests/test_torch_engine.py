@@ -113,10 +113,14 @@ def test_engine_plain_path_identity(models, jax_ref):
 
 
 def test_engine_rejects_unported_features():
-    with pytest.raises(NotImplementedError):
-        EngineConfig(prefix_cache=True, **KW)
-    with pytest.raises(NotImplementedError):
-        EngineConfig(sampler="top_k", **KW)
+    """The fields of features still to port raise; the KV-cache hierarchy
+    and the recurrent snapshots are ported and do not."""
+    for field, value in (("sampler", "top_k"), ("draft_config", "x"),
+                         ("telemetry", object()), ("faults", object()),
+                         ("snapshot_every", 1), ("role", "prefill")):
+        with pytest.raises(NotImplementedError, match=field):
+            EngineConfig(**{field: value}, **KW)
+    EngineConfig(prefix_cache=True, host_pages=8, state_resume=True, **KW)
 
 
 def test_cuda_request_without_card_raises(models):
@@ -138,6 +142,28 @@ def test_serve_cli_completes_on_cpu(capsys):
     out = capsys.readouterr().out
     assert done == 5 and "completed=5/5" in out
     assert "page balance per shard: max=0 min=0" in out
+
+
+def test_serve_cli_prefix_cache_on_cpu(capsys):
+    """A shared-prefix trace through the prefix cache and a host tier small
+    enough to offload: the ``kvcache:`` line reports hits and copies on
+    write, and no page is left over once the tree gives back its own."""
+    import re
+    from repro_torch.launch import serve
+    done = serve.main(["--requests", "8", "--slots", "3", "--page", "8",
+                       "--pages", "24", "--max-context", "128",
+                       "--mean-new", "8", "--shared-frac", "0.9",
+                       "--prefix-cache", "--host-pages", "64",
+                       "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert done == 8 and "completed=8/8" in out
+    assert "page balance per shard: max=0 min=0" in out
+    m = re.search(r"kvcache: hits=(\d+)/(\d+) reused_tokens=(\d+) "
+                  r"cow=(\d+) evicted=(\d+) swap_out=(\d+) swap_in=(\d+)",
+                  out)
+    assert m, out
+    hits, lookups, reused, cow = (int(m.group(i)) for i in range(1, 5))
+    assert lookups == 8 and 0 < hits < lookups and reused > 0 and cow > 0
 
 
 def _port_modules():

@@ -608,3 +608,97 @@ def test_graph_engine_tracks_eager_tick_by_tick(arch):
     assert patched_before_replay > 0
     widths = {w for w, _ in graphs.horizons.captured}
     assert len(widths) >= 2, graphs.horizons.captured
+
+
+# ---------------------------------------------------------------------------
+# the KV-cache hierarchy on the card (kvcache/offload.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_host_tier_pinned_side_stream_round_trip():
+    """A swap-out lands in pinned host memory through the copy stream; the
+    pool is overwritten while the copy may still run (the gather read it
+    first); a swap-in copies it back into the pool's own tensors bit for
+    bit. The copier times both directions."""
+    _card()
+    from repro_torch.core.allocator import PageAllocator
+    from repro_torch.core.paged_kv import PoolSpec, init_pool
+    from repro_torch.kvcache import PrefixCache
+    page = 16
+    alloc = PageAllocator(64, 1, page)
+    cache = PrefixCache(alloc, host_pages=32)
+    pool = init_pool(PoolSpec(4, 64, page, 8, 64, 8, dtype="float32"),
+                     "cuda")
+    ptrs = {k: t.data_ptr() for k, t in pool.items()}
+    cache.pool_ref = lambda: pool
+    seq = np.arange(10, 10 + 5 * page, dtype=np.int32)     # 5 pages
+    pages = alloc.admit(0, len(seq))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    data = torch.randn((4, 5, page, 8, 64), generator=gen, device="cuda")
+    pool["k"][:, pages] = data
+    pool["v"][:, pages] = -data
+    cache.insert(0, seq)
+    alloc.free(0)
+    assert cache.reclaim(5) == 5
+    node = next(cache.tree.nodes())
+    assert node.on_host and node.host["k"].is_pinned()
+    for t in pool.values():             # enqueued after the gather
+        t.fill_(7.0)
+    cache.maintain()                    # drain: waits on the copy's event
+    assert torch.equal(node.host["k"], data.cpu())
+    hit = cache.lookup(1, np.concatenate([seq, [1]]).astype(np.int32))
+    assert hit.matched == 5 * page
+    cache.apply_pending(pool)
+    assert {k: t.data_ptr() for k, t in pool.items()} == ptrs
+    assert torch.equal(pool["k"][:, hit.pages], data)
+    assert torch.equal(pool["v"][:, hit.pages], -data)
+    cache.host.copier.settle()
+    st = cache.host.copier.stats
+    assert st.d2h_bytes == st.h2d_bytes == 2 * data.nbytes
+    assert st.d2h_ms > 0 and st.h2d_ms > 0
+    cache.release(1)
+
+
+@pytest.mark.gpu
+def test_cow_copies_between_replays_of_a_captured_horizon():
+    """With the prefix cache on, admissions after a horizon's capture copy
+    pages on write (and borrow shared pages) between its replays: the
+    graph engine's tokens equal the eager engine's and a cache-off
+    engine's, and the pool keeps its address."""
+    _card()
+    from dataclasses import replace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DecodeEngine, EngineConfig, Request
+    cfg = replace(reduced(get_config("llama3.2-1b")), dtype="float32")
+    params = init_params(cfg, 0, torch.float32, "cuda")
+    rng = np.random.default_rng(7)
+    system = rng.integers(0, 256, 25)            # ends mid-page: CoW
+    reqs = [(r, np.concatenate([system, rng.integers(0, 256, 4)]), 12)
+            for r in range(6)]
+    kw = dict(n_slots=2, page_size=2, n_pages=64, max_context=80,
+              eos_token=-1, prefill_mode="batched", decode_horizon=4)
+    engs = []
+    for way in (dict(prefix_cache=True), dict(prefix_cache=True,
+                                              decode_graphs=False), {}):
+        eng = DecodeEngine(cfg, EngineConfig(**kw, **way), params,
+                           device="cuda")
+        for r, prompt, n in reqs:
+            eng.submit(Request(r, prompt, n))
+        engs.append(eng)
+    graphs = engs[0]
+    ptr = graphs.state["pool"]["k"].data_ptr()
+    cow_after_capture = 0
+    for _ in range(1000):
+        if graphs._inflight is None and graphs.batcher.done():
+            break
+        captured = len(graphs.horizons.captured)
+        cow = graphs.cache.stats.cow_copies
+        graphs.tick()
+        if captured and graphs.cache.stats.cow_copies > cow:
+            cow_after_capture += 1
+    outs = [graphs.outputs] + [e.run(1000) for e in engs[1:]]
+    assert outs[0] == outs[1] == outs[2]
+    assert graphs.horizons.graphs and cow_after_capture > 0
+    assert graphs.cache.stats.hits > 0
+    assert graphs.state["pool"]["k"].data_ptr() == ptr

@@ -130,11 +130,9 @@ def test_neutral_capture_leaves_the_live_state(arch, eager_run,
     assert eng.run(500) == eager_run[0]
 
 
-def test_runner_buffers_keep_their_addresses(arch):
-    """Across a served run (batched, horizon 4, admissions, page growth,
-    frees) no tensor the runner reads or writes is rebound."""
-    eng = _engine(arch)
-
+def _serve_keeping_addresses(eng) -> None:
+    """Tick ``eng`` to the end, checking after every tick that no tensor
+    the runner reads or writes was rebound."""
     def ptrs():
         st = eng.state
         out = {n: getattr(eng.dev, n).data_ptr()
@@ -159,9 +157,71 @@ def test_runner_buffers_keep_their_addresses(arch):
         assert {k: now[k] for k in first} == first
         first = now
     assert eng.state is state
+
+
+def test_runner_buffers_keep_their_addresses(arch):
+    """Across a served run (batched, horizon 4, admissions, page growth,
+    frees) no tensor the runner reads or writes is rebound."""
+    eng = _engine(arch)
+    _serve_keeping_addresses(eng)
     assert eng.batcher.stats.completed == 4
     assert len(eng.horizons.outs) >= 2           # several table widths
     assert eng.timing.decode_steps > 4 * 4
+
+
+def _tight_engine(arch, **kw):
+    """llama: a shared 24-token prefix through the prefix cache with a host
+    tier under a 20-page pool (hits, copies on write, swap-out and
+    swap-in); zamba2: a 24-page pool that preempts, with preemption
+    snapshots restored. Either way every write lands in the live pool
+    between horizons."""
+    cfg, params = arch
+    rng = np.random.default_rng(7)
+    if "layers" in params:
+        kw = {**dict(n_pages=20, prefix_cache=True, host_pages=64,
+                     prefill_dedup=False), **kw}
+        system = rng.integers(0, 256, 24)
+        reqs = [(r, np.concatenate([system, rng.integers(
+            0, 256, int(rng.integers(2, 9)))]), 9) for r in range(5)]
+    else:
+        kw = {"n_pages": 24, **kw}
+        reqs = [(r, rng.integers(0, 256, int(rng.integers(3, 30))), 9)
+                for r in range(4)]
+    eng = DecodeEngine(cfg, EngineConfig(**{**KW, **kw}), params,
+                       device="cpu")
+    for r, prompt, n in reqs:
+        eng.submit(Request(r, prompt, n))
+    return eng
+
+
+def _assert_cache_path_ran(eng) -> None:
+    if eng.cache is not None:
+        st = eng.cache.stats
+        ts = eng.cache.host.stats
+        assert st.hits > 0 and st.cow_copies > 0
+        assert ts.swapped_out_pages > 0 and ts.swapped_in_pages > 0
+        assert eng.alloc.pages_in_use == eng.cache.tree.device_pages()
+    else:
+        assert eng.rstate_restores > 0 and not eng.rsnaps
+        assert eng.alloc.pages_in_use == 0
+
+
+def test_runner_buffers_keep_their_addresses_with_cache_and_offload(
+        arch, monkeypatch):
+    """The same over a run whose pool takes copy-on-write copies, swap-in
+    scatters and host writes (llama's prefix cache and host tier) or
+    snapshot restores (zamba2) between horizons, captured mid-run with
+    stand-in graphs: nothing is rebound, the cache paths ran, and the
+    tokens are those of an eager run on an ample pool without them."""
+    eng = _tight_engine(arch)
+    _stand_in_graphs(monkeypatch, eng.horizons)
+    _serve_keeping_addresses(eng)
+    _assert_cache_path_ran(eng)
+    assert eng.timing.graph_captures >= 1
+    ample = _tight_engine(arch, prefix_cache=False, state_resume=False,
+                          n_pages=64)
+    assert eng.outputs == ample.run(500)
+    assert eng.batcher.stats.completed == ample.batcher.stats.completed
 
 
 def test_capture_counts_each_replay_once(monkeypatch):

@@ -15,7 +15,8 @@ Engine level: reduced zamba2 at 19 layers (one cycle, as
 ``tests/test_recurrent_prefill.py``) through both engines — greedy outputs
 token-identical for slot, batched and chunked (3/5/8) prefill at horizons 1
 and 4, with equal token and sync counters; recurrent rows reset on slot
-refill; a preempted request recomputes to the same tokens.
+refill; a preempted request restores its snapshot (``state_resume``, the
+default) or recomputes (``state_resume=False``) to the same tokens.
 """
 from dataclasses import replace
 
@@ -251,10 +252,11 @@ def _ecfg(mode, chunk, horizon, n_pages, n_slots=2):
                 prefill_chunk=chunk, decode_horizon=horizon)
 
 
-def _serve_jax(engines, mode, chunk, horizon, *, n_pages=96, **rk):
+def _serve_jax(engines, mode, chunk, horizon, *, n_pages=96,
+               state_resume=False, **rk):
     jcfg, jparams, _, _ = engines
     eng = JaxEngine(jcfg, JaxEngineConfig(
-        use_pallas=False, state_resume=False,
+        use_pallas=False, state_resume=state_resume,
         **_ecfg(mode, chunk, horizon, n_pages)), jparams)
     for r, prompt, n in _requests(**rk):
         eng.submit(JaxRequest(r, prompt, n))
@@ -262,11 +264,11 @@ def _serve_jax(engines, mode, chunk, horizon, *, n_pages=96, **rk):
 
 
 def _serve_torch(engines, mode, chunk, horizon, *, n_pages=96, n_slots=2,
-                 requests=None, **rk):
+                 requests=None, state_resume=True, **rk):
     _, _, cfg, params = engines
     eng = DecodeEngine(cfg, EngineConfig(
-        **_ecfg(mode, chunk, horizon, n_pages, n_slots)), params,
-        device="cpu")
+        **_ecfg(mode, chunk, horizon, n_pages, n_slots),
+        state_resume=state_resume), params, device="cpu")
     for r, prompt, n in requests or _requests(**rk):
         eng.submit(Request(r, prompt, n))
     return {k: list(v) for k, v in eng.run(3000).items()}, eng
@@ -314,15 +316,17 @@ def test_recurrent_rows_reset_on_slot_refill(engines):
 
 @pytest.mark.parametrize("mode", ["slot", "batched"])
 def test_preempted_request_recomputes(engines, mode):
-    """A pool too small for both requests preempts one; it recomputes (no
-    carry snapshot in the port) to the ample pool's tokens — and to JAX's
-    ``state_resume=False`` engine. (Chunked prefill on this pool preempts
-    forever without snapshots, in JAX's engine as in the port: ROADMAP
-    C.4.)"""
+    """A pool too small for both requests preempts one; with
+    ``state_resume=False`` it recomputes to the ample pool's tokens — and
+    to JAX's ``state_resume=False`` engine. (Chunked prefill on this pool
+    preempts forever without snapshots, in JAX's engine as in the port;
+    snapshots serve it: ``test_state_resume_is_not_ported``.)"""
     kw = dict(nreq=2, budget=12)
     ample, _ = _serve_torch(engines, "batched", 5, 1, **kw)
-    tight, eng = _serve_torch(engines, mode, 5, 1, n_pages=9, **kw)
+    tight, eng = _serve_torch(engines, mode, 5, 1, n_pages=9,
+                              state_resume=False, **kw)
     assert eng.batcher.stats.preempted > 0
+    assert eng.rstate_restores == 0
     assert eng.batcher.stats.completed == 2
     assert tight == ample
     assert eng.alloc.pages_in_use == 0
@@ -331,9 +335,30 @@ def test_preempted_request_recomputes(engines, mode):
         assert tight == jtight
 
 
-def test_state_resume_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        EngineConfig(state_resume=True, **_ecfg("batched", 5, 1, 96))
+def test_state_resume_is_not_ported(engines):
+    """(Named when the port refused ``state_resume``; it is ported now and
+    the default, as in repro.) The counterpart of
+    ``tests/test_recurrent_prefill.py::test_preemption_resume_restores_carry``
+    for zamba2: at ``n_pages=9`` a preempted request's carry rows and KV
+    pages are snapshot to host memory and restored at re-admission, in
+    batched and chunked prefill — tokens identical to an ample pool and to
+    repro's engine, with as many snapshots and restores and device syncs;
+    no snapshot is left behind."""
+    kw = dict(nreq=2, budget=12)
+    ample, _ = _serve_torch(engines, "batched", 5, 1, **kw)
+    for mode in ("batched", "chunked"):
+        tight, eng = _serve_torch(engines, mode, 5, 1, n_pages=9, **kw)
+        jtight, jeng = _serve_jax(engines, mode, 5, 1, n_pages=9,
+                                  state_resume=True, **kw)
+        assert eng.batcher.stats.preempted > 0, mode
+        assert eng.rstate_snapshots > 0 and eng.rstate_restores > 0, mode
+        assert (eng.rstate_snapshots, eng.rstate_restores) == \
+            (jeng.rstate_snapshots, jeng.rstate_restores), mode
+        assert eng.batcher.stats.completed == 2, mode
+        assert tight == ample == jtight, mode
+        assert eng.timing.device_syncs == jeng.timing.device_syncs, mode
+        assert eng.alloc.pages_in_use == 0, mode
+        assert not eng.rsnaps, mode      # snapshots consumed or dropped
 
 
 def test_mamba_chunk_adapts_to_sequence_length(engines):
