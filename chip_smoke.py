@@ -19,9 +19,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    version's time and a library call's time where one exists (CUDA events
    after warm-up; K1, K3 and K4 also by CUDA-graph replay, which leaves
    out the host's dispatch, printed beside). Bounds take each row's input type:
-   bf16 bytes at 2 a value and 989 TF/s; fp32 bytes at 4 and, for K2's
-   3xTF32 route, 495/3 TF/s (67 TF/s, the CUDA cores' rate, printed beside
-   it), else 67 TF/s; K4 takes its route's rates: 495/3 TF/s for fp32
+   bf16 bytes at 2 a value and 989 TF/s; fp32 bytes at 4 and, for K1 and
+   K2, 495/3 TF/s, the 3xTF32 rate (67 TF/s, the CUDA cores' rate,
+   printed beside it), for K3 67 TF/s; K4 takes its route's rates: 495/3 TF/s for fp32
    inputs; for bf16, q k^T at 989 TF/s (bf16 mma) and its three other
    products at 495/2 (two TF32 products each); the 67 TF/s figure beside
    it. Tolerances: attention fp32 2e-5 and bf16
@@ -34,8 +34,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    split with dead splits and a ctx = 0 row, and at llama3.2-1b's decode
    geometry over 32768 tokens, with ``F.scaled_dot_product_attention`` as
    its library yardstick (it gives the MERGED output, not the partials);
-   K1 also at 256-token pages with D 128 and at the bench's decode-step
-   shape (ctx 262144, ``n_splits`` 1 and 64). K4 at zamba2's prefill (B8
+   K1 also at 256-token pages with D 128, at the bench's decode-step
+   shape (ctx 262144, ``n_splits`` 1 and 64) and in its speculative verify
+   mode at llama3.2-1b's geometry: qpos 5, 16 and 33 (20, 64 and 132 q
+   rows; more than 32 rows launch once a row tile), no library call
+   computing paged verify attention. K4 at zamba2's prefill (B8
    S1024, chunk 128), decode (B8 S1, chunk 1), slot prefill (B1 S1024) and
    chunked prefill (B8 S128) shapes, the two prefill shapes also at the
    other width of a block's slice of P (32 or 64 columns), and at a prime
@@ -80,6 +83,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    120-page pool that preempts, with preemption snapshots
    (``state_resume``) and without: tokens equal the ample pool's,
    restores only with snapshots, none left behind.
+8. spec    — speculative decoding and stochastic sampling at full width
+   on the graph path (fp32 pool, page 16, 8 slots, batched prefill, 8
+   prompts of 256-1024 tokens, 32 new tokens). llama3.2-1b: (a) the
+   zeroed-layer oracle target (``models.convert.oracle_draft_pair``: wo
+   and w2 zero in layers 2..16) alone at horizon spec_horizon + 1, the
+   reference; (b) the oracle pair (the target's 1-layer slice as the
+   draft) at spec_horizon 4 and 15, the round as one CUDA graph per
+   (width, K) and eagerly: tokens equal (a)'s (the near-tie rule of phase
+   5), counters equal between the two, acceptance above zero; prints the
+   mean accept length, decode tok/s against (a), syncs per token, the
+   graph captures and the draft's share of a round's device time (the
+   captured round and the draft's scan alone, replayed); (c) an
+   independent 1-layer draft (seed 7), which rolls back nearly every
+   round, against the unmodified target alone; (d) temperature 0.8 and
+   top-k 8 with the oracle pair, and zamba2-1.2b with top-k 8 and no draft
+   (the K4 paths), each twice with one seed: identical tokens. Every run
+   completes and releases every page, and launches equal what its rounds
+   imply (K1: the draft's K - 1 steps x its layer, the verify pass x 16
+   layers x its row tiles; K2: prefill calls x 16 and catch-up calls x 1).
 
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
 and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
@@ -384,14 +406,23 @@ def check_paged(rng, dtype, *, B=8, KVH=8, G=4, D=64, page=16, W=128,
         res["plain_ms"] = cuda_ms(plain, iters=5)
         esz = torch.finfo(dtype).bits // 8
         S = max(1, min(n_splits, W))
-        live = float(ctx.sum().item())
+        # row t of a slot's qpos rows sees ctx + t tokens (of the W * page
+        # its table holds); the pages read are those the last row sees
+        c = ctx.long().cpu()[:, None] + torch.arange(qpos)[None]
+        seen = c.clamp(0, W * page).float()
+        live = float(seen[:, -1].sum())
         nbytes = (decode_hbm_bytes(live, KVH, D, esz) + q.numel() * esz
                   + S * B * KVH * G * qpos * (D + 2) * 4
                   + bt.numel() * 4 + ctx.numel() * 4)
-        flops = 4.0 * KVH * G * qpos * D * live
-        res["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_S, flops / PEAK[dtype])
+        flops = 4.0 * KVH * G * D * float(seen.sum())
+        # fp32 products at the 3xTF32 rate, as K2's and K4's fp32 bounds
+        peak = TF32X3 if dtype == torch.float32 else PEAK[dtype]
+        res["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_S, flops / peak)
         res["bound_by"] = ("bytes" if nbytes / HBM_BYTES_S
-                           >= flops / PEAK[dtype] else "operations")
+                           >= flops / peak else "operations")
+        if dtype == torch.float32:
+            res["bound_ms_cuda_cores"] = 1e3 * max(
+                nbytes / HBM_BYTES_S, flops / PEAK[dtype])
     return res
 
 
@@ -644,6 +675,16 @@ def phase_kernels() -> dict:
                                                  n_splits=3))):
             r = check_paged(rng, dtype, **kw)
             cases.append(("paged_attention", tag, name, r))
+        # a speculative round's verify pass at llama3.2-1b's geometry:
+        # qpos = spec_horizon + 1 query positions a slot, G * qpos rows (20
+        # and 64 at spec_horizon 4 and 15; 132 at qpos 33), one launch a
+        # tile of at most 32 rows
+        for qp in (5, 16, 33):
+            r = check_paged(rng, dtype, qpos=qp, n_splits=4, time_it=True)
+            cases.append(("paged_attention", tag,
+                          f"verify qpos={qp} rows={4 * qp} n_splits=4", r))
+            if tag == "fp32" and qp == 16:
+                main["paged_attention_verify"] = r
         if tag == "fp32":
             # the bench's decode-step shape at ctx 262144: a measurement
             # of the split count (B x KVH = 2 blocks at n_splits 1)
@@ -790,14 +831,17 @@ def phase_bench(smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
-          prompts, max_prefill=64, decode_graphs=None, time_replay=True):
+          prompts, max_prefill=64, decode_graphs=None, time_replay=True,
+          draft_params=None, **ecfg_kw):
     from repro_torch.serving import DecodeEngine, EngineConfig, Request
     ecfg = EngineConfig(n_slots=8, page_size=16, n_pages=1024,
                         max_context=1280, eos_token=-1, prefill_mode=mode,
                         prefill_chunk=chunk, decode_horizon=horizon,
                         kernel_splits=splits, use_kernels=use_kernels,
-                        max_prefill=max_prefill, decode_graphs=decode_graphs)
-    eng = DecodeEngine(cfg, ecfg, params, device=DEV)
+                        max_prefill=max_prefill, decode_graphs=decode_graphs,
+                        **ecfg_kw)
+    eng = DecodeEngine(cfg, ecfg, params, device=DEV,
+                       draft_params=draft_params)
     for i, p in enumerate(prompts[:n_req]):
         eng.submit(Request(i, p, 32))
     torch.cuda.synchronize()
@@ -820,7 +864,18 @@ def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
          "graphs": eng.horizons.graphs, "graph_captures": tm.graph_captures,
          "capture_s": tm.capture_s, "keys": sorted(eng.horizons.captured),
          "replay_step_ms": (replay_step_ms(eng) if eng.horizons.graphs
-                            and time_replay else None)}
+                            and time_replay and not eng.spec else None),
+         "spec": eng.spec, "draft_catchups": tm.draft_catchups,
+         "spec_dispatches": dict(tm.spec_dispatches),
+         "pages_in_use": eng.alloc.pages_in_use}
+    if eng.spec:
+        m.update(spec_rounds=eng.spec_rounds,
+                 spec_proposed=eng.spec_proposed,
+                 spec_accepted=eng.spec_accepted,
+                 draft_layers=eng.draft_cfg.n_layers,
+                 draft_grp=eng.draft_cfg.n_heads // eng.draft_cfg.n_kv_heads)
+        if eng.horizons.graphs and time_replay:
+            m.update(spec_round_ms(eng))
     # the engine (and its graphs and their memory pool) goes here; the
     # prefiller refers back to it, so the cycle needs the collector
     del eng
@@ -853,6 +908,57 @@ def replay_step_ms(eng, reps: int = 10) -> float:
     return start.elapsed_time(end) / (reps * key[1])
 
 
+def _replay_ms(graph, reps: int = 10) -> float:
+    """Device time of one replay of ``graph`` by CUDA events."""
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def spec_round_ms(eng) -> dict:
+    """Device time of a speculative round and of its draft part, after a
+    run: the widest captured round replayed with ``allow`` zeroed (every
+    kernel at its shape, no slot advanced: see ``replay_step_ms``), and
+    the draft's proposal scan alone captured the same way and replayed.
+    The launch counters and the generators end as they were."""
+    from repro_torch.models import model as MDL
+    from repro_torch.serving import graphs as GR
+    runner, E = eng.horizons, eng.ecfg
+    key = max(runner.captured)
+    width, K = key
+    runner.allow.zero_()
+    round_ms = _replay_ms(runner.captured[key].graph)
+    counts = GR.launch_counts()
+    states = [g.get_state() for g in eng.generators]
+
+    def draft():
+        MDL.draft_propose(
+            eng.draft_cfg, eng.draft_params, eng._dstate, eng.dev.tokens,
+            eng.dev.bt, eng.dev.ctx, runner.allow, eng.dgen,
+            horizon=K - 1, table_width=width, page_size=E.page_size,
+            n_pages=E.n_pages, sample=eng._scan_sample, need_q=eng.need_q,
+            rt=eng.rt)
+    graph = torch.cuda.CUDAGraph()
+    for g in eng.generators:
+        graph.register_generator_state(g)
+    runner._warmup(draft)
+    with torch.cuda.graph(graph, pool=runner.pool):
+        draft()
+    draft_ms = _replay_ms(graph)
+    del graph
+    GR._set_counts(counts)
+    for g, st in zip(eng.generators, states):
+        g.set_state(st)
+    return {"round_key": key, "round_ms": round_ms, "draft_ms": draft_ms}
+
+
 def _kernel_fns():
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.paged_attention import paged_attention_partials
@@ -866,15 +972,29 @@ def expected_launches(cfg, m) -> dict:
     """Launches the main path implies: one paged-decode launch per
     attention layer and decode step, one flash launch per attention layer
     and prefill call, one scan launch per Mamba2 layer and call of
-    either."""
+    either. A speculative run (``m["spec"]``), per round of K: the draft's
+    K - 1 decode steps (one paged launch per draft layer each) and the
+    verify pass (per target layer, one paged launch per tile of the G * K
+    query rows: ``row_tiles``); plus one flash launch per draft layer and
+    catch-up call."""
+    from repro_torch.kernels.paged_attention import row_tiles
     kinds = cfg.block_kinds()
     n_attn = sum(1 for k in kinds if k in ("attn", "local"))
     n_mamba = sum(1 for k in kinds if k == "mamba")
-    return {"paged_attention": n_attn * m["decode_steps"],
+    want = {"paged_attention": n_attn * m["decode_steps"],
             "flash_attention": n_attn * m["prefill_calls"],
             "ssm_scan": n_mamba * (m["decode_steps"] + m["prefill_calls"]),
             "ssm_scan chunk": n_mamba * m["prefill_calls"],
             "ssm_scan step": n_mamba * m["decode_steps"]}
+    if m.get("spec"):
+        grp = cfg.n_heads // cfg.n_kv_heads
+        dl, dgrp = m["draft_layers"], m["draft_grp"]
+        want["paged_attention"] = sum(
+            n * (n_attn * len(row_tiles(grp * K))
+                 + dl * (K - 1) * len(row_tiles(dgrp)))
+            for K, n in m["spec_dispatches"].items())
+        want["flash_attention"] += dl * m["draft_catchups"]
+    return want
 
 
 def launch_counts(fns) -> dict:
@@ -1363,6 +1483,159 @@ def phase_kvcache(smi: str, launches: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 8. speculative decoding and stochastic sampling
+# ---------------------------------------------------------------------------
+
+def spec_line(label: str, m: dict, smi: str, ref: dict | None = None) -> str:
+    dec = m["decode_tokens"]
+    tok_s = dec / max(m["decode_s"], 1e-9)
+    line = (f"[spec] {label}: completed={m['completed']}/{m['n']} "
+            f"pages left={m['pages_in_use']} tokens={m['tokens']} "
+            f"decode tok/s={tok_s:.1f}")
+    if ref is not None:
+        ref_s = ref["decode_tokens"] / max(ref["decode_s"], 1e-9)
+        line += f" ({tok_s / ref_s:.3f}x the target alone's {ref_s:.1f})"
+    line += (f" syncs/token={m['device_syncs'] / max(1, dec):.4f} "
+             f"decode s={m['decode_s']:.3f} ttft mean={m['ttft_mean_ms']:.1f}"
+             f" ms graph captures={m['graph_captures']} (width, K) "
+             f"{m['keys']} capture ms={1e3 * m['capture_s']:.1f}")
+    if m["spec"]:
+        mean = 1 + m["spec_accepted"] / max(1, m["spec_rounds"])
+        line += (f" | rounds={m['spec_rounds']} accepted="
+                 f"{m['spec_accepted']}/{m['spec_proposed']} mean accept "
+                 f"length={mean:.3f}"
+                 f" catch-ups={m['draft_catchups']} rounds by K="
+                 f"{m['spec_dispatches']}")
+        if "round_ms" in m:
+            line += (f" round device ms={m['round_ms']:.3f} (K="
+                     f"{m['round_key'][1]}, replayed, no slot running), "
+                     f"draft {m['draft_ms']:.3f} ms: draft share "
+                     f"{m['draft_ms'] / m['round_ms']:.3f}")
+    return line + f" | {smi}"
+
+
+def phase_spec(smi: str, launches: dict) -> None:
+    """Phase 8: speculative decoding and stochastic sampling at full width.
+
+    llama3.2-1b (16 layers, random fp32 weights from seed 0), 8 prompts of
+    256-1024 tokens, 32 new tokens, batched prefill, 8 slots, page 16:
+    (a) the zeroed-layer oracle target alone, as graphs, at horizon
+    spec_horizon + 1 (the reference); (b) the oracle pair
+    (``models.convert.oracle_draft_pair``) at spec_horizon 4 and 15, as
+    graphs and eagerly: tokens equal (a)'s (the near-tie rule of phase 5),
+    counters equal between graphs and eager, acceptance above zero; (c) an
+    independent 1-layer draft (seed 7) against the unmodified target
+    alone; (d) temperature 0.8 and top-k 8 with the oracle pair, and
+    zamba2-1.2b with top-k 8 and no draft, each twice with one seed:
+    identical tokens. Every run completes and releases every page, and
+    each kernel's launches equal what its rounds, steps and prefill calls
+    imply."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import oracle_draft_pair
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    tparams, dcfg, dparams = oracle_draft_pair(cfg, params)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n_tok))
+               for n_tok in rng.integers(256, 1025, 8)]
+    fns = _kernel_fns()
+    base = dict(prompts=prompts, mode="batched", splits=4, n_req=8,
+                chunk=32, use_kernels=None)
+
+    def run(label, c, p, **kw):
+        reset_counts(fns)
+        out, m = serve(c, p, **{**base, **kw})
+        la = launch_counts(fns)
+        want = expected_launches(c, m)
+        print(f"[spec] {label} launches: " + " ".join(
+            f"{k}={la[k]} (expected {want[k]})" for k in la if want[k]
+            or la[k]), flush=True)
+        if la != want or not all(la[k] for k in la if want[k]):
+            fail(f"{label}: kernel launches {la} do not match {want}")
+        if m["completed"] != m["n"] or m["pages_in_use"] or m["bal_max"] \
+                or m["bal_min"]:
+            fail(f"{label}: completed {m['completed']}/{m['n']}, "
+                 f"{m['pages_in_use']} pages in use")
+        if m["graphs"] != (kw.get("decode_graphs") is not False):
+            fail(f"{label}: the rounds did not run as asked (graphs "
+                 f"{m['graphs']})")
+        for k, v in la.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, m
+
+    spec_kw = dict(draft_params=dparams, draft_config=dcfg, horizon=1)
+    for G in (4, 15):
+        ref, mr = run(f"(a) oracle target alone, horizon {G + 1}", cfg,
+                      tparams, horizon=G + 1)
+        print(spec_line(f"llama3.2-1b (a) target alone h{G + 1}", mr, smi),
+              flush=True)
+        res = {}
+        for way, wkw in (("graphs", {}), ("eager",
+                                          dict(decode_graphs=False))):
+            label = f"(b) oracle pair spec_horizon {G} {way}"
+            res[way] = run(label, cfg, tparams, spec_horizon=G, **spec_kw,
+                           **wkw)
+            print(spec_line(f"llama3.2-1b {label}", res[way][1], smi, mr),
+                  flush=True)
+            compare_tokens(f"spec {label}", cfg, tparams, prompts, ref,
+                           res[way][0], ("target alone", way))
+            if not res[way][1]["spec_accepted"]:
+                fail(f"{label}: no proposal accepted")
+        cnt = ("spec_rounds", "spec_proposed", "spec_accepted",
+               "device_syncs", "decode_tokens", "spec_dispatches")
+        g, e = res["graphs"][1], res["eager"][1]
+        if any(g[k] != e[k] for k in cnt):
+            fail(f"spec_horizon {G}: counters differ between graphs and "
+                 f"eager: {[(k, g[k], e[k]) for k in cnt]}")
+        if g["graph_captures"] < 1 or any(K != G + 1 for _, K in g["keys"]):
+            fail(f"spec_horizon {G}: the round was not captured per "
+                 f"(width, {G + 1}): {g['keys']}")
+    # (c) a draft that rolls back nearly every round
+    rparams = init_params(dcfg, seed=7, dtype=torch.float32, device=DEV)
+    ref, mr = run("(c) unmodified target alone, horizon 5", cfg, params,
+                  horizon=5)
+    out, m = run("(c) independent draft spec_horizon 4", cfg, params,
+                 spec_horizon=4, **dict(spec_kw, draft_params=rparams))
+    print(spec_line("llama3.2-1b (c) independent 1-layer draft (seed 7), "
+                    "spec_horizon 4", m, smi, mr), flush=True)
+    compare_tokens("spec (c) independent draft", cfg, params, prompts, ref,
+                   out, ("target alone", "spec"))
+    del rparams
+    # (d) stochastic kinds: two runs with one seed give the same tokens
+    for sampler in ("temperature", "top_k"):
+        outs = [run(f"(d) oracle pair {sampler} run {i}", cfg, tparams,
+                    spec_horizon=4, sampler=sampler, temperature=0.8,
+                    top_k=8, sample_seed=11, **spec_kw) for i in (1, 2)]
+        print(spec_line(f"llama3.2-1b (d) oracle pair {sampler}",
+                        outs[0][1], smi), flush=True)
+        if outs[0][0] != outs[1][0]:
+            fail(f"(d) {sampler}: two runs with one seed differ")
+        if not outs[0][1]["spec_accepted"]:
+            fail(f"(d) {sampler}: no proposal accepted")
+    del params, tparams, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    zcfg = replace(get_config("zamba2-1.2b"), dtype="float32")
+    zparams = init_params(zcfg, seed=0, dtype=torch.float32, device=DEV)
+    zprompts = [rng.integers(0, zcfg.vocab_size, int(n_tok))
+                for n_tok in rng.integers(256, 1025, 8)]
+    zouts = [run(f"(d) zamba2-1.2b top_k run {i}", zcfg, zparams,
+                 prompts=zprompts, horizon=4, max_prefill=1024,
+                 sampler="top_k", top_k=8, temperature=0.8, sample_seed=11)
+             for i in (1, 2)]
+    print(spec_line("zamba2-1.2b (d) top_k 8, no draft, h4", zouts[0][1],
+                    smi), flush=True)
+    if zouts[0][0] != zouts[1][0]:
+        fail("(d) zamba2-1.2b top_k: two runs with one seed differ")
+    del zparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[spec] phase 8 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
     """``--kernel-times SRC``: K1, K2, K3 and K4 of the ``repro_torch``
     under ``SRC`` (this checkout's ``src`` or another's, e.g. an unpacked
@@ -1493,6 +1766,7 @@ def main() -> int:
     bench_launches = phase_bench(smi)
     launches = phase_engine(smi)
     phase_kvcache(smi, launches)
+    phase_spec(smi, launches)
     launches["flash_decode"] = bench_launches["flash_decode"]
     meta = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -1514,6 +1788,13 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms"),
                         "graph_ms": r.get("graph_ms")})
+        if name == "paged_attention":    # its verify mode, 64 rows
+            v = main_cases["paged_attention_verify"]
+            kernels[-1].update({
+                "verify_max_abs_err": v["max_abs_err"],
+                "verify_ms": v["ms"], "verify_graph_ms": v["graph_ms"],
+                "verify_bound_ms": v["bound_ms"],
+                "verify_plain_ms": v["plain_ms"]})
         if name == "ssm_scan":    # its decode route, the step kernel
             d = main_cases["ssm_scan_decode"]
             kernels[-1].update({

@@ -168,6 +168,32 @@ def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
     return replace(cfg, **kw)
 
 
+def validate_draft_pair(target: ModelConfig, draft: ModelConfig) -> None:
+    """Reject draft/target pairings speculative decoding cannot serve.
+
+    The draft proposes token ids the target scores, so the two must share
+    a tokenizer: equal ``vocab_size`` and ``padded_vocab``. Verify also
+    needs attention stacks on both sides: paged KV rolls back for free
+    (stale rows are masked, then overwritten), a recurrent carry cannot
+    roll back past a rejected proposal."""
+    if draft.vocab_size != target.vocab_size or \
+            draft.padded_vocab != target.padded_vocab:
+        raise ValueError(
+            f"draft/target tokenizer mismatch: draft {draft.name!r} has "
+            f"vocab {draft.vocab_size} (padded {draft.padded_vocab}) but "
+            f"target {target.name!r} has vocab {target.vocab_size} (padded "
+            f"{target.padded_vocab}); EngineConfig.draft_config requires a "
+            "draft sharing the target's tokenizer")
+    for side, cfg in (("target", target), ("draft", draft)):
+        if cfg.family == "encdec" or not all(
+                k in ("attn", "local") for k in cfg.block_kinds()):
+            raise ValueError(
+                f"speculative decode needs attention-only decoder stacks; "
+                f"{side} {cfg.name!r} (family {cfg.family!r}, pattern "
+                f"{cfg.pattern!r}) has recurrent or encoder blocks whose "
+                "state cannot roll back past rejected proposals")
+
+
 # Populated by configs/__init__.py
 _REGISTRY: dict[str, ModelConfig] = {}
 

@@ -30,6 +30,13 @@
 // split with no live page emits m = -1e30, l = 0, o = 0 - a finite
 // sentinel, so the merge of an idle slot gives 0 and never
 // exp(-inf - -inf) = NaN.
+//
+// Row tiles. A block holds at most 32 q rows (WARPS warps of at most 8
+// rows). A speculative verify pass has G * qpos rows (64 at llama3.2-1b's
+// G = 4 and 15 proposals), so the wrapper cuts the rows into even tiles of
+// at most 32 and launches once a tile (kernels/paged_attention.py::
+// row_tiles); each launch re-reads the block's pages, and row r keeps its
+// position ctx - 1 + r % qpos through the tile's row offset.
 #include "decode_tile.cuh"
 
 namespace {
@@ -91,26 +98,30 @@ struct PageWalk {
   }
 };
 
-// q [B, KVH, rows, D]; kp/vp [P, page, KVH, D]; bt [B, W]; ctx, win [B];
-// o [S, B, KVH, rows, D]; l, m [S, B, KVH, rows]. Row r of the q tile sits at
-// position ctx - 1 + r % qpos. Split s owns table slots [s*K, s*K + K); slots
-// at or past W are the tail split's padding and are dead.
+// q [B, KVH, rows_total, D]; kp/vp [P, page, KVH, D]; bt [B, W]; ctx, win
+// [B]; o [S, B, KVH, rows_total, D]; l, m [S, B, KVH, rows_total]. A block
+// takes the `rows` q rows from row0 (the wrapper launches one call a row
+// tile when G * qpos exceeds what one block holds); row r of the q tile sits
+// at position ctx - 1 + r % qpos, r counted from row 0 of the whole q, so a
+// tile that starts mid-group keeps its rows' positions. Split s owns table
+// slots [s*K, s*K + K); slots at or past W are the tail split's padding and
+// are dead.
 template <typename T, int DPL, int RPW>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                       const T* __restrict__ vp, const int* __restrict__ bt,
                       const int* __restrict__ ctx, const int* __restrict__ win,
                       float* __restrict__ o, float* __restrict__ l,
-                      float* __restrict__ m, int B, int KVH, int rows, int D,
-                      int page, int W, int K, int ring_width,
-                      int windowed_slice, int qpos) {
+                      float* __restrict__ m, int B, int KVH, int rows,
+                      int rows_total, int row0, int D, int page, int W, int K,
+                      int ring_width, int windowed_slice, int qpos) {
   const int h = blockIdx.x % KVH;
   const int b = (blockIdx.x / KVH) % B;
   const int s = blockIdx.x / (KVH * B);
 
   extern __shared__ __align__(16) uint8_t smem[];
   float* qs = reinterpret_cast<float*>(smem);   // [rows, D]
-  load_q(qs, q + (size_t)(b * KVH + h) * rows * D, rows, D);
+  load_q(qs, q + ((size_t)(b * KVH + h) * rows_total + row0) * D, rows, D);
 
   const int c = ctx[b], w = win[b];
   const size_t tok_stride = (size_t)KVH * D;
@@ -123,19 +134,20 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   stream<T, DPL, RPW>(acc, qs, smem + sizeof(float) * rows * D, walk,
                       kp + (size_t)h * D, vp + (size_t)h * D, tok_stride,
                       chunk, rows, D, sqrtf((float)D), [&](int r, int tok) {
-                        const int hi = c + r % qpos;
+                        const int hi = c + (row0 + r) % qpos;
                         return tok < hi && (w <= 0 || tok >= hi - w);
                       });
-  acc.store(o, l, m, (((size_t)s * B + b) * KVH + h) * rows, rows, D);
+  acc.store(o, l, m, (((size_t)s * B + b) * KVH + h) * rows_total + row0,
+            rows, D);
 }
 
 struct Launch {
   template <typename T, int DPL, int RPW>
   static int run(const void* q, const void* k, const void* v, const void* bt,
                  const void* ctx, const void* win, void* o, void* l, void* m,
-                 int B, int KVH, int rows, int D, int page, int W, int S,
-                 int K, int ring_width, int windowed_slice, int qpos,
-                 cudaStream_t stream) {
+                 int B, int KVH, int rows, int rows_total, int row0, int D,
+                 int page, int W, int S, int K, int ring_width,
+                 int windowed_slice, int qpos, cudaStream_t stream) {
     const size_t smem = smem_bytes(rows, D, (int)sizeof(T), DPL);
     auto kern = paged_partials_kernel<T, DPL, RPW>;
     cudaError_t e = allow_smem(kern, smem);
@@ -143,7 +155,8 @@ struct Launch {
     kern<<<S * B * KVH, WARPS * 32, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const int*)bt,
         (const int*)ctx, (const int*)win, (float*)o, (float*)l, (float*)m, B,
-        KVH, rows, D, page, W, K, ring_width, windowed_slice, qpos);
+        KVH, rows, rows_total, row0, D, page, W, K, ring_width, windowed_slice,
+        qpos);
     return (int)cudaGetLastError();
   }
 };
@@ -157,16 +170,19 @@ extern "C" long long paged_attention_smem(int rows, int D) {
   return (long long)smem_bytes_max(rows, D);
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, K and V pages share it). The caller
-// guarantees D <= 128 with D * sizeof(dtype) a multiple of 16, rows <= 32,
-// 16-byte aligned pools and contiguous int32 bt/ctx/win. Returns
-// cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16 (q, K and V pages share it). Computes
+// rows [row0, row0 + rows) of q's rows_total rows. The caller guarantees
+// D <= 128 with D * sizeof(dtype) a multiple of 16, rows <= 32,
+// row0 + rows <= rows_total, 16-byte aligned pools and contiguous q and
+// int32 bt/ctx/win. Returns cudaGetLastError() after the launch.
 extern "C" int paged_attention_partials(
     int dtype, const void* q, const void* k, const void* v, const void* bt,
     const void* ctx, const void* win, void* o, void* l, void* m, int B,
-    int KVH, int rows, int D, int page, int W, int S, int K, int ring_width,
-    int windowed_slice, int qpos, void* stream) {
+    int KVH, int rows, int rows_total, int row0, int D, int page, int W,
+    int S, int K, int ring_width, int windowed_slice, int qpos,
+    void* stream) {
   return dispatch<Launch>(dtype, rows, D, q, k, v, bt, ctx, win, o, l, m, B,
-                          KVH, rows, D, page, W, S, K, ring_width,
-                          windowed_slice, qpos, (cudaStream_t)stream);
+                          KVH, rows, rows_total, row0, D, page, W, S, K,
+                          ring_width, windowed_slice, qpos,
+                          (cudaStream_t)stream);
 }

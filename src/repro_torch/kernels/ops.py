@@ -11,14 +11,16 @@ Port of the parts of ``repro/kernels/ops.py`` this slice runs:
   ``KernelConfig`` asks for the plain path;
 * ``mamba_mixer`` — the Mamba2 scan: the chunk-scan kernel wrapper under
   the same rule, ``models.ssm.chunked_gla`` on the plain path;
+* ``verify_attention`` — a speculative round's multi-query attention:
+  the paged split-K kernel in its ``qpos > 1`` mode (one pass scores the
+  pending token and every proposal), or ``ref.paged_attention_verify_ref``
+  on the plain path;
 * ``decode_attention``, ``paged_decode_step``, ``itpp_partials`` and
   ``merge_partials`` — the calls the kernel bench
   (``launch/kernel_bench.py``) times. JAX's ``use_pallas`` maps onto
   ``KernelConfig.use_kernels`` (default: the kernel wrappers, which
   dispatch by tensor device); ``use_kernels=False`` selects the plain
   reference (``kernels/ref.py``, or the gather-then-dense decode).
-
-``verify_attention`` waits for speculative decoding (ROADMAP A.5).
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ from repro_torch.kernels import ref as REF
 from repro_torch.kernels.backend import KernelConfig
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_verify)
 from repro_torch.kernels.ssm_scan import ssm_chunk_scan
 from repro_torch.models.layers import flash_attention
 from repro_torch.models.ssm import chunked_gla, mask_log_gates_tail
@@ -103,6 +106,25 @@ def decode_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
                                n_splits=kernels.n_splits)
     return REF.paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    ctx_lens).to(q.dtype)
+
+
+def verify_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
+                     window=None, kernels: KernelConfig | None = None):
+    """Speculative-verify multi-query attention over the decode table.
+
+    q [B, KVH, G, T, D]: T consecutive query positions a slot (the pending
+    token and the draft's proposals), query t at position ``ctx - 1 + t``;
+    ctx_lens counts tokens INCLUDING the first query token. The paged
+    split-K kernel scores all T rows in one pass (``qpos = T``);
+    ``kernels=None`` or ``use_kernels=False`` is the gather-then-dense
+    oracle. Returns [B, KVH, G, T, D] in q.dtype."""
+    if kernels is not None and kernels.enabled:
+        return paged_attention_verify(q, k_pages, v_pages, block_tables,
+                                      ctx_lens, window=window,
+                                      n_splits=kernels.n_splits)
+    return REF.paged_attention_verify_ref(
+        q, k_pages, v_pages, block_tables, ctx_lens,
+        window=window).to(q.dtype)
 
 
 def paged_decode_step(q, k_new, v_new, pool_k, pool_v, block_table, ctx_len,

@@ -14,8 +14,10 @@ slot.
   by asynchronous copies - several pages a stage, or sub-tiles of a long
   page, so any page size launches; see the note in the source). Rows must
   be whole 16-byte copies (``D * itemsize % 16 == 0``) and the pools
-  16-byte aligned. The wrapper counts each launch in
-  ``paged_attention_partials.launches``.
+  16-byte aligned. A block holds at most ``MAX_ROWS`` q rows; a call with
+  more (``G * qpos``: a speculative verify pass) launches once a row tile
+  (``row_tiles``, ``partials_by_row_tiles``), each tile at its row offset.
+  The wrapper counts each launch in ``paged_attention_partials.launches``.
 * CPU tensors take ``paged_attention_partials_plain``: the same function
   with the same split boundaries, tail padding and liveness rules, written
   as dense PyTorch, so the CPU tests exercise the kernel path's
@@ -60,12 +62,33 @@ def _split_geometry(W: int, n_splits: int) -> tuple[int, int]:
     return S, -(-W // S)
 
 
+def row_tiles(rows: int) -> list[tuple[int, int]]:
+    """``(row0, n)`` tiles of at most ``MAX_ROWS`` rows, cut evenly, that
+    cover ``[0, rows)``: the launches of one call with more q rows than a
+    block holds. A tile may start mid-group (``row0 % qpos != 0``)."""
+    n_tiles = max(1, -(-rows // MAX_ROWS))
+    size = -(-rows // n_tiles)
+    return [(r0, min(size, rows - r0)) for r0 in range(0, rows, size)]
+
+
+def partials_by_row_tiles(launch, rows: int, o, l, m):
+    """Fill the partials ``o [S, B, KVH, rows, D]``, ``l`` and ``m`` ``[S,
+    B, KVH, rows]`` one row tile at a time: ``launch(row0, n, o, l, m)``
+    writes rows ``[row0, row0 + n)``. The kernel path passes its launch;
+    the tests pass the plain version at a row offset."""
+    for row0, n in row_tiles(rows):
+        launch(row0, n, o, l, m)
+    return o, l, m
+
+
 def paged_attention_partials_plain(q, k_pages, v_pages, block_tables,
                                    ctx_lens, window, *, ring_width: int,
                                    windowed_slice: bool, n_splits: int,
-                                   qpos: int):
+                                   qpos: int, row0: int = 0):
     """The kernel's function in dense PyTorch: same splits, same dead-slot
-    rules, same partial layout. ``window`` is an int32 [B] tensor."""
+    rules, same partial layout. ``window`` is an int32 [B] tensor. ``q``'s
+    rows are rows ``row0..`` of a larger q (one row tile): row r sits at
+    ``ctx - 1 + (row0 + r) % qpos``."""
     B, KVH, R, D = q.shape
     page = k_pages.shape[1]
     W = block_tables.shape[1]
@@ -91,7 +114,7 @@ def paged_attention_partials_plain(q, k_pages, v_pages, block_tables,
     k = k_pages[safe].float()                                 # [B,SK,page,KVH,D]
     v = v_pages[safe].float()
     tok = vp[..., None] * page + torch.arange(page, device=dev)  # [B,SK,page]
-    hi = ctx + (torch.arange(R, device=dev) % qpos)[None]      # [B, R]
+    hi = ctx + ((row0 + torch.arange(R, device=dev)) % qpos)[None]  # [B, R]
     lo = torch.where(w > 0, hi - w, 0)
     ok = (live[:, None, :, None]
           & (tok[:, None] < hi[:, :, None, None])
@@ -117,7 +140,7 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 13 + [ctypes.c_void_p])
         lib.paged_attention_smem.restype = ctypes.c_longlong
         lib.paged_attention_smem.argtypes = [ctypes.c_int] * 2
     return lib
@@ -137,10 +160,9 @@ def _launch(q, k_pages, v_pages, bt, ctx, win, *, ring_width, windowed_slice,
         raise ValueError(f"paged_attention_partials: pages {tuple(k_pages.shape)}"
                          f" / {tuple(v_pages.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if D > MAX_D or R > MAX_ROWS:
+    if D > MAX_D:
         raise ValueError(f"paged_attention_partials: the kernel takes D <= "
-                         f"{MAX_D} and G*qpos <= {MAX_ROWS}, got D={D}, "
-                         f"rows={R}")
+                         f"{MAX_D}, got D={D}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if not t.is_contiguous():
             raise ValueError(f"paged_attention_partials: {name} must be "
@@ -148,11 +170,12 @@ def _launch(q, k_pages, v_pages, bt, ctx, win, *, ring_width, windowed_slice,
     require_aligned("paged_attention_partials", D,
                     {"k_pages": k_pages, "v_pages": v_pages})
     lib = _lib()
-    smem = lib.paged_attention_smem(R, D)
+    tile = max(n for _, n in row_tiles(R))
+    smem = lib.paged_attention_smem(tile, D)
     if smem > MAX_SMEM:
-        raise ValueError(f"paged_attention_partials: rows={R}, D={D}, "
-                         f"page={page} needs {smem} B of shared memory a "
-                         f"block (max {MAX_SMEM})")
+        raise ValueError(f"paged_attention_partials: a tile of {tile} rows "
+                         f"at D={D} needs {smem} B of shared memory a block "
+                         f"(max {MAX_SMEM})")
     W = bt.shape[1]
     S, K = _split_geometry(W, n_splits)
     bt = bt.to(torch.int32).contiguous()
@@ -161,14 +184,17 @@ def _launch(q, k_pages, v_pages, bt, ctx, win, *, ring_width, windowed_slice,
     l = torch.empty((S, B, KVH, R), dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
     p = build.ptr
-    err = lib.paged_attention_partials(
-        _DTYPES[q.dtype], p(q), p(k_pages), p(v_pages), p(bt), p(ctx),
-        p(win), p(o), p(l), p(m), B, KVH, R, D, page, W, S, K,
-        int(ring_width), int(bool(windowed_slice)), int(qpos),
-        build.stream_ptr(q.device))
-    build.check(err, "paged_attention_partials")
-    paged_attention_partials.launches += 1
-    return o, l, m
+    stream = build.stream_ptr(q.device)
+
+    def launch(row0, n, o, l, m):
+        err = lib.paged_attention_partials(
+            _DTYPES[q.dtype], p(q), p(k_pages), p(v_pages), p(bt), p(ctx),
+            p(win), p(o), p(l), p(m), B, KVH, n, R, row0, D, page, W, S, K,
+            int(ring_width), int(bool(windowed_slice)), int(qpos), stream)
+        build.check(err, "paged_attention_partials")
+        paged_attention_partials.launches += 1
+
+    return partials_by_row_tiles(launch, R, o, l, m)
 
 
 def paged_attention_partials(q, k_pages, v_pages, block_tables, ctx_lens, *,

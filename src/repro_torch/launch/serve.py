@@ -16,6 +16,12 @@ system prompt covering that fraction of it, the traffic
 offload tier) pay off on. The run ends with ``completed=N/N`` and the page
 balance (``max=0 min=0`` once every page is released or held by the
 prefix cache's tree), then the ``kvcache:`` counters when the cache is on.
+``--draft ARCH --spec-horizon G`` serves with speculative decoding: a
+1-layer draft of ``ARCH`` (reduced with the target, or at its published
+widths with ``--full-width``; random weights from seed 1) proposes up to G
+tokens a slot each tick and one multi-query target pass verifies them; the
+run then ends with a ``spec:`` line (rounds, accepted / proposed, mean
+accept length).
 """
 from __future__ import annotations
 
@@ -35,6 +41,12 @@ def build_engine(args) -> DecodeEngine:
     if not args.full_width:
         cfg = reduced(cfg)
     cfg = replace(cfg, dtype="float32")
+    draft_cfg = None
+    if args.draft:
+        d = get_config(args.draft)
+        d = replace(d, n_layers=1) if args.full_width else reduced(d,
+                                                                   layers=1)
+        draft_cfg = replace(d, dtype="float32")
     ecfg = EngineConfig(n_slots=args.slots, page_size=args.page,
                         n_pages=args.pages, max_context=args.max_context,
                         eos_token=-1, prefill_mode=args.prefill_mode,
@@ -45,7 +57,9 @@ def build_engine(args) -> DecodeEngine:
                         prefix_cache=args.prefix_cache,
                         host_pages=args.host_pages,
                         reserve_gentle=args.reserve_gentle,
-                        state_resume=not args.no_state_resume)
+                        state_resume=not args.no_state_resume,
+                        draft_config=draft_cfg,
+                        spec_horizon=args.spec_horizon)
     return DecodeEngine(cfg, ecfg, device=args.device)
 
 
@@ -99,6 +113,14 @@ def main(argv=None):
     ap.add_argument("--decode-horizon", type=int, default=8,
                     help="fused decode steps per engine tick (one host sync "
                          "per horizon); 1 = per-token")
+    ap.add_argument("--draft", default="",
+                    help="speculative decoding: arch name of a 1-layer "
+                         "draft model proposing tokens the target verifies "
+                         "in one multi-query pass (greedy outputs stay "
+                         "token-identical)")
+    ap.add_argument("--spec-horizon", type=int, default=4,
+                    help="max draft proposals per slot per tick (emits up "
+                         "to spec-horizon+1 tokens per sync)")
     ap.add_argument("--kernel", default="on", choices=["on", "off"],
                     help="attention through the CUDA kernels (their plain "
                          "versions on the CPU) or the plain reference paths")
@@ -149,6 +171,11 @@ def main(argv=None):
     if eng.has_rstate:
         print(f"[serve] rstate: snapshots={eng.rstate_snapshots} "
               f"restores={eng.rstate_restores}", flush=True)
+    if eng.spec:
+        acc = 1 + eng.spec_accepted / max(1, eng.spec_rounds)
+        print(f"[serve] spec: draft={args.draft} rounds={eng.spec_rounds} "
+              f"accepted={eng.spec_accepted}/{eng.spec_proposed} "
+              f"accept_len_mean={acc:.2f}", flush=True)
     if eng.cache is not None:
         print(f"[serve] kvcache: hits={cs['hits']}/{cs['lookups']} "
               f"reused_tokens={cs['hit_tokens']} cow={cs['cow_copies']} "

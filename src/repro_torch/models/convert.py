@@ -57,3 +57,29 @@ def state_from_numpy(tree, device=None):
     if isinstance(tree, (tuple, list)):
         return type(tree)(state_from_numpy(v, dev) for v in tree)
     return _tensor(tree, dev, torch.float32)
+
+
+def oracle_draft_pair(cfg, params):
+    """The zeroed-layer oracle pair of ``benchmarks/serving_bench.py``'s
+    speculative rows: ``(target_params, draft_cfg, draft_params)``.
+
+    The target's attention ``wo`` and MLP ``w2`` are zeroed in layers
+    2..L, so every layer past the first adds exactly +0.0 to the residual
+    stream at an unchanged cost; the draft is the target's 1-layer slice,
+    sharing its embedding, final norm and head. The draft's logits are then
+    the target's, and greedy verification accepts every proposal (exactly
+    on the CPU; on a card up to the products' shape-dependent rounding).
+
+    ``params``: the port's params (``params_from_numpy``'s list of
+    per-layer dicts); the inputs are not modified."""
+    from dataclasses import replace
+    if "layers" not in params:
+        raise ValueError(f"{cfg.name}: the oracle pair needs an "
+                         "attention-only stack")
+    t_layers = [lp if i == 0 else dict(
+        lp, attn=dict(lp["attn"], wo=torch.zeros_like(lp["attn"]["wo"])),
+        mlp=dict(lp["mlp"], w2=torch.zeros_like(lp["mlp"]["w2"])))
+        for i, lp in enumerate(params["layers"])]
+    return (dict(params, layers=t_layers),
+            replace(cfg, name=cfg.name + "-draft", n_layers=1),
+            dict(params, layers=t_layers[:1]))

@@ -1,5 +1,7 @@
-"""The model: parameters, decode, fused multi-step decode, prefill and
-chunked prefill, for attention-only stacks and the zamba2 hybrid.
+"""The model: parameters, decode, fused multi-step decode, speculative
+decode (the draft's proposal scan and the one-pass multi-query verify),
+prefill and chunked prefill, for attention-only stacks and the zamba2
+hybrid.
 
 Port of ``repro/models/model.py``. Each ``lax.scan`` over layers or decode
 steps becomes a Python loop; the paged pool is updated in place (each layer
@@ -359,9 +361,10 @@ def decode_step(cfg, params, state, tokens, bt, ctx, npage, noff, *,
     return _logits(cfg, params, x), state
 
 
-def decode_multi(cfg, params, state, tokens, bt, ctx, rem, allow, *,
-                 horizon: int, table_width: int, page_size: int, n_pages: int,
-                 eos_token: int, sample, rt: Runtime = DEFAULT_RT):
+def decode_multi(cfg, params, state, tokens, bt, ctx, rem, allow, gen=None,
+                 *, horizon: int, table_width: int, page_size: int,
+                 n_pages: int, eos_token: int, sample,
+                 rt: Runtime = DEFAULT_RT):
     """Fused multi-step decode: ``horizon`` decode steps with on-device
     sampling and per-slot EOS/budget masking, no host sync inside.
 
@@ -370,7 +373,10 @@ def decode_multi(cfg, params, state, tokens, bt, ctx, rem, allow, *,
     ``table_width`` slots, write targets resolve against the full width);
     ctx — context INCLUDING the incoming token; rem — tokens the slot may
     still emit; allow — steps the slot may run this horizon (0 = idle).
-    ``sample``: ``logits [B, V] -> tokens [B]`` on device.
+    ``sample``: ``(gen, logits [B, V]) -> tokens [B]`` on device
+    (``serving.sampling.make_scan_sampler``); ``gen`` is the sampler's
+    ``torch.Generator`` (JAX's key chain; greedy ignores it), advanced in
+    place by every step's draw.
 
     A slot that samples EOS or spends its budget freezes (later steps write
     its KV to the trash page); one that only exhausts ``allow`` pauses with
@@ -390,7 +396,7 @@ def decode_multi(cfg, params, state, tokens, bt, ctx, rem, allow, *,
                                     n_pages=n_pages, ring_width=rt.ring_width)
         logits, state = decode_step(cfg, params, state, tokens, bt_attn,
                                     ctx, npage, noff, run=run, rt=rt)
-        nxt = sample(logits)
+        nxt = sample(gen, logits)
         tokens = torch.where(run, nxt, tokens)
         rem = torch.where(run, rem - 1, rem)
         fin = run & ((nxt == eos_token) | (rem <= 0))
@@ -401,6 +407,128 @@ def decode_multi(cfg, params, state, tokens, bt, ctx, rem, allow, *,
         emits.append(run)
     return (torch.stack(toks), torch.stack(emits), alive0 & ~alive, state,
             tokens, ctx, rem)
+
+
+# ---------------------------------------------------------------------------
+# speculative decode: the draft's proposal scan and the one-pass verify
+# ---------------------------------------------------------------------------
+
+def draft_propose(cfg, params, state, tokens, bt, ctx, allow, gen, *,
+                  horizon: int, table_width: int, page_size: int,
+                  n_pages: int, sample, need_q: bool,
+                  rt: Runtime = DEFAULT_RT):
+    """Draft side of a speculative round: up to ``horizon`` masked decode
+    steps proposing the next tokens of every slot at once.
+
+    The draft's (smaller) pool is indexed by the TARGET's block tables and
+    page ids, so draft KV at a page and offset is a function of the token
+    prefix alone. ``tokens``/``ctx`` are the target's slot state (ctx
+    INCLUDING the pending token, whose draft KV step 0 writes at ctx-1);
+    they are read, never written. Step ``i`` runs where ``i < clip(allow-1,
+    0, horizon)``: a slot reserved for one token proposes nothing.
+    ``sample`` is the engine's scan sampler, so the proposals follow the q
+    the verifier assumes; ``need_q`` stacks the raw logits for residual
+    rejection sampling (stochastic kinds). Returns ``(proposals [B,
+    horizon] int32, qlogits [horizon, B, V] | None, state)``; entries of
+    masked steps are garbage the verifier never accepts."""
+    from repro_torch.kernels.ops import write_targets
+    W = bt.shape[1]
+    bt_attn = bt[:, :table_width] if table_width < W else bt
+    nprop = (allow - 1).clamp(0, horizon)
+    toks, qs = [], []
+    for i in range(horizon):
+        run = nprop > i
+        npage, noff = write_targets(bt, ctx, run, page_size=page_size,
+                                    n_pages=n_pages, ring_width=rt.ring_width)
+        logits, state = decode_step(cfg, params, state, tokens, bt_attn,
+                                    ctx, npage, noff, run=run, rt=rt)
+        nxt = sample(gen, logits)
+        tokens = torch.where(run, nxt, tokens)
+        ctx = torch.where(run, ctx + 1, ctx)
+        toks.append(nxt)
+        qs.append(logits)
+    B = tokens.shape[0]
+    proposals = (torch.stack(toks, dim=1) if toks else torch.zeros(
+        (B, 0), dtype=torch.int32, device=tokens.device))
+    qlogits = None
+    if need_q:
+        qlogits = (torch.stack(qs) if qs else torch.zeros(
+            (0, B, cfg.padded_vocab), dtype=torch.float32,
+            device=tokens.device))
+    return proposals, qlogits, state
+
+
+def decode_verify(cfg, params, state, tokens, proposals, qlogits, bt, ctx,
+                  rem, allow, gen, *, horizon: int, table_width: int,
+                  page_size: int, n_pages: int, eos_token: int, verifier,
+                  rt: Runtime = DEFAULT_RT):
+    """One-pass speculative verify: the pending token and the draft's
+    ``horizon`` proposals in ONE multi-query target forward, a prefix
+    accepted, and the slot state advanced as ``decode_multi`` would have.
+
+    The round forwards ``[pending, d_1..d_G]`` at positions ctx-1..ctx+G-1
+    (attention-only stacks: a recurrent carry cannot roll back). Each
+    layer writes the rows' K/V with ``write_prefill(ctx_start=ctx-1,
+    valid_len=nprop+1)`` (idle and frozen slots: valid_len 0, the trash
+    page), then ``kernels.ops.verify_attention`` scores the G+1 query rows
+    against the paged pool in one split-K pass, row t masked to tok <
+    ctx+t. Rollback is free: KV of rejected positions lies past the new
+    ctx (masked) and the next round's writes start at the new ctx-1.
+
+    ``verifier`` (``serving.sampling.make_verifier``) gives ``(candidates
+    [B, G+1], accept_len [B])``; the emitted run is ``candidates[:e]``,
+    ``e = accept_len + 1`` cut at the first EOS or budget stop, which
+    freezes the slot as ``decode_multi`` does. Returns ``(toks [G+1, B],
+    emit [G+1, B] bool, finished [B], state, tokens, ctx, rem, accept_len
+    [B])``."""
+    from repro_torch.core.paged_kv import write_prefill
+    B = tokens.shape[0]
+    C = horizon + 1
+    dev = tokens.device
+    run = allow > 0
+    nprop = (allow - 1).clamp(0, horizon)
+    seq = torch.cat([tokens[:, None], proposals.to(tokens.dtype)], dim=1)
+    start = (ctx - 1).clamp_min(0)
+    valid_len = torch.where(run, nprop + 1, 0)
+    W = bt.shape[1]
+    bt_attn = bt[:, :table_width] if table_width < W else bt
+    x = L.embed(params["embed"], seq)                      # [B, C, D]
+    cs = _cos_sin(cfg, start.long()[:, None]
+                  + torch.arange(C, device=dev)[None])
+    pool = state["pool"]
+    grp = cfg.n_heads // cfg.n_kv_heads
+    for i, (lp, w) in enumerate(zip(params["layers"], _window_array(cfg))):
+        q, k, v = _qkv(lp, cfg, x, cs)                     # [B, C, H, dh]
+        write_prefill(pool["k"][i], pool["v"][i], k, v, bt, ctx_start=start,
+                      valid_len=valid_len)
+        qr = q.transpose(1, 2).reshape(B, cfg.n_kv_heads, grp, C,
+                                       cfg.d_head)
+        a = ops.verify_attention(qr.contiguous(), pool["k"][i],
+                                 pool["v"][i], bt_attn, ctx, window=w,
+                                 kernels=rt.kernels)
+        a = a.permute(0, 3, 1, 2, 4).reshape(B, C, cfg.q_dim)
+        x = _block_tail(lp, cfg, x + L.dense(a, lp["attn"]["wo"]))
+    logits = _logits(cfg, params, x)                       # [B, C, V]
+
+    cand, acc = verifier(gen, logits, qlogits, proposals, nprop, run)
+    # EOS / budget truncation over the accepted run, as the fused scan's
+    # per-step freeze: candidate j is EOS or spends the budget -> emit
+    # exactly j+1 tokens and finish without advancing past them
+    idx = torch.arange(C, device=dev)
+    stop = (cand == eos_token) | (rem[:, None] - (idx + 1)[None] <= 0)
+    stopped = (idx[None] <= acc[:, None]) & stop & run[:, None]
+    any_stop = stopped.any(dim=1)
+    first = torch.argmax(stopped.to(torch.int32), dim=1)
+    e = torch.where(any_stop, first + 1, acc + 1)
+    e = torch.where(run, e, 0).to(torch.int32)
+    emit = idx[None] < e[:, None]                          # [B, C]
+    fin = run & any_stop
+    newtok = cand[torch.arange(B, device=dev), (e - 1).clamp_min(0).long()]
+    tokens = torch.where(run, newtok, tokens)
+    rem = torch.where(run, rem - e, rem)
+    ctx = torch.where(run, ctx + e - fin.to(torch.int32), ctx)
+    return (cand.T, emit.T, fin, state, tokens, ctx, rem,
+            torch.where(run, acc, 0).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 ``engine`` orchestrates the tick; ``prefill`` holds the slot / batched /
 chunked strategies; ``policies`` the pluggable admission policies;
-``sampling`` the greedy sampler.
+``sampling`` the greedy, temperature and top-k samplers and the
+speculative verifier.
 """
 from repro_torch.serving.engine import DecodeEngine, EngineConfig, EngineTiming
 from repro_torch.serving.policies import available_policies, make_policy

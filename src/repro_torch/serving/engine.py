@@ -45,21 +45,38 @@ the request resumes instead of recomputing); group prefill gathers the
 group's rows, runs, and scatters them back; the decode horizon's ``run``
 mask keeps idle, paused and mid-chunk-prefill rows unchanged.
 
-Not ported yet (ROADMAP queue A): speculative decode, telemetry, fault
-injection, serving snapshots, cluster roles, stochastic sampling and the
-per-token ``step()`` API. Their config fields keep the port's defaults;
-setting another value raises.
+Sampling (``EngineConfig.sampler``): greedy, temperature or top-k, on
+the device inside the horizon. JAX's key chains become generators on the
+engine's device: the first-token sampler's (``sample_seed``), the
+decode horizon's (``sample_seed``) and the draft's (``sample_seed + 1``).
+
+Speculative decoding (``draft_config``, ``draft_params``,
+``spec_horizon``): a small attention-only draft with its own paged pool,
+indexed by the target's block tables (no second allocator), proposes up
+to ``spec_horizon`` tokens a slot each tick and ONE multi-query target pass
+verifies them (``models.model.draft_propose`` / ``decode_verify``); on a
+card the round is one CUDA graph per (table width, K). Before each round
+the draft catches up, eagerly, on the context it has not absorbed
+(``_draft_catchup``: fresh admissions, resumes, cache hits, the one token
+after a partly accepted round). Greedy output is token-identical to
+target-only decoding; stochastic kinds use residual rejection sampling.
+
+Not ported yet (ROADMAP queue A): telemetry, fault injection, serving
+snapshots, cluster roles, the degradation ladder and the per-token
+``step()`` API. Their config fields keep the port's defaults; setting
+another value raises.
 """
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config, validate_draft_pair
 from repro_torch.core.allocator import PageAllocator
 from repro_torch.core.paged_kv import PoolSpec, scatter_pages
 from repro_torch.core.scheduler import ContinuousBatcher, Request
@@ -69,15 +86,16 @@ from repro_torch.kvcache import (HostCopier, PrefixCache, WatermarkConfig,
 from repro_torch.models import model as MDL
 from repro_torch.serving.graphs import HorizonRunner
 from repro_torch.serving.policies import make_policy
-from repro_torch.serving.prefill import decode_table_bucket, make_prefiller
+from repro_torch.serving.prefill import (_suffix_bucket,
+                                         decode_table_bucket, make_prefiller)
 from repro_torch.serving.request import Request as RequestSpec
-from repro_torch.serving.sampling import make_sampler, make_scan_sampler
+from repro_torch.serving.sampling import (make_generator, make_sampler,
+                                          make_scan_sampler, make_verifier)
 
 # EngineConfig fields of features the port does not serve yet, with the
 # only value it accepts (see the module docstring)
-_UNPORTED = {"sampler": "greedy", "draft_config": None, "telemetry": None,
-             "faults": None, "snapshot_dir": None, "snapshot_every": 0,
-             "role": "both"}
+_UNPORTED = {"telemetry": None, "faults": None, "snapshot_dir": None,
+             "snapshot_every": 0, "role": "both"}
 
 
 @dataclass
@@ -95,11 +113,21 @@ class EngineConfig:
     prefill_mode: str = "batched"     # slot | batched | chunked
     prefill_chunk: int = 32           # tokens per chunk in chunked mode
     sched_policy: str = "fcfs"        # fcfs | sjf | memory_aware | edf | slo
-    sampler: str = "greedy"           # stochastic kinds: ROADMAP C.2
+    sampler: str = "greedy"           # greedy | temperature | top_k
+    temperature: float = 1.0
+    top_k: int = 0
+    sample_seed: int = 0
     # fused multi-step decode: steps per tick, one host sync per horizon.
     # Greedy outputs are horizon-invariant; clamped to 1 while chunked
     # prefill is streaming.
     decode_horizon: int = 1
+    # ---- speculative decoding (draft-propose, one-pass verify) ----
+    # a small draft (registry name or ModelConfig; attention-only, sharing
+    # the target's tokenizer: configs.base.validate_draft_pair) proposes up
+    # to spec_horizon tokens a slot a tick, one multi-query target pass
+    # verifies them; supersedes decode_horizon (K = spec_horizon + 1)
+    draft_config: Any = None
+    spec_horizon: int = 4
     # gentle horizon reservation: decline to evict radix-cached pages for
     # speculative (beyond-next-token) growth, shortening the horizon instead
     reserve_gentle: bool = False
@@ -133,7 +161,6 @@ class EngineConfig:
     # never consumes snapshots (it is the recompute reference path).
     state_resume: bool = True
     # ---- features not ported yet: must keep these defaults ----
-    draft_config: Any = None
     telemetry: Any = None
     faults: Any = None
     snapshot_dir: str | None = None
@@ -162,6 +189,10 @@ class EngineTiming:
     decode_tokens: int = 0            # tokens emitted by decode dispatches
     decode_steps: int = 0             # decode steps dispatched (sum of K)
     prefill_calls: int = 0            # model prefill / prefill_chunk calls
+    draft_catchups: int = 0           # the draft's catch-up prefill calls
+    # speculative rounds dispatched, by K (K - 1 draft steps, one verify
+    # pass over K query positions)
+    spec_dispatches: dict = field(default_factory=dict)
 
     def as_dict(self) -> dict:
         n = max(1, self.steps)
@@ -173,6 +204,8 @@ class EngineTiming:
                 "decode_tokens": self.decode_tokens,
                 "decode_steps": self.decode_steps,
                 "prefill_calls": self.prefill_calls,
+                "draft_catchups": self.draft_catchups,
+                "spec_dispatches": dict(self.spec_dispatches),
                 "syncs_per_token": self.device_syncs
                 / max(1, self.decode_tokens)}
 
@@ -204,9 +237,18 @@ class DeviceSlotState:
 
 class DecodeEngine:
     def __init__(self, cfg, ecfg: EngineConfig, params=None, rt=None, *,
-                 policy=None, device=None):
+                 policy=None, device=None, draft_params=None):
         self.cfg = cfg
         self.ecfg = ecfg
+        # a draft that cannot pair with the target (another tokenizer, a
+        # recurrent stack) fails here, before any params are allocated
+        self.draft_cfg = None
+        if ecfg.draft_config is not None:
+            dcfg = ecfg.draft_config
+            if isinstance(dcfg, str):
+                dcfg = get_config(dcfg)
+            validate_draft_pair(cfg, dcfg)
+            self.draft_cfg = dcfg
         self.device = resolve_device(device)
         if rt is None:
             rt = MDL.Runtime(kernels=KernelConfig(
@@ -273,8 +315,47 @@ class DecodeEngine:
         # TTFT bookkeeping: wall-clock of submit and of the first token
         self.submit_t: dict[int, float] = {}
         self.first_tok_t: dict[int, float] = {}
-        self.sampler = make_sampler(ecfg.sampler)
-        self._scan_sample = make_scan_sampler(ecfg.sampler)
+        sk = dict(temperature=ecfg.temperature, top_k=ecfg.top_k)
+        self.sampler = make_sampler(ecfg.sampler, seed=ecfg.sample_seed,
+                                    device=self.device, **sk)
+        self._scan_sample = make_scan_sampler(ecfg.sampler, **sk)
+        # the decode horizon's key chain (the verify pass's too)
+        self.gen = make_generator(ecfg.sample_seed, self.device)
+        self.need_q = ecfg.sampler != "greedy"
+        # ---- speculative decoding: the draft's pool is indexed by the
+        # TARGET's block tables (same page ids, the draft's layers and
+        # heads), so draft KV at a page is a function of the token prefix
+        # and radix-shared pages stay coherent across borrowers
+        self.spec = self.draft_cfg is not None
+        self.draft_params = self._dstate = self.dgen = None
+        if self.spec:
+            dcfg = self.draft_cfg
+            self.draft_spec = PoolSpec(
+                dcfg.n_layers, ecfg.n_pages, ecfg.page_size, dcfg.n_kv_heads,
+                dcfg.d_head, maxp, dtype="float32")
+            if draft_params is None:
+                draft_params = MDL.init_params(dcfg, 1, torch.float32,
+                                               self.device)
+            elif draft_params["embed"].device.type != self.device.type:
+                raise ValueError(f"draft params live on "
+                                 f"{draft_params['embed'].device}, the "
+                                 f"engine on {self.device}")
+            self.draft_params = draft_params
+            self._dstate = MDL.init_decode_state(dcfg, self.draft_spec,
+                                                 ecfg.n_slots,
+                                                 device=self.device)
+            self.dgen = make_generator(ecfg.sample_seed + 1, self.device)
+            self._verifier = make_verifier(ecfg.sampler, **sk)
+            # req_id -> tokens the draft pool has absorbed (its KV covers
+            # [0, dlen)); 0 at every (re)admission: swap-ins, copies on
+            # write and snapshot restores rebuild only the target's pages
+            self._dlen: dict[int, int] = {}
+            self.spec_rounds = 0        # verify passes over running slots
+            self.spec_proposed = 0      # draft tokens offered
+            self.spec_accepted = 0      # draft tokens accepted
+        # the generators a horizon draws from (registered with its graphs)
+        self.generators = ([g for g in (self.gen, self.dgen) if g is not None]
+                           if self.need_q else [])
         self.prefiller = make_prefiller(ecfg.prefill_mode, self)
         self.timing = EngineTiming()
         self.dev = DeviceSlotState(ecfg.n_slots, maxp, self.device)
@@ -503,11 +584,12 @@ class DecodeEngine:
 
     def _collect_horizon(self):
         """Sync point: ONE readback of the in-flight horizon's packed
-        ``(toks, emit, fin)`` and fold the emissions into the outputs and
-        request bookkeeping."""
+        ``(toks, emit, fin[, acc])`` and fold the emissions into the outputs
+        and request bookkeeping (a speculative round: also the draft's
+        coverage and the accept counters)."""
         if self._inflight is None:
             return None
-        packed, K, pairs = self._inflight
+        packed, K, pairs, nprop = self._inflight
         self._inflight = None
         n = self.ecfg.n_slots
         with self._phase("decode_s"):
@@ -515,7 +597,8 @@ class DecodeEngine:
         self.timing.device_syncs += 1
         toks = host[:K * n].reshape(K, n)
         emit = host[K * n:2 * K * n].reshape(K, n).astype(bool)
-        fin = host[2 * K * n:].astype(bool)
+        fin = host[2 * K * n:2 * K * n + n].astype(bool)
+        acc = host[2 * K * n + n:]
         tnow = self.clock()
         finished = np.zeros((n,), bool)
         for slot, req in pairs:
@@ -524,13 +607,70 @@ class DecodeEngine:
                 continue
             self.outputs[req.req_id].extend(int(t) for t in ts)
             self.first_tok_t.setdefault(req.req_id, tnow)
+            if nprop is not None:
+                # the draft absorbed its proposals' KV up to the emitted
+                # frontier (req.total_len is still the dispatch-time
+                # context: ``generated`` advances below)
+                self._dlen[req.req_id] = req.total_len - 1 \
+                    + min(len(ts), int(nprop[slot]))
+                self.spec_rounds += 1
+                self.spec_proposed += int(nprop[slot])
+                self.spec_accepted += int(acc[slot])
             # the tick's scheduler step already reserved one token; the rest
             # of the horizon's emissions land here
             req.generated += len(ts) - 1
             self.tokens[slot] = int(ts[-1])
             finished[slot] = bool(fin[slot])
+            if fin[slot] and self.spec:
+                self._dlen.pop(req.req_id, None)
             self.timing.decode_tokens += int(len(ts))
         return finished
+
+    def _draft_catchup(self, active) -> None:
+        """Bring the draft's pool level with the target before a round: ONE
+        draft ``prefill_chunk`` over every active slot's tokens in ``[dlen,
+        ctx-1)`` (what the draft has not absorbed: a fresh admission, a
+        resume, a cache hit, or the one token after a partly accepted
+        round), at ``prefill_suffix``'s bucket shapes; rows padded to a
+        power of two repeat the last real row with ``valid_len`` 0."""
+        E = self.ecfg
+        ctx = self.batcher.context_lens()
+        needy = []
+        for s in active:
+            req = self.batcher.slots[s]
+            dlen = self._dlen.get(req.req_id, 0)
+            need = int(ctx[s]) - 1 - dlen
+            if need > 0:
+                needy.append((s, req, dlen, need))
+        if not needy:
+            return
+        blen = _suffix_bucket(max(nd for *_, nd in needy),
+                              max(E.max_prefill, E.page_size))
+        rows = 1
+        while rows < len(needy):
+            rows *= 2
+        W = self.pool_spec.max_pages_per_req
+        host_bt = self.batcher.block_tables(W)
+        toks = np.zeros((rows, blen), np.int32)
+        starts = np.zeros((rows,), np.int32)
+        lens = np.zeros((rows,), np.int32)
+        bt_rows = np.zeros((rows, W), np.int32)
+        for i, (s, req, dlen, need) in enumerate(needy):
+            full = np.concatenate(
+                [self.prompts[req.req_id],
+                 np.asarray(self.outputs[req.req_id], np.int32)])
+            toks[i, :need] = full[dlen:dlen + need]
+            starts[i] = dlen
+            lens[i] = need
+            bt_rows[i] = host_bt[s]
+            self._dlen[req.req_id] = dlen + need
+        bt_rows[len(needy):] = bt_rows[len(needy) - 1]
+        self.timing.draft_catchups += 1
+        MDL.prefill_chunk(
+            self.draft_cfg, self.draft_params, self._dstate,
+            self._tensor(toks), self._tensor(bt_rows), self._tensor(starts),
+            last_idx=self._tensor(np.maximum(lens - 1, 0)),
+            valid_len=self._tensor(lens), rt=self.rt)
 
     def _step_fused(self) -> None:
         """One pipelined tick: collect the previous horizon, schedule and
@@ -568,7 +708,13 @@ class DecodeEngine:
             return
 
         with self._phase("host_s"):
-            K = max(1, E.decode_horizon)
+            if self.spec:
+                # the draft re-absorbs every (re)admitted context
+                for _s, req in admitted:
+                    self._dlen[req.req_id] = 0
+                K = max(1, E.spec_horizon + 1)
+            else:
+                K = max(1, E.decode_horizon)
             cap = self.prefiller.max_horizon
             if cap is not None:
                 K = min(K, cap)
@@ -585,11 +731,18 @@ class DecodeEngine:
             with self._phase("capture_s"):
                 self.horizons.capture(key)
             self.timing.graph_captures += 1
+        nprop = None
         with self._phase("decode_s"):
+            if self.spec:
+                self._draft_catchup(active)
+                nprop = np.clip(np.asarray(allow) - 1, 0, K - 1)
+                sd = self.timing.spec_dispatches
+                sd[int(K)] = sd.get(int(K), 0) + 1
             packed = self.horizons.run(key, allow)
             self.timing.decode_steps += int(K)
             self._inflight = (packed, int(K),
-                              [(s, self.batcher.slots[s]) for s in active])
+                              [(s, self.batcher.slots[s]) for s in active],
+                              nprop)
 
     def tick(self) -> None:
         """One pipelined fused tick (public driver API)."""

@@ -113,14 +113,16 @@ def test_engine_plain_path_identity(models, jax_ref):
 
 
 def test_engine_rejects_unported_features():
-    """The fields of features still to port raise; the KV-cache hierarchy
-    and the recurrent snapshots are ported and do not."""
-    for field, value in (("sampler", "top_k"), ("draft_config", "x"),
-                         ("telemetry", object()), ("faults", object()),
+    """The fields of features still to port raise; the KV-cache hierarchy,
+    the recurrent snapshots, stochastic sampling and speculative decoding
+    are ported and do not."""
+    for field, value in (("telemetry", object()), ("faults", object()),
                          ("snapshot_every", 1), ("role", "prefill")):
         with pytest.raises(NotImplementedError, match=field):
             EngineConfig(**{field: value}, **KW)
     EngineConfig(prefix_cache=True, host_pages=8, state_resume=True, **KW)
+    EngineConfig(sampler="top_k", top_k=8, temperature=0.8, sample_seed=3,
+                 draft_config="llama3.2-1b", spec_horizon=3, **KW)
 
 
 def test_cuda_request_without_card_raises(models):

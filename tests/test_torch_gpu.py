@@ -702,3 +702,107 @@ def test_cow_copies_between_replays_of_a_captured_horizon():
     assert graphs.horizons.graphs and cow_after_capture > 0
     assert graphs.cache.stats.hits > 0
     assert graphs.state["pool"]["k"].data_ptr() == ptr
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: K1's verify mode, the round as a CUDA graph
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,qpos,n_splits", [(4, 5, 1), (4, 16, 1),
+                                             (4, 16, 3), (1, 33, 2),
+                                             (4, 33, 1)],
+                         ids=["20 rows", "64 rows", "64 rows splits",
+                              "33 rows qpos 33", "132 rows qpos 33"])
+def test_paged_kernel_spec_verify_rows_match_plain(dtype, G, qpos, n_splits):
+    """K1 in its multi-query verify mode past one block's 32 rows: one
+    launch a row tile, each tile at its row offset, against the plain
+    version of the whole q (2e-5 fp32, 2e-2 bf16)."""
+    _card()
+    from repro_torch.kernels import paged_attention as PA
+    rng = np.random.default_rng(11)
+    q, kp, vp, bt, ctx = _pool_case(rng, dtype, 4, 2, G * qpos, 64, 16, 8,
+                                    90)
+    win = torch.zeros(4, dtype=torch.int32, device="cuda")
+    before = PA.paged_attention_partials.launches
+    got = PA.paged_attention_partials(q, kp, vp, bt, ctx, window=win,
+                                      n_splits=n_splits, qpos=qpos)
+    torch.cuda.synchronize()
+    assert PA.paged_attention_partials.launches - before == \
+        len(PA.row_tiles(G * qpos))
+    want = PA.paged_attention_partials_plain(
+        q, kp, vp, bt, ctx, win, ring_width=0, windowed_slice=False,
+        n_splits=n_splits, qpos=qpos)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _spec_engines(ways, **kw):
+    """Reduced llama on the card: the zeroed-layer oracle target and its
+    1-layer draft (``models.convert.oracle_draft_pair``); one engine per
+    entry of ``ways``, all serving the same requests."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.convert import oracle_draft_pair
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DecodeEngine, EngineConfig, Request
+    cfg = replace(reduced(get_config("llama3.2-1b")), dtype="float32")
+    params, dcfg, dparams = oracle_draft_pair(
+        cfg, init_params(cfg, 0, torch.float32, "cuda"))
+    rng = np.random.default_rng(7)
+    reqs = [(r, rng.integers(0, 256, int(rng.integers(3, 30))), 9)
+            for r in range(5)]
+    engs = []
+    for way in ways:
+        way = dict(way)
+        draft = way.pop("draft", True)
+        eng = DecodeEngine(
+            cfg, EngineConfig(**ENGINE_KW, **kw, **way,
+                              draft_config=dcfg if draft else None),
+            params, device="cuda", draft_params=dparams if draft else None)
+        for r, prompt, n in reqs:
+            eng.submit(Request(r, prompt, n))
+        engs.append(eng)
+    return engs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,spec", [("batched", 4), ("chunked", 4),
+                                       ("batched", 15)])
+def test_spec_engine_graphs_match_target_only(mode, spec):
+    """The speculative round as a CUDA graph: greedy tokens equal the
+    target alone (graphs) and the eager round's, with equal counters; the
+    oracle pair accepts proposals; K1 served the verify rows."""
+    _card()
+    from repro_torch.kernels import paged_attention as PA
+    kw = dict(prefill_mode=mode, prefill_chunk=8, spec_horizon=spec)
+    graphs, eager, target = _spec_engines(
+        ({}, dict(decode_graphs=False),
+         dict(draft=False, decode_horizon=spec + 1)), **kw)
+    before = PA.paged_attention_partials.launches
+    outs = [e.run(1000) for e in (graphs, eager, target)]
+    assert PA.paged_attention_partials.launches > before
+    assert outs[0] == outs[1] == outs[2]
+    assert graphs.horizons.graphs and graphs.timing.graph_captures >= 1
+    for k in ("spec_rounds", "spec_proposed", "spec_accepted"):
+        assert getattr(graphs, k) == getattr(eager, k), k
+    assert graphs.timing.device_syncs == eager.timing.device_syncs
+    assert graphs.spec_accepted > 0
+    assert graphs.alloc.pages_in_use == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["temperature", "top_k"])
+def test_spec_engine_stochastic_graphs_draw_as_eager(sampler):
+    """Stochastic rounds as graphs: the generators are registered with
+    each graph and put back after its capture, so the graph path's tokens
+    equal the eager path's for one seed, and the oracle pair accepts
+    (nearly) every proposal (p == q up to the products' rounding)."""
+    _card()
+    kw = dict(prefill_mode="batched", spec_horizon=4, sampler=sampler,
+              top_k=8, temperature=0.8, sample_seed=5)
+    graphs, eager = _spec_engines(({}, dict(decode_graphs=False)), **kw)
+    assert graphs.run(1000) == eager.run(1000)
+    assert graphs.timing.graph_captures >= 1
+    assert graphs.spec_accepted > 0.9 * graphs.spec_proposed
