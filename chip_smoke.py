@@ -44,7 +44,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    other width of a block's slice of P (32 or 64 columns), and at a prime
    slot prompt (B1 S1031: chunk 1 as the scan ran it unpadded, and S1056
    chunk 96 with the tail as identity steps, as ``models/ssm.py`` pads it;
-   ROADMAP C.6) beside S1024.
+   ROADMAP C.6) beside S1024. K1 and K2 also at the model zoo's head
+   layouts at D 128 (phase 9's paths): qwen1.5-7b (32 kv heads, G 1),
+   gemma3-27b (16 / 2, its local layers' 1024-token window), phi3.5-moe
+   (8 / 4) and yi-34b (8 / 7); K1 at 8 slots of up to 2048 tokens, also
+   qwen's verify pass at qpos 5; K2 at Sq = Skv = 1024, gemma3 also as a
+   chunk at offsets 1024 / 512 against 2048 keys.
 4. bench   — ``python -m repro_torch.launch.kernel_bench`` at full size,
    in-process: its asserts must hold and each kernel's launch count must
    equal the calls the bench made of its wrapper (K3 launches only here).
@@ -102,6 +107,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    completes and releases every page, and launches equal what its rounds
    imply (K1: the draft's K - 1 steps x its layer, the verify pass x 16
    layers x its row tiles; K2: prefill calls x 16 and catch-up calls x 1).
+9. models  — the model zoo at full width on the graph path and the plain
+   path (random fp32 weights from seed 0, fp32 pool, page 16, 8 slots, 8
+   requests of 32 new tokens, batched prefill, horizon 4): qwen1.5-7b with
+   all 32 layers, gemma3-27b's first 6 of 62 layers (one 5:1 local:global
+   cycle; prompts of 1100-2048 tokens, so the local windows cut) and
+   phi3.5-moe-42b-a6.6b's first 4 of 32 layers (16 experts, top 2, capacity
+   factor 1.25; its dropped choices are counted on an eager plain run).
+   Tokens equal (the near-tie rule of phase 5; for the MoE a divergence
+   also prints where the routing first differs and the router's gap there),
+   launches equal what the decode steps and prefill calls imply, every page
+   released. Prints decode tok/s, TTFT, the replayed decode step and peak
+   device memory, and profiles each graph run as phase 6 does.
 
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
 and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
@@ -407,10 +424,13 @@ def check_paged(rng, dtype, *, B=8, KVH=8, G=4, D=64, page=16, W=128,
         esz = torch.finfo(dtype).bits // 8
         S = max(1, min(n_splits, W))
         # row t of a slot's qpos rows sees ctx + t tokens (of the W * page
-        # its table holds); the pages read are those the last row sees
+        # its table holds), only the last `window` of them under a window;
+        # the tokens read run from the first row's lowest to the last's end
         c = ctx.long().cpu()[:, None] + torch.arange(qpos)[None]
-        seen = c.clamp(0, W * page).float()
-        live = float(seen[:, -1].sum())
+        hi = c.clamp(0, W * page)
+        lo = (c - window).clamp_min(0) if window else torch.zeros_like(c)
+        seen = (hi - lo).clamp_min(0).float()
+        live = float((hi[:, -1] - lo[:, 0]).clamp_min(0).sum())
         nbytes = (decode_hbm_bytes(live, KVH, D, esz) + q.numel() * esz
                   + S * B * KVH * G * qpos * (D + 2) * 4
                   + bt.numel() * 4 + ctx.numel() * 4)
@@ -479,6 +499,32 @@ def check_flash(dtype, *, B=2, Sq=1024, Skv=1024, H=32, KVH=8, D=64,
                 qt, kt, vt, is_causal=True, enable_gqa=True))
     return res
 
+
+# K1 and K2 at the head layouts of the model zoo, D 128: qwen1.5-7b (32 kv
+# heads, one query head each), gemma3-27b (16 / 2; its local layers'
+# 1024-token window), phi3.5-moe (8 / 4) and yi-34b (8 / 7); K1 at 8 slots
+# of up to 2048 tokens in 16-token pages, also qwen's verify pass at qpos
+# 5; K2 at Sq = Skv = 1024, gemma3 also as a chunk at per-row offsets
+# against 2048 keys
+ZOO_PAGED = (
+    ("qwen1.5-7b decode KVH=32 G=1 D=128", dict(KVH=32, G=1)),
+    ("gemma3-27b local decode KVH=16 G=2 D=128 window=1024",
+     dict(KVH=16, G=2, window=1024)),
+    ("gemma3-27b global decode KVH=16 G=2 D=128", dict(KVH=16, G=2)),
+    ("phi3.5-moe decode KVH=8 G=4 D=128", dict(KVH=8, G=4)),
+    ("yi-34b decode KVH=8 G=7 D=128", dict(KVH=8, G=7)),
+    ("qwen1.5-7b verify qpos=5 KVH=32 G=1 D=128",
+     dict(KVH=32, G=1, qpos=5)))
+ZOO_FLASH = (
+    ("qwen1.5-7b H=KVH=32 D=128 Sq=1024", dict(H=32, KVH=32)),
+    ("gemma3-27b H=32 KVH=16 D=128 Sq=1024 window=1024",
+     dict(H=32, KVH=16, window=1024)),
+    ("gemma3-27b H=32 KVH=16 D=128 Sq=1024 (global)", dict(H=32, KVH=16)),
+    ("gemma3-27b H=32 KVH=16 D=128 Sq=1024 Skv=2048 q_offset=[1024,512] "
+     "window=1024", dict(H=32, KVH=16, Skv=2048, offs=(1024, 512),
+                         window=1024)),
+    ("phi3.5-moe H=32 KVH=8 D=128 Sq=1024", dict(H=32, KVH=8)),
+    ("yi-34b H=56 KVH=8 D=128 Sq=1024", dict(H=56, KVH=8)))
 
 # K4 at the shapes zamba2-1.2b serves (H 64, N = P = 64): batched prefill,
 # the decode step, slot prefill (one row) and chunked prefill (chunk 128)
@@ -725,6 +771,14 @@ def phase_kernels() -> dict:
             cases.append(("flash_attention", tag, name, r))
             if tag == "fp32" and name == "main Sq=1024":
                 main["flash_attention"] = r
+        # the model zoo's head layouts at D 128 (phase 9's paths)
+        for name, kw in ZOO_PAGED:
+            r = check_paged(rng, dtype, D=128, n_splits=4, time_it=True,
+                            **kw)
+            cases.append(("paged_attention", tag, name, r))
+        for name, kw in ZOO_FLASH:
+            r = check_flash(dtype, D=128, time_it=True, **kw)
+            cases.append(("flash_attention", tag, name, r))
         for name, kw in SSM_SHAPES + (
                 ("zamba2 prefill, 32 P columns a block",
                  dict(p_slice=32)),
@@ -832,10 +886,12 @@ def phase_bench(smi: str) -> dict:
 
 def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
           prompts, max_prefill=64, decode_graphs=None, time_replay=True,
-          draft_params=None, **ecfg_kw):
+          draft_params=None, n_pages=1024, max_context=1280, **ecfg_kw):
     from repro_torch.serving import DecodeEngine, EngineConfig, Request
-    ecfg = EngineConfig(n_slots=8, page_size=16, n_pages=1024,
-                        max_context=1280, eos_token=-1, prefill_mode=mode,
+    torch.cuda.reset_peak_memory_stats()
+    ecfg = EngineConfig(n_slots=8, page_size=16, n_pages=n_pages,
+                        max_context=max_context, eos_token=-1,
+                        prefill_mode=mode,
                         prefill_chunk=chunk, decode_horizon=horizon,
                         kernel_splits=splits, use_kernels=use_kernels,
                         max_prefill=max_prefill, decode_graphs=decode_graphs,
@@ -867,7 +923,8 @@ def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
                             and time_replay and not eng.spec else None),
          "spec": eng.spec, "draft_catchups": tm.draft_catchups,
          "spec_dispatches": dict(tm.spec_dispatches),
-         "pages_in_use": eng.alloc.pages_in_use}
+         "pages_in_use": eng.alloc.pages_in_use,
+         "peak_bytes": torch.cuda.max_memory_allocated()}
     if eng.spec:
         m.update(spec_rounds=eng.spec_rounds,
                  spec_proposed=eng.spec_proposed,
@@ -969,13 +1026,16 @@ def _kernel_fns():
 
 
 def expected_launches(cfg, m) -> dict:
-    """Launches the main path implies: one paged-decode launch per
-    attention layer and decode step, one flash launch per attention layer
-    and prefill call, one scan launch per Mamba2 layer and call of
-    either. A speculative run (``m["spec"]``), per round of K: the draft's
-    K - 1 decode steps (one paged launch per draft layer each) and the
-    verify pass (per target layer, one paged launch per tile of the G * K
-    query rows: ``row_tiles``); plus one flash launch per draft layer and
+    """Launches the main path implies: one paged-decode launch per attention
+    layer (global or windowed alike: a layer's window rides in its launch)
+    and decode step, one flash launch per attention layer and prefill call,
+    one scan launch per Mamba2 layer and call of either; a MoE layer's
+    routing and expert products launch none of the port's kernels (PyTorch
+    products, as repro's are einsums outside any Pallas kernel). A
+    speculative run (``m["spec"]``), per round of K: the draft's K - 1
+    decode steps (one paged launch per draft layer each) and the verify
+    pass (per target layer, one paged launch per tile of the G * K query
+    rows: ``row_tiles``); plus one flash launch per draft layer and
     catch-up call."""
     from repro_torch.kernels.paged_attention import row_tiles
     kinds = cfg.block_kinds()
@@ -1031,10 +1091,13 @@ def near_tie_gap(cfg, params, seq) -> float:
 
 
 def compare_tokens(label, cfg, params, prompts, out_a, out_b,
-                   names) -> None:
+                   names, diagnose=None) -> None:
     """Greedy tokens of two engines must agree; a first divergence whose
     plain-path logit gap is below ``TIE_GAP`` is a near tie (ROADMAP C.3)
-    and is printed, anything else fails."""
+    and is printed, anything else fails. ``diagnose()`` runs once when a
+    request diverges (phase 9: where a MoE's routing first differs)."""
+    if diagnose is not None and out_a != out_b:
+        diagnose()
     faults = []
     for r in sorted(out_a):
         a, b = out_a[r], out_b[r]
@@ -1636,6 +1699,192 @@ def phase_spec(smi: str, launches: dict) -> None:
     print(f"[spec] phase 8 in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 9. the model zoo
+# ---------------------------------------------------------------------------
+
+# (arch, layers on the card (None: all), prompt lengths [lo, hi), pool
+# pages, max context, prefill bucket cap): qwen1.5-7b whole (the paper's
+# Table 1 model), gemma3-27b's first 5:1 local:global cycle with prompts
+# past its 1024-token window, phi3.5-moe's first 4 layers
+ZOO = (("qwen1.5-7b", None, (256, 1025), 1024, 1280, 1024),
+       ("gemma3-27b", 6, (1100, 2049), 1280, 2176, 2048),
+       ("phi3.5-moe-42b-a6.6b", 4, (256, 1025), 1024, 1280, 1024))
+
+
+def first_router_flip(cfg, params, kw) -> None:
+    """Where a MoE's routing first differs between the kernel and plain
+    paths: both served again eagerly with every routing decision kept (the
+    chosen experts, and the gap between the k-th and (k+1)-th router
+    probabilities); prints the first call and row whose experts differ and
+    the plain path's gap there."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    inner = MOE.route
+    recs = {}
+    for way, wkw in (("kernels", dict(use_kernels=None)),
+                     ("plain", dict(use_kernels=False))):
+        rec = []
+
+        def route(router_w, c, x, rec=rec):
+            top_p, top_e = inner(router_w, c, x)
+            probs = torch.softmax(L.dense(x, router_w).float(), dim=-1)
+            srt = probs.sort(dim=-1, descending=True).values
+            rec.append((top_e.clone(), srt[:, c.moe_top_k - 1]
+                        - srt[:, c.moe_top_k]))
+            return top_p, top_e
+        MOE.route = route
+        try:
+            serve(cfg, params, decode_graphs=False, time_replay=False,
+                  **kw, **wkw)
+        finally:
+            MOE.route = inner
+        recs[way] = rec
+    for i, ((ek, _), (ep, gp)) in enumerate(zip(recs["kernels"],
+                                                 recs["plain"])):
+        if ek.shape != ep.shape or not torch.equal(ek, ep):
+            row = 0 if ek.shape != ep.shape else int(
+                (ek != ep).any(dim=1).nonzero()[0, 0])
+            print(f"[models] {cfg.name}: routing first differs at call {i} "
+                  f"of {len(recs['plain'])} ({ep.shape[0]} rows, layer "
+                  f"{i % cfg.n_layers}), row {row}: kernel path experts "
+                  f"{ek[row].tolist()}, plain {ep[row].tolist()}, plain-path "
+                  f"router gap {float(gp[row]):.3e} (the call's smallest "
+                  f"{float(gp.min()):.3e})", flush=True)
+            return
+    print(f"[models] {cfg.name}: routing identical over "
+          f"{len(recs['plain'])} calls", flush=True)
+
+
+def moe_drops(cfg, params, kw) -> str:
+    """A MoE's dropped choices, the plain path served again eagerly with
+    each call's drops kept on the device: decode calls route one row a
+    slot, prefill calls more."""
+    from repro_torch.models import moe as MOE
+    inner = MOE._dispatch_indices
+    seen = []
+
+    def counting(top_e, E, C):
+        slot, keep = inner(top_e, E, C)
+        seen.append((top_e.shape[0], top_e.numel(), (~keep).sum()))
+        return slot, keep
+    MOE._dispatch_indices = counting
+    try:
+        serve(cfg, params, use_kernels=False, decode_graphs=False,
+              time_replay=False, **kw)
+    finally:
+        MOE._dispatch_indices = inner
+    out = []
+    for name, rows in (("decode", [r for r in seen if r[0] == 8]),
+                       ("prefill", [r for r in seen if r[0] != 8])):
+        dropped = int(sum(d for *_, d in rows)) if rows else 0
+        out.append(f"{name} {dropped} of {sum(n for _, n, _ in rows)} "
+                   f"choices in {len(rows)} calls")
+    return "dropped: " + ", ".join(out)
+
+
+def phase_models(smi: str, launches: dict) -> None:
+    """Phase 9: the model zoo at full width (``ZOO``; random fp32 weights
+    from seed 0, fp32 pool, page 16, 8 slots). Each configuration serves 8
+    requests of 32 new tokens, batched prefill, horizon 4, on the graph
+    path and on the plain path: greedy tokens identical (the near-tie rule
+    of phase 5; a MoE's divergence also prints where its routing first
+    differs), every request complete, every page released, device syncs
+    equal, the graph run's launches equal to what its decode steps and
+    prefill calls imply and the plain run launching none. Prints decode
+    tok/s, TTFT, the replayed decode step and peak device memory, then
+    profiles the graph path (phase 6's breakdown)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, param_count_actual
+    t0 = time.perf_counter()
+    fns = _kernel_fns()
+    for arch, layers, (lo, hi), n_pages, max_ctx, cap in ZOO:
+        cfg = replace(get_config(arch), dtype="float32")
+        if layers:
+            cfg = replace(cfg, n_layers=layers)
+        t1 = time.perf_counter()
+        params = init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+        torch.cuda.synchronize()
+        n = param_count_actual(params)
+        print(f"[models] {arch}: {cfg.n_layers} of "
+              f"{get_config(arch).n_layers} layers d={cfg.d_model} heads="
+              f"{cfg.n_heads}/{cfg.n_kv_heads} d_head={cfg.d_head} d_ff="
+              f"{cfg.d_ff} vocab={cfg.vocab_size} experts={cfg.n_experts} "
+              f"window={cfg.sliding_window} params={n} fp32 "
+              f"({4 * n / 1e9:.2f} GB) init "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, int(n_tok))
+                   for n_tok in rng.integers(lo, hi, 8)]
+        kw = dict(prompts=prompts, mode="batched", horizon=4, splits=4,
+                  n_req=8, chunk=32, max_prefill=cap, n_pages=n_pages,
+                  max_context=max_ctx)
+        # first use of each matmul shape, allocator growth: unreported
+        serve(cfg, params, use_kernels=None, time_replay=False,
+              **dict(kw, n_req=2))
+        outs, ms, las = {}, {}, {}
+        for way, wkw in (("graphs", dict(use_kernels=None)),
+                         ("plain", dict(use_kernels=False))):
+            reset_counts(fns)
+            outs[way], ms[way] = serve(cfg, params, **kw, **wkw)
+            las[way] = launch_counts(fns)
+        for way, m in ms.items():
+            dec = m["decode_tokens"]
+            print(f"[models] {arch} {way}: completed={m['completed']}/"
+                  f"{m['n']} pages left={m['pages_in_use']} tokens="
+                  f"{m['tokens']} decode tok/s="
+                  f"{dec / max(m['decode_s'], 1e-9):.1f} ttft mean/max="
+                  f"{m['ttft_mean_ms']:.1f}/{m['ttft_max_ms']:.1f} ms "
+                  f"prefill s={m['prefill_s']:.3f} decode step ms="
+                  f"{1e3 * m['decode_s'] / max(1, m['decode_steps']):.3f} "
+                  + (f"replay device ms/step={m['replay_step_ms']:.3f} "
+                     if m["replay_step_ms"] is not None else "")
+                  + f"syncs/token={m['device_syncs'] / max(1, dec):.4f} "
+                  f"graph captures={m['graph_captures']} "
+                  f"peak memory={m['peak_bytes'] / 1e9:.2f} GB "
+                  f"decode_steps={m['decode_steps']} "
+                  f"prefill_calls={m['prefill_calls']} | {smi}", flush=True)
+        want = expected_launches(cfg, ms["graphs"])
+        la = las["graphs"]
+        print(f"[models] {arch} graphs launches: " + " ".join(
+            f"{k}={la[k]} (expected {want[k]})" for k in la
+            if want[k] or la[k]), flush=True)
+        if la != want or not all(la[k] for k in la if want[k]):
+            fail(f"{arch}: kernel launches {la} do not match the main "
+                 f"path's {want}")
+        if not ms["graphs"]["graphs"]:
+            fail(f"{arch}: the default engine did not run the horizon as "
+                 "graphs")
+        if any(las["plain"].values()):
+            fail(f"{arch}: the plain-path engine launched a kernel "
+                 f"{las['plain']}")
+        diag = ((lambda: first_router_flip(cfg, params, kw)) if cfg.is_moe
+                else None)
+        compare_tokens(f"models {arch}", cfg, params, prompts,
+                       outs["graphs"], outs["plain"], ("graphs", "plain"),
+                       diagnose=diag)
+        if cfg.is_moe:
+            print(f"[models] {arch} plain path, eager: "
+                  + moe_drops(cfg, params, kw), flush=True)
+        for way, m in ms.items():
+            if m["completed"] != m["n"] or m["pages_in_use"] \
+                    or m["bal_max"] or m["bal_min"]:
+                fail(f"{arch} {way}: completed {m['completed']}/{m['n']}, "
+                     f"{m['pages_in_use']} pages in use")
+        if ms["graphs"]["device_syncs"] != ms["plain"]["device_syncs"]:
+            fail(f"{arch}: device syncs differ between the graph and plain "
+                 "paths")
+        for k, v in la.items():
+            launches[k] = launches.get(k, 0) + v
+        phase_profile(cfg, params, prompts, smi, dict(
+            max_prefill=cap, n_pages=n_pages, max_context=max_ctx))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[models] phase 9 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
     """``--kernel-times SRC``: K1, K2, K3 and K4 of the ``repro_torch``
     under ``SRC`` (this checkout's ``src`` or another's, e.g. an unpacked
@@ -1767,6 +2016,7 @@ def main() -> int:
     launches = phase_engine(smi)
     phase_kvcache(smi, launches)
     phase_spec(smi, launches)
+    phase_models(smi, launches)
     launches["flash_decode"] = bench_launches["flash_decode"]
     meta = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",

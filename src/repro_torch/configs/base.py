@@ -203,6 +203,10 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
+def list_configs() -> list[str]:
+    return sorted(_REGISTRY)
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")

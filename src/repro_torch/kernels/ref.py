@@ -53,10 +53,14 @@ def paged_attention_verify_ref(q, k_pages, v_pages, block_tables, ctx_lens,
     hi = (ctx_lens.long()[:, None, None]
           + torch.arange(T, device=q.device)[None, :, None])
     ok = tok < hi                                        # [B, T, W*page]
-    if window is not None:
-        w = torch.as_tensor(window, dtype=torch.long, device=q.device)
+    if torch.is_tensor(window):
+        w = window.to(device=q.device, dtype=torch.long)
         w = w.reshape(-1).expand(B)[:, None, None]
         ok = ok & torch.where(w > 0, tok >= hi - w, True)
+    elif window:
+        # an int window stays a host scalar: a captured verify pass copies
+        # nothing to the card
+        ok = ok & (tok >= hi - int(window))
     s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bkgqt,btkd->bkgqd", p, v)

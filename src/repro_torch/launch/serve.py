@@ -6,8 +6,11 @@ paged cache over a LongBench-like request trace.
 
 runs a reduced config (d_model 64) on the CPU; on a card (the default
 device), ``--full-width`` serves the configuration at its published widths
-and depth with random weights from a seed. ``--arch`` picks
-``llama3.2-1b`` (default) or the Mamba2 + shared-attention hybrid
+and depth with random weights from a seed. ``--arch`` picks any registered configuration
+(``repro_torch.configs.list_configs()``): ``llama3.2-1b`` (default), the
+paper's ``qwen1.5-7b`` / ``-14b`` / ``-72b``, ``internlm2-1.8b``,
+``yi-34b``, ``gemma3-27b``, the MoE stacks ``mixtral-8x22b`` and
+``phi3.5-moe-42b-a6.6b``, or the Mamba2 + shared-attention hybrid
 ``zamba2-1.2b``. Prompts are random token ids
 whose lengths follow the task's LongBench distribution, scaled into
 ``--max-context``; ``--shared-frac f`` opens each prompt with a common
@@ -31,7 +34,7 @@ from dataclasses import replace
 
 import numpy as np
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import get_config, list_configs, reduced
 from repro_torch.data.pipeline import LONGBENCH_STATS, request_trace
 from repro_torch.serving import DecodeEngine, EngineConfig, Request
 
@@ -85,7 +88,7 @@ def submit_trace(eng: DecodeEngine, args) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--arch", default="llama3.2-1b", choices=list_configs())
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--task", default="musique")
     ap.add_argument("--slots", type=int, default=4)

@@ -3,12 +3,13 @@ port's.
 
 ``repro`` keeps the attention stack as stacked leaves ``layers/*`` of shape
 ``[L, ...]`` (scanned over layers); the port keeps a list of per-layer
-dicts. The zamba2 hybrid's Mamba2 weights stay stacked (``mamba/*``
-``[L_mamba, ...]``) and its shared attention block ``attn_shared`` is one
-unstacked dict, in both packages. Dense weights keep the JAX layout
-``[d_in, d_out]`` — no transpose: both packages compute ``x @ w``. The
-tied embedding stays ``[V, D]`` and is transposed by ``layers.lm_head``, as
-in JAX.
+dicts, so a MoE layer's ``moe`` leaves come out as router ``[D, E]``,
+``w1`` / ``w3`` ``[V, D, ff/v]`` and ``w2`` ``[V, ff/v, D]``. The zamba2
+hybrid's Mamba2 weights stay stacked (``mamba/*`` ``[L_mamba, ...]``) and
+its shared attention block ``attn_shared`` is one unstacked dict, in both
+packages. Dense weights keep the JAX layout ``[d_in, d_out]`` — no
+transpose: both packages compute ``x @ w``. The tied embedding stays ``[V,
+D]`` and is transposed by ``layers.lm_head``, as in JAX.
 """
 from __future__ import annotations
 

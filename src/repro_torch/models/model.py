@@ -12,13 +12,17 @@ runs through ``kernels/ops.attention_fwd`` (the flash-attention kernel);
 the Mamba2 scan through ``kernels/ops.mamba_mixer`` (the chunk-scan
 kernel).
 
+MoE stacks (``family == "moe"``): every attention block's FFN is the routed
+expert MLP of ``models/moe.py`` (``moe_local``), applied in ``_block_tail``
+on every path, with repro's capacity over every row the path passes.
+
 The zamba2 hybrid: ``pattern`` = n Mamba2 blocks then one attention block
 whose weights (``attn_shared``) are shared by every cycle; each invocation
 keeps its own pool layer. Mamba2 weights are stacked leaves
 ``mamba/* [L_mamba, ...]`` and the state rows ``mamba`` are stacked
 ``[L_mamba, B, ...]``, as in JAX.
 
-xLSTM, MoE, enc-dec and VLM families wait for ROADMAP queue A.6.
+xLSTM, enc-dec and VLM families wait for ROADMAP queue A.6.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from repro_torch.core.itpp import itpp_decode_attention_shard
 from repro_torch.kernels import ops
 from repro_torch.kernels.backend import KernelConfig, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 
@@ -66,11 +71,12 @@ def _is_hybrid(cfg) -> bool:
 
 def _check_family(cfg) -> None:
     attn_only = all(k in ("attn", "local") for k in cfg.block_kinds())
-    if cfg.family == "encdec" or cfg.is_moe or cfg.rope_kind == "mrope" \
+    if cfg.family == "encdec" or cfg.rope_kind == "mrope" \
+            or (cfg.is_moe and not attn_only) \
             or not (attn_only or _is_hybrid(cfg)):
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention-only stacks and the zamba2 "
-            "hybrid are ported (ROADMAP queue A.6)")
+            f"{cfg.name}: only attention-only stacks (dense or MoE) and the "
+            "zamba2 hybrid are ported (ROADMAP queue A.6)")
     if _is_hybrid(cfg) and cfg.n_layers % len(cfg.pattern):
         raise ValueError(f"{cfg.name}: a hybrid runs whole pattern cycles; "
                          f"{cfg.n_layers} layers is not a multiple of "
@@ -94,7 +100,10 @@ def _init_attn_layer(cfg, normal, zeros):
         attn["qn"] = zeros(cfg.d_head)
         attn["kn"] = zeros(cfg.d_head)
     lp = {"ln1": zeros(d), "attn": attn}
-    if cfg.d_ff:
+    if cfg.is_moe:
+        lp["ln2"] = zeros(d)
+        lp["moe"] = MOE.init_moe(cfg, normal)
+    elif cfg.d_ff:
         lp["ln2"] = zeros(d)
         lp["mlp"] = {"w1": normal((d, cfg.d_ff), 1 / math.sqrt(d)),
                      "w2": normal((cfg.d_ff, d), 1 / math.sqrt(cfg.d_ff))}
@@ -309,10 +318,12 @@ def _qkv(lp, cfg, x, cs):
 
 
 def _block_tail(lp, cfg, h):
-    """FFN epilogue of an attention block (prefill and decode)."""
+    """FFN epilogue of an attention block (prefill, decode and verify):
+    the MLP, or the routed experts over every row of ``h`` [B, S, D]."""
     if "ln2" in lp:
-        h = h + L.mlp(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps),
-                      cfg.act)
+        h2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+        h = h + (MOE.moe_local(lp["moe"], cfg, h2) if "moe" in lp
+                 else L.mlp(lp["mlp"], h2, cfg.act))
     return h
 
 

@@ -806,3 +806,157 @@ def test_spec_engine_stochastic_graphs_draw_as_eager(sampler):
     assert graphs.run(1000) == eager.run(1000)
     assert graphs.timing.graph_captures >= 1
     assert graphs.spec_accepted > 0.9 * graphs.spec_proposed
+
+
+# ---------------------------------------------------------------------------
+# the model zoo's head shapes (D 128) and the MoE engine on the graph path
+# ---------------------------------------------------------------------------
+
+# (kv heads, query heads a kv head) at D 128: qwen1.5-7b (no GQA), gemma3-27b,
+# phi3.5-moe and mixtral, yi-34b (56 / 8)
+ZOO_HEADS = {"qwen1.5-7b": (32, 1), "gemma3-27b": (16, 2),
+             "phi3.5-moe": (8, 4), "yi-34b": (8, 7)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,window,qpos,n_splits", [
+    ("qwen1.5-7b", 0, 1, 4), ("gemma3-27b", 1024, 1, 4),
+    ("gemma3-27b", 0, 1, 1), ("phi3.5-moe", 0, 1, 4), ("yi-34b", 0, 1, 4),
+    ("qwen1.5-7b", 0, 5, 4), ("yi-34b", 0, 5, 1)],
+    ids=["qwen", "gemma3-local", "gemma3-global", "phi3.5", "yi",
+         "qwen-verify", "yi-verify"])
+def test_paged_kernel_zoo_heads_match_plain(dtype, heads, window, qpos,
+                                            n_splits):
+    """K1 at the model zoo's decode (and qpos 5 verify) head layouts, D 128,
+    page 16, contexts up to 2048 (gemma3's local layers cut at 1024): the
+    kernel launches once a row tile (yi's verify: 35 rows, two tiles) and
+    matches its plain version (2e-5 fp32, 2e-2 bf16)."""
+    _card()
+    from repro_torch.kernels import paged_attention as PA
+    KVH, G = ZOO_HEADS[heads]
+    rng = np.random.default_rng(KVH * G + qpos)
+    q, kp, vp, bt, ctx = _pool_case(rng, dtype, 8, KVH, G * qpos, 128, 16,
+                                    128, 2048)
+    win = torch.full((8,), window, dtype=torch.int32, device="cuda")
+    before = PA.paged_attention_partials.launches
+    got = PA.paged_attention_partials(q, kp, vp, bt, ctx, window=win,
+                                      n_splits=n_splits, qpos=qpos)
+    torch.cuda.synchronize()
+    assert PA.paged_attention_partials.launches - before == \
+        len(PA.row_tiles(G * qpos))
+    want = PA.paged_attention_partials_plain(
+        q, kp, vp, bt, ctx, win, ring_width=0, windowed_slice=False,
+        n_splits=n_splits, qpos=qpos)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,Skv,offs,window", [
+    ("qwen1.5-7b", 1024, [0, 0], 0), ("gemma3-27b", 1024, [0, 0], 1024),
+    ("gemma3-27b", 1024, [0, 0], 0), ("gemma3-27b", 2048, [1024, 512], 1024),
+    ("phi3.5-moe", 1024, [0, 0], 0), ("yi-34b", 1024, [0, 0], 0)],
+    ids=["qwen", "gemma3-local", "gemma3-global", "gemma3-offset",
+         "phi3.5", "yi"])
+def test_flash_kernel_zoo_heads_match_plain(dtype, heads, Skv, offs, window):
+    """K2 at the model zoo's prefill head layouts, D 128, Sq 1024 (G 1, 2,
+    4 and 7; gemma3's 1024-token window; a chunk resuming at per-row
+    offsets against 2048 keys)."""
+    _card()
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_plain)
+    KVH, G = ZOO_HEADS[heads]
+    g = torch.Generator(device="cuda").manual_seed(KVH * G + Skv)
+    q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
+               for s in ((2, 1024, KVH * G, 128), (2, Skv, KVH, 128),
+                         (2, Skv, KVH, 128)))
+    off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    got = flash_attention_fwd(q, k, v, window=window, q_offset=off)
+    want = flash_attention_plain(q, k, v, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("mode,horizon", [("batched", 4), ("chunked", 1)])
+def test_moe_graph_engine_matches_eager_and_plain(arch, mode, horizon):
+    """A reduced MoE engine on the card: the routed experts inside the
+    captured horizon give the eager and plain engines' tokens and device
+    syncs, and K1 and K2 served it."""
+    _card()
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    graphs, eager, plain = _engines(
+        arch, ({}, dict(decode_graphs=False), dict(use_kernels=False)),
+        prefill_mode=mode, decode_horizon=horizon, prefill_chunk=8)
+    before = (PA.paged_attention_partials.launches,
+              FA.flash_attention_fwd.launches)
+    outs = [graphs.run(1000)]
+    assert PA.paged_attention_partials.launches > before[0]
+    assert FA.flash_attention_fwd.launches > before[1]
+    outs += [e.run(1000) for e in (eager, plain)]
+    assert outs[0] == outs[1] == outs[2]
+    assert graphs.horizons.graphs and graphs.timing.graph_captures >= 1
+    assert (graphs.timing.device_syncs == eager.timing.device_syncs
+            == plain.timing.device_syncs)
+    assert graphs.alloc.pages_in_use == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["batched", "chunked"])
+def test_spec_with_moe_target_on_the_card(mode):
+    """Speculative decoding with a MoE target (reduced mixtral) and a
+    1-layer llama draft, as a captured round (graphs), an eager round and
+    the plain path. The graph and eager rounds give the same tokens and
+    counters, and K1 served the verify passes. Batched prefill carries no
+    idle slot into a verify pass, so the plain path agrees too. Chunked
+    prefill does (ROADMAP C.7): an idle slot's verify rows see no token,
+    K1 gives them 0 and the plain path the mean of the dead pages' V; the
+    rows route and take expert capacity, so the live rows' drops, and
+    their tokens, differ from the plain path's."""
+    _card()
+    from dataclasses import replace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DecodeEngine, EngineConfig, Request
+    cfg = replace(reduced(get_config("mixtral-8x22b")), dtype="float32")
+    dcfg = replace(reduced(get_config("llama3.2-1b"), layers=1),
+                   dtype="float32")
+    params = init_params(cfg, 0, torch.float32, "cuda")
+    dparams = init_params(dcfg, 7, torch.float32, "cuda")
+    rng = np.random.default_rng(3)
+    reqs = [(r, rng.integers(0, 256, int(rng.integers(4, 25))), 9)
+            for r in range(6)]
+    engs = []
+    for way in ({}, dict(decode_graphs=False), dict(use_kernels=False)):
+        eng = DecodeEngine(
+            cfg, EngineConfig(n_slots=4, page_size=4, n_pages=64,
+                              max_context=40, eos_token=-1, prefill_chunk=4,
+                              prefill_mode=mode, decode_horizon=1,
+                              draft_config=dcfg,
+                              spec_horizon=3, **way),
+            params, device="cuda", draft_params=dparams)
+        for r, prompt, n in reqs:
+            eng.submit(Request(r, prompt, n))
+        engs.append(eng)
+    graphs, eager, plain = engs
+    before = PA.paged_attention_partials.launches
+    outs = [graphs.run(1000)]
+    assert PA.paged_attention_partials.launches > before
+    outs += [e.run(1000) for e in (eager, plain)]
+    counters = [(e.timing.decode_tokens, e.timing.device_syncs,
+                 e.spec_rounds, e.spec_proposed, e.spec_accepted)
+                for e in engs]
+    assert graphs.horizons.graphs and graphs.timing.graph_captures >= 1
+    assert outs[0] == outs[1] and counters[0] == counters[1]
+    assert all(e.alloc.pages_in_use == 0 for e in engs)
+    if mode == "batched":
+        assert outs[0] == outs[2] and counters[0] == counters[2]
+    else:
+        assert outs[0] != outs[2], "ROADMAP C.7 no longer shows: close it"
