@@ -120,6 +120,30 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    released. Prints decode tok/s, TTFT, the replayed decode step and peak
    device memory, and profiles each graph run as phase 6 does.
 
+10. lifecycle — the request lifecycle and telemetry on the graph path,
+   llama3.2-1b at full width (fp32, page 16, 8 slots, batched prefill,
+   horizon 4, 8 prompts of 256-1024 tokens, 32 new tokens): (a) telemetry
+   off against on (metrics, Perfetto trace and request log under
+   ``build/lifecycle/``): tokens, device syncs and launches identical,
+   ``host_us/step`` of both, the trace valid (``validate_trace``), the
+   Prometheus text scraped from a localhost endpoint valid
+   (``parse_exposition``), the tracker's TTFT equal to the engine's, the
+   PIM counters printed; (b) phase 7's shared-prefix run with the tracker
+   on: hit and cold TTFT split into queue, prefill and graph capture; (c)
+   the single-engine chaos scenarios of ``launch/chaos_soak.py`` (reduced
+   llama3.2-1b) at seeds 0 and 1: every request terminal, no page leaked,
+   seed 0 run twice with identical event logs and outputs, every runner's
+   captures counted (a degradation's plain horizon captures its own); (d)
+   kill and restore: a snapshot at tick 6, a fresh engine restores it and
+   finishes with the uninterrupted run's tokens (save and restore ms and
+   MB printed); (e) the SLO trace at the bench's configuration
+   (``launch/slo_bench.py``) with the kernels and on the plain paths:
+   every counter equal to ``BENCH_slo.json``'s; (f) ``step()`` against
+   ``run()``: tokens identical. Launches of (a), (d) and (f) equal what
+   their decode steps and prefill calls imply.
+
+``python3 chip_smoke.py --lifecycle`` builds the kernels and runs phase 10
+alone.
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
 and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
 bench and long-context shapes) and K4 (zamba2 prefill and decode, slot
@@ -988,8 +1012,8 @@ def spec_round_ms(eng) -> dict:
     from repro_torch.models import model as MDL
     from repro_torch.serving import graphs as GR
     runner, E = eng.horizons, eng.ecfg
-    key = max(runner.captured)
-    width, K = key
+    key = max(k for k in runner.captured if k[2])
+    width, K, _ = key
     runner.allow.zero_()
     round_ms = _replay_ms(runner.captured[key].graph)
     counts = GR.launch_counts()
@@ -1036,7 +1060,8 @@ def expected_launches(cfg, m) -> dict:
     decode steps (one paged launch per draft layer each) and the verify
     pass (per target layer, one paged launch per tile of the G * K query
     rows: ``row_tiles``); plus one flash launch per draft layer and
-    catch-up call."""
+    catch-up call. Its decode steps outside rounds (the degradation ladder
+    turned spec off) launch as plain steps."""
     from repro_torch.kernels.paged_attention import row_tiles
     kinds = cfg.block_kinds()
     n_attn = sum(1 for k in kinds if k in ("attn", "local"))
@@ -1049,10 +1074,12 @@ def expected_launches(cfg, m) -> dict:
     if m.get("spec"):
         grp = cfg.n_heads // cfg.n_kv_heads
         dl, dgrp = m["draft_layers"], m["draft_grp"]
-        want["paged_attention"] = sum(
+        rounds = m["spec_dispatches"].items()
+        want["paged_attention"] = n_attn * (
+            m["decode_steps"] - sum(K * n for K, n in rounds)) + sum(
             n * (n_attn * len(row_tiles(grp * K))
                  + dl * (K - 1) * len(row_tiles(dgrp)))
-            for K, n in m["spec_dispatches"].items())
+            for K, n in rounds)
         want["flash_attention"] += dl * m["draft_catchups"]
     return want
 
@@ -1176,7 +1203,7 @@ def run_arch(arch: str, smi: str, launches: dict, **serve_kw) -> None:
                   f"{m['ttft_max_ms']:.1f} ms decode step "
                   f"ms={1e3 * m['decode_s'] / max(1, m['decode_steps']):.2f}"
                   f" syncs/token={m['device_syncs'] / max(1, dec):.4f} "
-                  f"graph captures={m['graph_captures']} (width, K) "
+                  f"graph captures={m['graph_captures']} (width, K, spec) "
                   f"{m['keys']} capture ms={1e3 * m['capture_s']:.1f} "
                   + (f"replay device ms/step={m['replay_step_ms']:.3f} "
                      if m["replay_step_ms"] is not None else "")
@@ -1251,7 +1278,7 @@ def phase_profile(cfg, params, prompts, smi: str, serve_kw) -> None:
         return
     n_attn = sum(1 for k in cfg.block_kinds() if k in ("attn", "local"))
     k1 = sum(e.count for e in ka if "paged_partials_kernel" in e.key)
-    want = n_attn * (m["decode_steps"] + sum(K for _, K in m["keys"]))
+    want = n_attn * (m["decode_steps"] + sum(K for _, K, _ in m["keys"]))
     seen = k1 == want
     print(f"[profile] {cfg.name}: K1 calls under the profiler {k1}, "
           f"expected {want} = {n_attn} x ({m['decode_steps']} decode steps "
@@ -1297,17 +1324,28 @@ def shared_prompts(vocab: int, n: int, lo: int, hi: int, frac: float,
     return out
 
 
-def serve_kv(cfg, params, prompts, *, device=DEV, n_pages=1024, new=32,
-             **ecfg_kw):
-    """Serve ``prompts`` tick by tick on the engine's default path (graphs
-    on a card) and return (outputs, measures): TTFT by whether admission
-    hit the prefix cache, the peak of pages in use, the cache and tier
-    counters, the copies' bytes and device ms, and whether the pool kept
-    its tensors."""
-    from repro_torch.serving import DecodeEngine, EngineConfig, Request
+def kv_engine(cfg, params, *, device=DEV, n_pages=1024, **ecfg_kw):
+    """The engine phases 7 and 10 serve on (its default path: graphs on a
+    card): 8 slots, 16-token pages, a 1280-token context, no EOS."""
+    from repro_torch.serving import DecodeEngine, EngineConfig
     ecfg = EngineConfig(n_slots=8, page_size=16, n_pages=n_pages,
                         max_context=1280, eos_token=-1, **ecfg_kw)
-    eng = DecodeEngine(cfg, ecfg, params, device=device)
+    return DecodeEngine(cfg, ecfg, params, device=device)
+
+
+def serve_kv(cfg, params, prompts, *, device=DEV, new=32, eng=None,
+             sample=None, keep=False, **engine_kw):
+    """Serve ``prompts`` tick by tick on ``eng`` (by default a new
+    ``kv_engine(**engine_kw)``) until it drains, calling ``sample(eng)``
+    after every tick, and return (outputs, measures): TTFT by whether
+    admission hit the prefix cache (``matched``: each request's first
+    admission's matched tokens), the peak of pages in use, the cache and
+    tier counters, the copies' bytes and device ms, and whether the pool
+    kept its tensors. ``keep`` returns the engine as ``measures["engine"]``
+    instead of freeing it."""
+    from repro_torch.serving import Request
+    if eng is None:
+        eng = kv_engine(cfg, params, device=device, **engine_kw)
     matched: dict[int, int] = {}
     if eng.cache is not None:
         lookup = eng.cache.lookup
@@ -1327,6 +1365,8 @@ def serve_kv(cfg, params, prompts, *, device=DEV, n_pages=1024, new=32,
     peak = ticks = 0
     while not (eng._inflight is None and eng.batcher.done()):
         eng.tick()
+        if sample is not None:
+            sample(eng)
         peak = max(peak, eng.alloc.pages_in_use)
         ticks += 1
         if ticks > 100_000:
@@ -1335,17 +1375,19 @@ def serve_kv(cfg, params, prompts, *, device=DEV, n_pages=1024, new=32,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out = {k: list(v) for k, v in eng.outputs.items()}
-    ttft = {r: eng.first_tok_t[r] - eng.submit_t[r] for r in out}
-    hit = [1e3 * ttft[r] for r in out if matched.get(r, 0) > 0]
-    cold = [1e3 * ttft[r] for r in out if matched.get(r, 0) == 0]
+    ttft = {r: eng.first_tok_t[r] - eng.submit_t[r] for r in out
+            if r in eng.first_tok_t and r in eng.submit_t}
+    hit = [1e3 * ttft[r] for r in ttft if matched.get(r, 0) > 0]
+    cold = [1e3 * ttft[r] for r in ttft if matched.get(r, 0) == 0]
     tm, st = eng.timing, eng.batcher.stats
     m = {"completed": st.completed, "n": len(prompts), "wall_s": wall,
          "preempted": st.preempted, "peak_pages": peak,
          "pages_in_use": eng.alloc.pages_in_use,
          "ttft_hit_ms": float(np.mean(hit)) if hit else None,
          "ttft_cold_ms": float(np.mean(cold)) if cold else None,
-         "n_hit": len(hit), "n_cold": len(cold),
-         "ttft_mean_ms": 1e3 * float(np.mean(list(ttft.values()))),
+         "n_hit": len(hit), "n_cold": len(cold), "matched": matched,
+         "ttft_mean_ms": 1e3 * float(np.mean(list(ttft.values())))
+         if ttft else None,
          "decode_steps": tm.decode_steps, "prefill_calls": tm.prefill_calls,
          "decode_s": tm.decode_s, "prefill_s": tm.prefill_s,
          "device_syncs": tm.device_syncs, "graphs": eng.horizons.graphs,
@@ -1364,6 +1406,9 @@ def serve_kv(cfg, params, prompts, *, device=DEV, n_pages=1024, new=32,
             eng.cache.host.copier.settle()
             m["tier"] = eng.cache.host.stats.as_dict()
             m["copy"] = eng.cache.host.copier.stats.as_dict()
+    if keep:
+        m["engine"] = eng
+        return out, m
     del eng
     gc.collect()
     if device != "cpu":
@@ -1561,7 +1606,7 @@ def spec_line(label: str, m: dict, smi: str, ref: dict | None = None) -> str:
         line += f" ({tok_s / ref_s:.3f}x the target alone's {ref_s:.1f})"
     line += (f" syncs/token={m['device_syncs'] / max(1, dec):.4f} "
              f"decode s={m['decode_s']:.3f} ttft mean={m['ttft_mean_ms']:.1f}"
-             f" ms graph captures={m['graph_captures']} (width, K) "
+             f" ms graph captures={m['graph_captures']} (width, K, spec) "
              f"{m['keys']} capture ms={1e3 * m['capture_s']:.1f}")
     if m["spec"]:
         mean = 1 + m["spec_accepted"] / max(1, m["spec_rounds"])
@@ -1653,7 +1698,8 @@ def phase_spec(smi: str, launches: dict) -> None:
         if any(g[k] != e[k] for k in cnt):
             fail(f"spec_horizon {G}: counters differ between graphs and "
                  f"eager: {[(k, g[k], e[k]) for k in cnt]}")
-        if g["graph_captures"] < 1 or any(K != G + 1 for _, K in g["keys"]):
+        if g["graph_captures"] < 1 \
+                or any(K != G + 1 for _, K, _ in g["keys"]):
             fail(f"spec_horizon {G}: the round was not captured per "
                  f"(width, {G + 1}): {g['keys']}")
     # (c) a draft that rolls back nearly every round
@@ -1885,6 +1931,446 @@ def phase_models(smi: str, launches: dict) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 10. the request lifecycle and telemetry
+# ---------------------------------------------------------------------------
+
+LIFE_DIR = HERE / "build" / "lifecycle"
+# phase 10's engine beyond kv_engine's: batched prefill, horizon 4
+LIFE = dict(prefill_mode="batched", decode_horizon=4, kernel_splits=4)
+
+
+def path_launches(cfg, engines) -> dict:
+    """The launches the engines' decode steps, rounds and prefill calls
+    imply (``expected_launches``), summed."""
+    want: dict[str, int] = {}
+    for e in engines:
+        tm = e.timing
+        m = {"decode_steps": tm.decode_steps,
+             "prefill_calls": tm.prefill_calls, "spec": e.spec,
+             "draft_catchups": tm.draft_catchups,
+             "spec_dispatches": dict(tm.spec_dispatches)}
+        if e.spec:
+            m.update(draft_layers=e.draft_cfg.n_layers,
+                     draft_grp=e.draft_cfg.n_heads // e.draft_cfg.n_kv_heads)
+        for k, v in expected_launches(cfg, m).items():
+            want[k] = want.get(k, 0) + v
+    return want
+
+
+def check_main_path(label, cfg, engines, la, launches) -> None:
+    """Launches of one lifecycle run against what its engines' steps and
+    calls imply, every engine on the graph path; adds them to the main
+    path's ``launches``."""
+    if not all(e.horizons.graphs for e in engines):
+        fail(f"{label}: an engine is not on the graph path")
+    want = path_launches(cfg, engines)
+    print(f"[lifecycle] {label} launches: " + " ".join(
+        f"{k}={la[k]} (expected {want[k]})" for k in la if want[k] or la[k]),
+        flush=True)
+    if la != want or not all(la[k] for k in la if want[k]):
+        fail(f"{label}: kernel launches {la} do not match {want}")
+    for k, v in la.items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def life_telemetry(cfg, params, prompts, smi, launches, fns) -> None:
+    """(a) telemetry off against on (metrics, trace, request log), after
+    an unreported warm-up run, in turns: off, on, on, off."""
+    from repro_torch.telemetry import (TelemetryConfig, parse_exposition,
+                                       validate_trace)
+    from repro_torch.telemetry.chrome_trace import ENGINE_PID, TRACKS
+    from repro_torch.telemetry.prom import MetricsServer
+    LIFE_DIR.mkdir(parents=True, exist_ok=True)
+    trace_path = LIFE_DIR / "lifecycle.perfetto.json"
+    log_path = LIFE_DIR / "records.jsonl"
+    log_path.unlink(missing_ok=True)
+    serve_kv(cfg, params, prompts[:2], **LIFE)
+    runs = {}
+    for label in ("off", "on", "on 2", "off 2"):
+        tel = None
+        if label == "on":
+            tel = TelemetryConfig(metrics=True, trace_path=str(trace_path),
+                                  request_log=str(log_path))
+        elif label == "on 2":
+            tel = TelemetryConfig(metrics=True, trace=True)
+        gauges: dict[str, list] = {}
+
+        def sample(e):
+            if e.tel.enabled:
+                for g in ("pim_hbm_bytes_per_token", "pim_channel_util",
+                          "dpa_page_waste_ratio", "dpa_static_pages_saved"):
+                    gauges.setdefault(g, []).append(e.tel.registry.get(g))
+        reset_counts(fns)
+        out, m = serve_kv(cfg, params, prompts, sample=sample, keep=True,
+                          telemetry=tel, **LIFE)
+        la = launch_counts(fns)
+        eng = m["engine"]
+        check_main_path(f"(a) telemetry {label}", cfg, [eng], la, launches)
+        runs[label] = (out, eng, la, m["wall_s"], gauges)
+    print("[lifecycle] (a) telemetry " + " | ".join(
+        f"{label}: wall={w:.3f} s host_us/step="
+        f"{e.timing.as_dict()['host_us_per_step']:.1f} steps="
+        f"{e.timing.steps} syncs={e.timing.device_syncs}"
+        for label, (_, e, _, w, _) in runs.items()) + f" | {smi}",
+        flush=True)
+    out0, e0, la0, _, _ = runs["off"]
+    out1, e1, la1, _, gauges = runs["on"]
+    for label, (out, e, la, _, _) in runs.items():
+        if out != out0:
+            fail(f"(a) telemetry {label} changed the greedy tokens")
+        if e.timing.device_syncs != e0.timing.device_syncs \
+                or e.timing.decode_tokens != e0.timing.decode_tokens:
+            fail(f"(a) telemetry {label} changed device syncs or decode "
+                 "tokens")
+        if la != la0:
+            fail(f"(a) telemetry {label} changed the kernel launches: {la} "
+                 f"vs {la0}")
+    tel = e1.tel
+    srv = MetricsServer(tel.registry, 0)
+    try:
+        text = srv.scrape()
+    finally:
+        if not srv.close():
+            fail("(a) the metrics server's thread did not stop")
+    samples = parse_exposition(text)
+    n_ev = tel.save_trace()
+    tel.close()
+    info = validate_trace(json.loads(trace_path.read_text()))
+    for track in ("host", "dispatch", "sync", "device"):
+        if (ENGINE_PID, TRACKS[track]) not in info["tracks"]:
+            fail(f"(a) the trace has no {track} track")
+    recs = [json.loads(x) for x in log_path.read_text().splitlines() if x]
+    if len(recs) != len(prompts) or not all(r["finished"] for r in recs):
+        fail(f"(a) request log holds {len(recs)} records")
+    worst = 0.0
+    for r in tel.tracker.records:
+        legacy = e1.first_tok_t[r.req_id] - e1.submit_t[r.req_id]
+        worst = max(worst, abs(r.ttft_s - legacy))
+    if worst > 1e-9:
+        fail(f"(a) the tracker's TTFT differs from the engine's by {worst}")
+    g = tel.registry.get
+    if g("engine_device_syncs_total") != e1.timing.device_syncs:
+        fail("(a) the registry's device syncs differ from the engine's")
+    sm = tel.summary()
+    print(f"[lifecycle] (a) exposition: {len(samples)} samples parsed; "
+          f"trace: {n_ev} events, {info['slices']} slices, "
+          f"{len(info['tracks'])} tracks valid; request log: {len(recs)} "
+          f"records; tracker TTFT = engine TTFT (max diff {worst:.1e} s); "
+          f"ttft p50/p99 {sm['ttft_p50_ms']:.1f}/{sm['ttft_p99_ms']:.1f} ms "
+          f"tpot p50 {sm.get('tpot_p50_ms', 0):.3f} ms queue p50 "
+          f"{sm.get('queue_p50_ms', 0):.1f} ms", flush=True)
+    tok = e1.timing.decode_tokens
+    hbm = g("pim_modeled_hbm_bytes_total")
+    print("[lifecycle] (a) PIM counters: modeled HBM bytes "
+          f"{hbm:.0f} ({hbm / max(1, tok):.0f} B/token over {tok} decode "
+          f"tokens) kv_bytes/token {tel.pim.kv_bytes_per_token():.0f} "
+          f"bucket high-water {g('decode_table_bucket_highwater'):.0f} "
+          f"pages peak {g('kv_pages_in_use_peak', {'tier': 'device'}):.0f}"
+          + "".join(f" {k} mean/max {np.mean(v):.4g}/{np.max(v):.4g}"
+                    for k, v in gauges.items()), flush=True)
+    for _, e, _, _, _ in runs.values():
+        if e.alloc.pages_in_use or e.batcher.stats.completed != len(prompts):
+            fail("(a) a run did not complete or leaked pages")
+    del e0, e1, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def life_prefix_ttft(cfg, params, smi) -> None:
+    """(b) phase 7's shared-prefix run (16 requests of 512-1024 tokens,
+    90% shared, prefix cache on, batched) with the tracker on: TTFT of hit
+    and cold requests split into queue (submit -> admission), capture
+    (graph captures inside the TTFT window) and prefill (the rest after
+    admission)."""
+    from repro_torch.telemetry import TelemetryConfig
+    prompts = shared_prompts(cfg.vocab_size, 16, 512, 1024, 0.9, 1280)
+    eng = kv_engine(cfg, params, prefix_cache=True,
+                    telemetry=TelemetryConfig(metrics=True), **LIFE)
+    caps: list[tuple[float, float]] = []
+    capture = eng.horizons.capture
+
+    def timed(key):
+        t = time.perf_counter()
+        capture(key)
+        caps.append((t, time.perf_counter()))
+    eng.horizons.capture = timed
+    _, m = serve_kv(cfg, params, prompts, eng=eng, keep=True)
+    matched, wall = m["matched"], m["wall_s"]
+    split = {"hit": [], "cold": []}
+    for r in eng.tel.tracker.records:
+        lo, hi = r.submit_t, r.first_token_t
+        cap = sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in caps)
+        cap_after = sum(max(0.0, min(b, hi) - max(a, r.admit_t))
+                        for a, b in caps)
+        split["hit" if matched.get(r.req_id, 0) else "cold"].append(
+            (1e3 * r.ttft_s, 1e3 * r.queue_s, 1e3 * cap,
+             1e3 * (hi - r.admit_t - cap_after)))
+    for kind, rows in split.items():
+        if not rows:
+            continue
+        a = np.asarray(rows)
+        print(f"[lifecycle] (b) shared prefix, {kind} ({len(rows)} "
+              f"requests): ttft mean {a[:, 0].mean():.1f} ms = queue "
+              f"{a[:, 1].mean():.1f} ms (submit -> admission) + prefill "
+              f"{a[:, 3].mean():.1f} ms (admission -> first token, less "
+              f"captures); captures inside the TTFT window "
+              f"{a[:, 2].mean():.1f} ms; ttft max {a[:, 0].max():.1f} ms "
+              f"| {smi}", flush=True)
+    print(f"[lifecycle] (b) {len(caps)} graph captures, "
+          f"{1e3 * sum(b - a for a, b in caps):.1f} ms; wall {wall:.3f} s; "
+          f"hits {eng.cache.stats.hits}/{eng.cache.stats.lookups}",
+          flush=True)
+    if eng.batcher.stats.completed != len(prompts) or not split["hit"]:
+        fail("(b) the shared-prefix run did not complete or never hit")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def life_chaos(cfg, params, smi, launches, fns) -> None:
+    """(c) the chaos scenarios of ``launch/chaos_soak.py`` at full width on
+    the graph path: llama3.2-1b's fp32 weights, a 1-layer full-width draft
+    (seed 7), the scenarios' 4 slots at 16-token pages (prompts, new tokens
+    and context 4x the reference's, so each keeps its page counts) and
+    horizon 4 (the ladder's bit 1 then captures horizon-1 graphs). Seeds 0
+    and 1, seed 0 twice: every request terminal and no page leaked (the
+    scenarios assert it), outputs held to a clean run under the near-tie
+    rule, the two runs of one seed identical in event log and outputs,
+    each run's launches what its engines' steps and calls imply, and every
+    captured graph counted."""
+    from repro_torch.launch.chaos_soak import ChaosSoak
+    from repro_torch.models.model import init_params
+    dcfg = replace(cfg, name=cfg.name + "-draft", n_layers=1)
+
+    def same(what, prompts, ref, outs):
+        compare_tokens(f"lifecycle (c) {what}", cfg, params, prompts, ref,
+                       outs, ("clean", "chaos"))
+    soak = ChaosSoak(DEV, cfg=cfg, params=params, draft_cfg=dcfg,
+                     draft_params=init_params(dcfg, seed=7,
+                                              dtype=torch.float32,
+                                              device=DEV),
+                     page_size=16, same=same, **LIFE)
+    for name in ChaosSoak.SCENARIOS:
+        got = {}
+        for seed, rep in ((0, 0), (0, 1), (1, 0)):
+            reset_counts(fns)
+            t = time.perf_counter()
+            stats, outs = getattr(soak, name)(seed)
+            dt = time.perf_counter() - t
+            la = launch_counts(fns)
+            engs, soak.engines = soak.engines, []
+            label = f"(c) {stats['scenario']}" + (" again" if rep else "")
+            check_main_path(label, cfg, engs, la, launches)
+            held = sum(len(e.horizons.captured) for e in engs)
+            counted = sum(e.timing.graph_captures for e in engs)
+            if counted != held or not held:
+                fail(f"{label}: {counted} captures counted, {held} graphs "
+                     "held")
+            keys = stats["graph_keys"]
+            if (stats["degraded_mode"] & 2) \
+                    and not any(not spec for *_, spec in keys):
+                fail(f"{label}: spec turned off but no plain horizon was "
+                     "captured")
+            got[seed, rep] = (stats, outs)
+            if rep == 0:
+                swap = {k: stats[k] for k in (
+                    "swapped_out_pages", "swapped_in_pages", "swap_retries",
+                    "swap_in_fails") if k in stats}
+                why = {k: v for k, v in stats["abort_counts"].items() if v}
+                print(f"[lifecycle] {label}: done={stats['completed']} "
+                      f"aborted={stats['aborted']} {why}"
+                      f" faults={stats['faults_fired']} degraded="
+                      f"{stats['degraded_mode']} migrated="
+                      f"{stats['migrated']} preempted={stats['preempted']} "
+                      f"{swap or ''} captures={counted} over {len(engs)} "
+                      f"engines, this engine's (width, K, spec) {keys} "
+                      f"wall={dt:.2f} s", flush=True)
+            del engs
+            gc.collect()
+        (s0, o0), (s1, o1) = got[0, 0], got[0, 1]
+        if s0["events"] != s1["events"] or o0 != o1 \
+                or s0["abort_counts"] != s1["abort_counts"]:
+            fail(f"(c) {name}[0]: two runs of one seed differ")
+    print(f"[lifecycle] (c) {len(ChaosSoak.SCENARIOS)} scenarios x seeds "
+          "0, 1 at full width terminal and leak-free; seed 0 replayed "
+          f"identically | {smi}", flush=True)
+    del soak
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def life_restore(cfg, params, prompts, smi, launches, fns) -> None:
+    """(d) kill and restore: snapshot at a mid-run tick, abandon the
+    engine, restore into a fresh engine and finish; tokens equal the
+    uninterrupted run's."""
+    import shutil
+    ref, _ = serve_kv(cfg, params, prompts, **LIFE)
+    d = LIFE_DIR / "snapshots"
+    shutil.rmtree(d, ignore_errors=True)
+    eng = kv_engine(cfg, params, snapshot_dir=str(d), **LIFE)
+    from repro_torch.serving import Request
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, 32))
+    for _ in range(6):
+        eng.tick()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    path = eng.save_snapshot()
+    save_ms = 1e3 * (time.perf_counter() - t)
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    warm = sum(1 for e in json.loads((Path(path) / "manifest.json")
+                                     .read_text())["extra"]["reqs"].values()
+               if e["state"] == "warm")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng2 = kv_engine(cfg, params, snapshot_dir=str(d), **LIFE)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    step = eng2.restore_snapshot()
+    restore_ms = 1e3 * (time.perf_counter() - t)
+    reset_counts(fns)
+    out, m = serve_kv(cfg, params, [], eng=eng2, keep=True)
+    wall = m["wall_s"]
+    la = launch_counts(fns)
+    check_main_path("(d) restored run", cfg, [eng2], la, launches)
+    print(f"[lifecycle] (d) snapshot at tick {step}: {warm} warm of "
+          f"{len(prompts)} requests, {nbytes / 1e6:.1f} MB, save "
+          f"{save_ms:.1f} ms; restore (validate + load + adopt) "
+          f"{restore_ms:.1f} ms; rest of the run {wall:.3f} s, rstate "
+          f"restores {eng2.rstate_restores} | {smi}", flush=True)
+    compare_tokens("lifecycle (d) kill and restore", cfg, params, prompts,
+                   ref, out, ("uninterrupted", "restored"))
+    if eng2.alloc.pages_in_use or step is None:
+        fail("(d) the restored run leaked pages or restored nothing")
+    shutil.rmtree(d, ignore_errors=True)
+    del eng2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def life_slo(smi) -> None:
+    """(e) the SLO trace at the bench's configuration (reduced
+    llama3.2-1b, ``launch/slo_bench.py``) with the kernels and on the plain
+    paths: every counter equal to ``BENCH_slo.json``'s row and between the
+    two, tokens compared under the near-tie rule."""
+    from repro_torch.data import workload
+    from repro_torch.launch import slo_bench
+    base = {r["policy"]: r for r in json.loads(
+        (HERE / "BENCH_slo.json").read_text())["rows"]}
+    trace = workload.load_trace(slo_bench.DEFAULT_TRACE)
+    cfg = slo_bench.bench_config()
+    from repro_torch.models.model import init_params
+    params = init_params(cfg, 0, torch.float32, DEV)
+    rows = {}
+    for way, uk in (("kernels", None), ("plain", False)):
+        t = time.perf_counter()
+        rows[way] = {r["policy"]: r for r in slo_bench.bench(
+            params=params, device=DEV, use_kernels=uk)}
+        print(f"[lifecycle] (e) SLO bench, {way}: "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
+    prompts = {ev["req_id"]: workload.prompt_tokens(trace, ev,
+                                                    cfg.vocab_size)
+               for ev in trace["events"] if ev["kind"] == "submit"}
+    for pol, want in base.items():
+        for way in rows:
+            got = {k: v for k, v in rows[way][pol].items() if k != "outputs"}
+            diff = {k: (got.get(k), v) for k, v in want.items()
+                    if got.get(k) != v}
+            print(f"[lifecycle] (e) {pol} {way}: goodput {got['goodput']} "
+                  f"(BENCH_slo.json {want['goodput']}) slo_attained "
+                  f"{got['slo_attained']} ({want['slo_attained']}) completed "
+                  f"{got['completed']} ({want['completed']}) ticks "
+                  f"{got['ticks']} ({want['ticks']}) priority_preempted "
+                  f"{got['priority_preempted']} "
+                  f"({want['priority_preempted']}) tokens {got['tokens']} "
+                  f"({want['tokens']})", flush=True)
+            if diff:
+                fail(f"(e) {pol} {way}: counters differ from "
+                     f"BENCH_slo.json: {diff}")
+        compare_tokens(f"lifecycle (e) {pol}", cfg, params, prompts,
+                       rows["kernels"][pol]["outputs"],
+                       rows["plain"][pol]["outputs"], ("kernels", "plain"))
+    print(f"[lifecycle] (e) every SLO counter equals BENCH_slo.json's | "
+          f"{smi}", flush=True)
+
+
+def life_step(cfg, params, prompts, smi, launches, fns) -> None:
+    """(f) ``step()`` (the per-token tick on host logits) against ``run()``
+    on the graph path: greedy tokens identical."""
+    ref, m = serve_kv(cfg, params, prompts, **LIFE)
+    wall_run = m["wall_s"]
+    from repro_torch.serving import Request
+    eng = kv_engine(cfg, params, **LIFE)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, 32))
+    reset_counts(fns)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n = 0
+    while not eng.batcher.done():
+        eng.step()
+        n += 1
+        if n > 100_000:
+            fail("(f) step() did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    la = launch_counts(fns)
+    check_main_path("(f) step()", cfg, [eng], la, launches)
+    out = {k: list(v) for k, v in eng.outputs.items()}
+    tm = eng.timing
+    print(f"[lifecycle] (f) step(): {n} ticks, {tm.decode_steps} decode "
+          f"steps, decode ms/step "
+          f"{1e3 * tm.decode_s / max(1, tm.decode_steps):.2f}, syncs "
+          f"{tm.device_syncs}, wall {wall:.3f} s against run() "
+          f"{wall_run:.3f} s | {smi}", flush=True)
+    compare_tokens("lifecycle (f) step() vs run()", cfg, params, prompts,
+                   ref, out, ("run()", "step()"))
+    if eng.alloc.pages_in_use:
+        fail("(f) step() leaked pages")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lifecycle(smi: str, launches: dict) -> None:
+    """Phase 10: the request lifecycle and telemetry on the graph path,
+    llama3.2-1b at full width (random fp32 weights from seed 0, fp32 pool,
+    page 16, 8 slots, batched prefill, horizon 4): (a) telemetry off
+    against on, (b) the shared-prefix TTFT split, (c) the chaos scenarios
+    (on their own 4 slots), (d) kill and restore, (e) the SLO trace at the
+    bench's configuration, (f) ``step()`` against ``run()``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    fns = _kernel_fns()
+    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n_tok))
+               for n_tok in rng.integers(256, 1025, 8)]
+    steps = (("a", lambda: life_telemetry(cfg, params, prompts, smi,
+                                           launches, fns)),
+             ("b", lambda: life_prefix_ttft(cfg, params, smi)),
+             ("c", lambda: life_chaos(cfg, params, smi, launches, fns)),
+             ("d", lambda: life_restore(cfg, params, prompts[:6], smi,
+                                        launches, fns)),
+             ("e", lambda: life_slo(smi)),
+             ("f", lambda: life_step(cfg, params, prompts[:4], smi,
+                                     launches, fns)))
+    for label, fn in steps:
+        t = time.perf_counter()
+        fn()
+        print(f"[lifecycle] ({label}) in {time.perf_counter() - t:.1f} s",
+              flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lifecycle] phase 10 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
     """``--kernel-times SRC``: K1, K2, K3 and K4 of the ``repro_torch``
     under ``SRC`` (this checkout's ``src`` or another's, e.g. an unpacked
@@ -2011,12 +2497,16 @@ def main() -> int:
         return 0
     sys.path.insert(0, str(HERE / "src"))
     phase_build()
+    if sys.argv[1:2] == ["--lifecycle"]:
+        phase_lifecycle(smi, {})
+        return 0
     main_cases = phase_kernels()
     bench_launches = phase_bench(smi)
     launches = phase_engine(smi)
     phase_kvcache(smi, launches)
     phase_spec(smi, launches)
     phase_models(smi, launches)
+    phase_lifecycle(smi, launches)
     launches["flash_decode"] = bench_launches["flash_decode"]
     meta = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",

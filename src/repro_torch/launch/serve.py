@@ -25,10 +25,27 @@ widths with ``--full-width``; random weights from seed 1) proposes up to G
 tokens a slot each tick and one multi-query target pass verifies them; the
 run then ends with a ``spec:`` line (rounds, accepted / proposed, mean
 accept length).
+
+Telemetry (``repro_torch.telemetry``): ``--metrics-port N`` serves
+Prometheus text on ``http://127.0.0.1:N/metrics`` (0 = an ephemeral port,
+printed at startup), ``--trace-out trace.perfetto.json`` writes the tick
+pipeline's Perfetto timeline, ``--request-log records.jsonl`` one JSON
+record per finished request, ``--stats-every S`` a summary line every S
+seconds. Without these flags telemetry is the shared no-op.
+
+Lifecycle and faults: ``--max-queue`` sheds past a bounded queue,
+``--deadline`` tears requests down past a per-request deadline,
+``--degrade-after`` sets the degradation ladder's threshold,
+``--nan-guard`` quarantines out-of-range ids, ``--snapshot-dir`` /
+``--snapshot-every`` write crash-consistent serving snapshots and
+``--restore`` resumes the newest one instead of submitting the trace. The
+``--fault-*`` probabilities arm the seeded injector (``--fault-seed``); a
+run with faults, aborts or snapshots ends with a ``robustness:`` line.
 """
 from __future__ import annotations
 
 import argparse
+import threading
 import time
 from dataclasses import replace
 
@@ -36,10 +53,36 @@ import numpy as np
 
 from repro_torch.configs import get_config, list_configs, reduced
 from repro_torch.data.pipeline import LONGBENCH_STATS, request_trace
+from repro_torch.runtime.faults import FaultConfig
 from repro_torch.serving import DecodeEngine, EngineConfig, Request
+from repro_torch.telemetry import TelemetryConfig, make_telemetry
+from repro_torch.telemetry.prom import MetricsServer
 
 
-def build_engine(args) -> DecodeEngine:
+def make_serve_telemetry(args):
+    """The Telemetry facade from the CLI flags; the shared no-op when
+    every telemetry flag is off."""
+    want_metrics = args.metrics_port >= 0 or args.stats_every > 0
+    if not (want_metrics or args.trace_out or args.request_log):
+        return make_telemetry(None)
+    return make_telemetry(TelemetryConfig(
+        metrics=True, trace_path=args.trace_out or None,
+        request_log=args.request_log or None))
+
+
+def make_serve_faults(args):
+    """FaultConfig from the --fault-* flags; None when no probability is
+    set (the engine keeps the shared no-op injector)."""
+    ps = dict(alloc_exhaust_p=args.fault_alloc, swap_fail_p=args.fault_swap,
+              row_death_p=args.fault_row_death, nan_logits_p=args.fault_nan,
+              slow_tick_p=args.fault_slow_tick,
+              client_abort_p=args.fault_abort)
+    if not any(ps.values()):
+        return None
+    return FaultConfig(seed=args.fault_seed, **ps)
+
+
+def build_engine(args, telemetry=None) -> DecodeEngine:
     cfg = get_config(args.arch)
     if not args.full_width:
         cfg = reduced(cfg)
@@ -62,7 +105,15 @@ def build_engine(args) -> DecodeEngine:
                         reserve_gentle=args.reserve_gentle,
                         state_resume=not args.no_state_resume,
                         draft_config=draft_cfg,
-                        spec_horizon=args.spec_horizon)
+                        spec_horizon=args.spec_horizon,
+                        telemetry=telemetry,
+                        faults=make_serve_faults(args),
+                        max_queue=args.max_queue,
+                        default_deadline_s=args.deadline,
+                        degrade_after=args.degrade_after,
+                        nan_guard=True if args.nan_guard else None,
+                        snapshot_dir=args.snapshot_dir or None,
+                        snapshot_every=args.snapshot_every)
     return DecodeEngine(cfg, ecfg, device=args.device)
 
 
@@ -133,16 +184,85 @@ def main(argv=None):
     ap.add_argument("--full-width", action="store_true",
                     help="the configuration's published widths and depth "
                          "(default: reduced to d_model 64)")
+    # ---- telemetry ----
+    ap.add_argument("--metrics-port", type=int, default=-1,
+                    help="serve Prometheus text on this port (0 = "
+                         "ephemeral, printed; -1 = off)")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Perfetto/chrome-trace JSON of the tick "
+                         "pipeline to this path")
+    ap.add_argument("--request-log", default="",
+                    help="append one JSON record per finished request to "
+                         "this path")
+    ap.add_argument("--stats-every", type=float, default=0.0,
+                    help="print a telemetry stats line every S seconds "
+                         "while serving (0 = off)")
+    # ---- lifecycle and faults ----
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission queue: shed beyond this many "
+                         "waiting requests (0 = unbounded)")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="default per-request deadline in seconds; expired "
+                         "requests are torn down at the next tick (0 = "
+                         "none)")
+    ap.add_argument("--degrade-after", type=int, default=3,
+                    help="fault events before the degradation ladder drops "
+                         "a tier (spec off, horizon 1, host tier); 0 "
+                         "disables")
+    ap.add_argument("--nan-guard", action="store_true",
+                    help="quarantine requests whose sampled ids go out of "
+                         "range (armed anyway when faults are injected)")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="write crash-consistent serving snapshots here")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="snapshot cadence in engine ticks (0 = off)")
+    ap.add_argument("--restore", action="store_true",
+                    help="restore the newest snapshot from --snapshot-dir "
+                         "before serving (resumes in-flight requests)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the deterministic fault injector")
+    for flag, kind in (("--fault-alloc", "page-pool exhaustion"),
+                       ("--fault-swap", "host swap-in failure"),
+                       ("--fault-row-death", "serving-row death"),
+                       ("--fault-nan", "NaN-logits quarantine"),
+                       ("--fault-slow-tick", "straggler tick"),
+                       ("--fault-abort", "client abort")):
+        ap.add_argument(flag, type=float, default=0.0,
+                        help=f"per-decision injection probability: {kind}")
     args = ap.parse_args(argv)
 
-    eng = build_engine(args)
-    submit_trace(eng, args)
+    tel = make_serve_telemetry(args)
+    eng = build_engine(args, telemetry=tel)
+    srv = None
+    if tel.enabled and args.metrics_port >= 0:
+        srv = MetricsServer(tel.registry, args.metrics_port)
+        print(f"[serve] metrics: {srv.url}", flush=True)
+    stop_stats = None
+    if tel.enabled and args.stats_every > 0:
+        stop_stats = threading.Event()
+
+        def _ticker():
+            while not stop_stats.wait(args.stats_every):
+                print(f"[serve] {tel.stats_line()}", flush=True)
+
+        threading.Thread(target=_ticker, name="stats-line",
+                         daemon=True).start()
+    if args.restore and args.snapshot_dir:
+        step = eng.restore_snapshot()
+        print(f"[serve] restored snapshot step={step} from "
+              f"{args.snapshot_dir}" if step is not None else
+              f"[serve] no snapshot in {args.snapshot_dir}; cold start",
+              flush=True)
+    else:
+        submit_trace(eng, args)
     t0 = time.perf_counter()
     eng.run(100_000)
     if eng.device.type == "cuda":
         import torch
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    if stop_stats is not None:
+        stop_stats.set()
     st = eng.batcher.stats
     toks = sum(len(v) for v in eng.outputs.values())
     tm = eng.timing.as_dict()
@@ -179,12 +299,31 @@ def main(argv=None):
         print(f"[serve] spec: draft={args.draft} rounds={eng.spec_rounds} "
               f"accepted={eng.spec_accepted}/{eng.spec_proposed} "
               f"accept_len_mean={acc:.2f}", flush=True)
+    if eng.faults.enabled or eng.aborted or eng.degraded_mode \
+            or eng.snapshot_saves:
+        print(f"[serve] robustness: aborted={len(eng.aborted)} "
+              f"{dict(eng.abort_counts)} faults={eng.faults.total_fired} "
+              f"migrated={st.migrated} degraded_mode={eng.degraded_mode} "
+              f"snapshots={eng.snapshot_saves}", flush=True)
     if eng.cache is not None:
         print(f"[serve] kvcache: hits={cs['hits']}/{cs['lookups']} "
               f"reused_tokens={cs['hit_tokens']} cow={cs['cow_copies']} "
               f"evicted={cs['evicted_pages']} "
               f"swap_out={cs.get('swapped_out_pages', 0)} "
               f"swap_in={cs.get('swapped_in_pages', 0)}", flush=True)
+    if tel.enabled:
+        print(f"[serve] {tel.stats_line()}", flush=True)
+        sm = tel.summary()
+        if "ttft_p50_ms" in sm:
+            print(f"[serve] latency: ttft p50/p90/p99 = "
+                  f"{sm['ttft_p50_ms']:.1f}/{sm['ttft_p90_ms']:.1f}/"
+                  f"{sm['ttft_p99_ms']:.1f} ms  tpot p50 = "
+                  f"{sm.get('tpot_p50_ms', 0):.2f} ms", flush=True)
+        n = tel.save_trace()
+        if n is not None:
+            print(f"[serve] trace: {args.trace_out} ({n} events)",
+                  flush=True)
+        tel.close()
     return st.completed
 
 

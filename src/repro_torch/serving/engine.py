@@ -61,10 +61,32 @@ the draft catches up, eagerly, on the context it has not absorbed
 after a partly accepted round). Greedy output is token-identical to
 target-only decoding; stochastic kinds use residual rejection sampling.
 
-Not ported yet (ROADMAP queue A): telemetry, fault injection, serving
-snapshots, cluster roles, the degradation ladder and the per-token
-``step()`` API. Their config fields keep the port's defaults; setting
-another value raises.
+Request lifecycle (as ``repro``'s): ``submit`` sheds past ``max_queue``
+and arms deadlines on the engine clock (``EngineConfig.clock``: the wall
+clock, or a ``runtime.clock.VirtualClock`` for replay); ``abort`` only
+records the request. Every tick has one SAFE POINT after the horizon is
+collected (``_process_faults``): the seeded fault plan fires there
+(``runtime.faults``: straggler sleeps, client aborts, row deaths), deadlines
+expire, requested aborts are torn down (pages, pins, snapshots, draft
+coverage) and the sticky degradation ladder moves (``degraded_mode``: 1 =
+horizon 1, 2 = speculative decoding off, 4 = host tier dropped). A
+horizon whose sampled ids fall outside the vocabulary, or whose slot draws
+an injected ``nan_logits``, is quarantined there (reason ``nan``).
+``step()`` is the per-token tick on host logits (its real-logits
+``isfinite`` guard is ``nan_guard``), interleaving with ``run()``.
+
+Serving snapshots (``save_snapshot`` / ``restore_snapshot``, cadence
+``snapshot_every``): ``runtime.checkpoint``'s manifest-gated layout with
+``repro``'s entries; a restore writes KV pages and recurrent rows into the
+existing pool in place, into a fresh engine before its first capture.
+
+Telemetry (``EngineConfig.telemetry``, ``repro_torch.telemetry``): the
+registry's pull bindings, the request tracker as the scheduler's events
+hook, the tick's phases as Perfetto slices and each horizon's inferred
+device span; the ``NULL`` facade when off. None of it reads the device.
+
+Not ported yet (ROADMAP queue A): cluster roles. ``role`` keeps its
+default; setting another value raises.
 """
 from __future__ import annotations
 
@@ -78,12 +100,15 @@ import torch
 
 from repro_torch.configs import get_config, validate_draft_pair
 from repro_torch.core.allocator import PageAllocator
-from repro_torch.core.paged_kv import PoolSpec, scatter_pages
+from repro_torch.core.paged_kv import PoolSpec, gather_pages, scatter_pages
 from repro_torch.core.scheduler import ContinuousBatcher, Request
 from repro_torch.kernels.backend import KernelConfig, resolve_device
 from repro_torch.kvcache import (HostCopier, PrefixCache, WatermarkConfig,
                                  make_cache_policy)
 from repro_torch.models import model as MDL
+from repro_torch.runtime import checkpoint as CKPT
+from repro_torch.runtime.elastic import plan_request_migration
+from repro_torch.runtime.faults import make_faults
 from repro_torch.serving.graphs import HorizonRunner
 from repro_torch.serving.policies import make_policy
 from repro_torch.serving.prefill import (_suffix_bucket,
@@ -91,11 +116,11 @@ from repro_torch.serving.prefill import (_suffix_bucket,
 from repro_torch.serving.request import Request as RequestSpec
 from repro_torch.serving.sampling import (make_generator, make_sampler,
                                           make_scan_sampler, make_verifier)
+from repro_torch.telemetry import make_telemetry
 
 # EngineConfig fields of features the port does not serve yet, with the
 # only value it accepts (see the module docstring)
-_UNPORTED = {"telemetry": None, "faults": None, "snapshot_dir": None,
-             "snapshot_every": 0, "role": "both"}
+_UNPORTED = {"role": "both"}
 
 
 @dataclass
@@ -160,11 +185,43 @@ class EngineConfig:
     # re-prefilling. Off = full recompute on resume. Slot-mode prefill
     # never consumes snapshots (it is the recompute reference path).
     state_resume: bool = True
-    # ---- features not ported yet: must keep these defaults ----
+    # ---- telemetry (repro_torch.telemetry) ----
+    # None = the shared no-op facade (no registry, no scheduler events
+    # hook, no trace buffer); a TelemetryConfig or a built Telemetry turns
+    # on the registry, the request tracker and the Perfetto timeline, all
+    # host-side bookkeeping on the horizon readback the engine already pays
     telemetry: Any = None
+    # ---- fault injection (repro_torch.runtime.faults) ----
+    # None = the shared no-op injector; a FaultConfig (or a live injector
+    # shared across engines) arms the seeded plan
     faults: Any = None
+    # ---- request lifecycle ----
+    # bounded admission queue: submit() sheds (terminal, reason "shed")
+    # once this many requests wait; 0 = unbounded
+    max_queue: int = 0
+    # deadline (seconds on the engine clock) for requests that bring none;
+    # 0 = none. Expired requests are torn down at the next safe point
+    default_deadline_s: float = 0.0
+    # time source (zero-arg callable -> seconds) for deadlines, submit and
+    # first-token stamps, the SLO policies and the request tracker; None =
+    # time.perf_counter. EngineTiming and the trace stay on the wall clock
+    clock: Any = None
+    # ---- graceful degradation ----
+    # fault observations (injected pressure, swap-tier failures, NaN
+    # quarantines) before a tier is dropped: spec decoding -> plain
+    # horizon, horizon -> 1, host tier -> device only; 0 disables
+    degrade_after: int = 3
+    # ---- crash-consistent serving snapshots ----
+    # snapshot_every > 0: every N ticks run() writes a serving checkpoint
+    # under snapshot_dir (runtime/checkpoint.py layout), keeping the
+    # newest snapshot_keep steps
     snapshot_dir: str | None = None
     snapshot_every: int = 0
+    snapshot_keep: int = 3
+    # real-logits quarantine (step(): non-finite rows; the horizon:
+    # out-of-range ids). None = armed together with fault injection
+    nan_guard: bool | None = None
+    # ---- disaggregated serving: not ported yet, must keep its default
     role: str = "both"
 
     def __post_init__(self):
@@ -184,7 +241,7 @@ class EngineTiming:
     prefill_s: float = 0.0
     decode_s: float = 0.0             # decode dispatch + horizon readback
     capture_s: float = 0.0            # one-time graph captures (not decode)
-    graph_captures: int = 0           # (width, horizon) graphs captured
+    graph_captures: int = 0           # (width, horizon, spec) graphs
     device_syncs: int = 0             # host<->device decode rendezvous
     decode_tokens: int = 0            # tokens emitted by decode dispatches
     decode_steps: int = 0             # decode steps dispatched (sum of K)
@@ -269,11 +326,14 @@ class DecodeEngine:
         self.alloc = PageAllocator(
             ecfg.n_pages, ecfg.n_shards, ecfg.page_size, policy=ecfg.policy,
             n_rows=ecfg.n_rows, static_max_pages=static_pages)
-        self.clock = time.perf_counter
+        # behavioral time source (deadlines, SLO budgets, request stamps)
+        self.clock = ecfg.clock if ecfg.clock is not None \
+            else time.perf_counter
         self.batcher = ContinuousBatcher(
             self.alloc, ecfg.n_slots, max_context=ecfg.max_context,
             n_rows=ecfg.n_rows, policy=make_policy(policy or ecfg.sched_policy),
             bt_width=maxp)
+        self.batcher.clock = self.clock
         self.state = MDL.init_decode_state(cfg, self.pool_spec, ecfg.n_slots,
                                            device=self.device)
         # recurrent per-slot rows ([L, n_slots, ...] leaves of self.state)
@@ -366,11 +426,45 @@ class DecodeEngine:
             raise ValueError("EngineConfig.decode_graphs=True needs a CUDA "
                              f"engine; this one runs on {self.device}")
         self.horizons = HorizonRunner(self, graphs=bool(graphs))
-        # in-flight horizon: (packed device readback, K, [(slot, req)]),
-        # collected at the next tick's sync point
+        # in-flight horizon: (packed device readback, K, [(slot, req)],
+        # proposals or None), collected at the next tick's sync point
         self._inflight: tuple | None = None
         # finished mask of a horizon collected outside the tick loop
         self._pending_fin: np.ndarray | None = None
+        # ---- fault injection + request lifecycle: one injector threaded
+        # through scheduler and cache, so every decision shares the plan
+        self.faults = make_faults(ecfg.faults)
+        self.nan_guard = (self.faults.enabled if ecfg.nan_guard is None
+                          else ecfg.nan_guard)
+        self.batcher.faults = self.faults
+        if self.cache is not None:
+            self.cache.faults = self.faults
+        # terminal-but-not-finished requests: req_id -> reason
+        self.aborted: dict[int, str] = {}
+        self.abort_counts: dict[str, int] = {
+            "client": 0, "deadline": 0, "nan": 0, "shed": 0, "chaos": 0,
+            "handoff": 0}
+        # aborts requested mid-tick, torn down at the next safe point (a
+        # teardown while a horizon is in flight would free pages its KV
+        # writes still target)
+        self._abort_req: dict[int, str] = {}
+        # req_id -> absolute deadline on the engine clock
+        self.deadline_t: dict[int, float] = {}
+        # sticky degradation bitmask: 1 = horizon 1, 2 = spec off, 4 = host
+        # tier dropped
+        self.degraded_mode = 0
+        self.snapshot_saves = 0
+        self.snapshot_restores = 0
+        self.snapshot_rejects = 0       # torn / corrupt steps skipped
+        self._tick_no = 0
+        # ---- telemetry (last: its bindings read everything above)
+        self.tel = make_telemetry(ecfg.telemetry)
+        self.tel.attach_engine(self)
+        # (dispatch wall clock, dispatch-time ctx, horizon seq) of the
+        # in-flight horizon: the inferred device span and the modeled
+        # bytes at collect; None while telemetry is off
+        self._horizon_meta: tuple | None = None
+        self._horizon_seq = 0
 
     def _tensor(self, a) -> torch.Tensor:
         """Host numpy -> a tensor on the engine's device. The copy does not
@@ -380,30 +474,65 @@ class DecodeEngine:
                                                   non_blocking=True)
 
     @contextmanager
-    def _phase(self, acc: str):
-        """Accumulate one timed segment into ``EngineTiming.<acc>``."""
+    def _phase(self, acc: str, track: str | None = None,
+               name: str | None = None):
+        """Accumulate one timed segment into ``EngineTiming.<acc>`` (the
+        one bookkeeping path of ``step()`` and the fused tick) and, when
+        tracing, emit it as a Perfetto slice on ``track``."""
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            setattr(self.timing, acc,
-                    getattr(self.timing, acc) + time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            setattr(self.timing, acc, getattr(self.timing, acc) + dt)
+            tr = self.tel.trace
+            if tr is not None and track is not None:
+                tr.slice(track, name or acc, t0, dt)
 
     # ------------------------------------------------------------------
     def submit(self, spec: RequestSpec) -> bool:
-        """Enqueue a request described by a ``serving.Request`` spec."""
+        """Enqueue a request described by a ``serving.Request`` spec.
+        Returns False when the bounded queue is full and the request was
+        shed instead (terminal at once, reason ``shed``, empty output).
+        ``spec.deadline_s`` (or the engine default) arms a deadline on the
+        engine clock; an expired request is torn down at the next tick's
+        safe point wherever it is."""
         req_id = spec.req_id
         prompt = np.asarray(spec.prompt, np.int32)
         self.prompts[req_id] = prompt
         self.outputs[req_id] = []
         now = self.submit_t[req_id] = self.clock()
+        self.tel.on_submit(req_id, len(prompt), spec.max_new_tokens, now,
+                           spec=spec)
         sreq = Request(req_id, len(prompt), spec.max_new_tokens,
                        priority=spec.priority, submit_t=now, spec=spec)
+        E = self.ecfg
+        if E.max_queue and len(self.batcher.queue) >= E.max_queue:
+            self.aborted[req_id] = "shed"
+            self.abort_counts["shed"] += 1
+            self.tel.on_abort(sreq, -1, "shed")
+            return False
+        dl = E.default_deadline_s if spec.deadline_s is None \
+            else spec.deadline_s
+        if dl and dl > 0:
+            self.deadline_t[req_id] = now + dl
         if self.prefiller.name == "chunked":
             sreq.chunked_prefill = True
             sreq.prefill_done = False
         self.batcher.submit(sreq)
         return True
+
+    def abort(self, req_id: int, reason: str = "client") -> bool:
+        """Client-side cancel, torn down at the next tick's safe point
+        (freeing a slot's pages while a horizon is in flight would let its
+        KV writes land in pages a re-admission owns). True if the request
+        was live (queued or running)."""
+        live = any(r is not None and r.req_id == req_id
+                   for r in self.batcher.slots) \
+            or any(r.req_id == req_id for r in self.batcher.queue)
+        if live:
+            self._abort_req.setdefault(req_id, reason)
+        return live
 
     # ---- helpers shared with the prefillers ---------------------------
     def _prompt_seq(self, req) -> tuple[np.ndarray, bool]:
@@ -443,6 +572,9 @@ class DecodeEngine:
             self.tokens[slot] = tok
             self.outputs[req.req_id].append(int(tok))
             self.first_tok_t.setdefault(req.req_id, self.clock())
+            if self.tel.enabled:
+                self.tel.on_tokens(req.req_id, 1,
+                                   self.first_tok_t[req.req_id])
         else:
             self.tokens[slot] = self.outputs[req.req_id][-1]
         self.batcher.dirty.add(slot)
@@ -563,6 +695,243 @@ class DecodeEngine:
             toks[idx] = self.sampler(logits[idx])
         return toks
 
+    # ---- fault processing + terminal teardown (the tick safe point) ----
+    def _find_request(self, req_id: int):
+        """``(slot, req)`` for a running request, ``(None, req)`` for a
+        queued one, ``(None, None)`` when the id is not live."""
+        for s, r in enumerate(self.batcher.slots):
+            if r is not None and r.req_id == req_id:
+                return s, r
+        for r in self.batcher.queue:
+            if r.req_id == req_id:
+                return None, r
+        return None, None
+
+    def _teardown(self, req_id: int, reason: str) -> bool:
+        """Terminal teardown of a live request: scheduler state (pages,
+        pins, queued swap ops) through abort_slot / abort_queued, then every
+        engine-side reference (carry snapshot, draft coverage, deadline).
+        Freed pages are safe to reuse at once: every gather that reads them
+        (swap-out, preemption snapshot) copies them on the compute stream
+        into a fresh tensor first, and only that tensor crosses to the
+        copy stream; a dropped snapshot's pinned buffer is not reused by
+        the caching host allocator before its copy's event passes."""
+        s, req = self._find_request(req_id)
+        if req is None:
+            return False
+        if s is not None:
+            self.batcher.abort_slot(s, reason)
+        else:
+            self.batcher.abort_queued(req, reason)
+        self.rsnaps.pop(req_id, None)
+        if self.spec:
+            self._dlen.pop(req_id, None)
+        self.deadline_t.pop(req_id, None)
+        self.aborted[req_id] = reason
+        self.abort_counts[reason] = self.abort_counts.get(reason, 0) + 1
+        return True
+
+    def _process_row_death(self, finished) -> None:
+        """Injected serving-row death: every request not finishing this
+        tick whose pages live on a dead row (the physical row under
+        ``row_affine``, the slot's row group under striped) is drained —
+        freed without a cache insert and requeued for a re-prefill of its
+        reconstructable context (``elastic.plan_request_migration``)."""
+        E = self.ecfg
+        dead = {row for row in range(max(1, E.n_rows))
+                if self.faults.fire("row_death", key=row)}
+        if not dead:
+            return
+        row_of: dict[int, int] = {}
+        slot_of: dict[int, int] = {}
+        for s, r in enumerate(self.batcher.slots):
+            if r is None or (finished is not None and finished[s]):
+                continue
+            row = self.alloc.row_of_request(r.req_id)
+            if row is None:
+                row = self.batcher._row_of_slot(s)
+            row_of[r.req_id] = row
+            slot_of[r.req_id] = s
+        for rid in plan_request_migration(row_of, dead):
+            s = slot_of[rid]
+            req = self.batcher.slots[s]
+            out = self.outputs[rid]
+            if req.prefill_done and out:
+                # the really-emitted frame before the requeue arithmetic (a
+                # zero-emission horizon can leave ``generated`` ahead)
+                P = len(self.prompts[rid])
+                req.generated = min(
+                    req.generated,
+                    max(0, len(out) - 1 - (req.prompt_len - P)))
+            else:
+                req.generated = 0
+            self.batcher.drain_slot(s)
+            self.rsnaps.pop(rid, None)
+            if self.spec:
+                self._dlen.pop(rid, None)
+
+    def _update_degradation(self) -> None:
+        """Sticky ladder driven only by injected pressure and observed
+        faults (never by ordinary preemption): at ``degrade_after`` drop
+        speculative decoding (a draft-less engine: the horizon); at twice
+        that, the horizon too; repeated swap-in failures drop the host
+        tier (its copies are drained before the tier goes)."""
+        E = self.ecfg
+        if not E.degrade_after:
+            return
+        inj = self.faults.counts
+        pressure = (inj.get("alloc_exhaust", 0) + inj.get("row_death", 0)
+                    + self.abort_counts.get("nan", 0))
+        if pressure >= E.degrade_after:
+            self.degraded_mode |= 2 if self.spec else 1
+        if pressure >= 2 * E.degrade_after:
+            self.degraded_mode |= 1
+        if (self.cache is not None and self.cache.host is not None
+                and self.cache.stats.swap_in_fails >= E.degrade_after):
+            self.cache.drop_host_tier()
+            self.degraded_mode |= 4
+
+    def _process_faults(self, finished) -> None:
+        """The tick's SAFE POINT, after the collect (no horizon in flight)
+        and before the scheduler reuses anything: advance the fault clock,
+        fire this tick's plan (straggler sleep, seeded client aborts, row
+        deaths), expire deadlines, tear down every requested abort, move
+        the degradation ladder. A natural finish beats a same-tick abort,
+        except a NaN quarantine, whose tokens are invalid."""
+        self._tick_no += 1
+        F = self.faults
+        F.on_tick()
+        if F.enabled:
+            if F.fire("slow_tick"):
+                time.sleep(F.cfg.slow_tick_s)
+            live = [r for r in self.batcher.slots if r is not None] \
+                + list(self.batcher.queue)
+            for r in live:
+                if F.fire("client_abort", key=r.req_id):
+                    self._abort_req.setdefault(r.req_id, "chaos")
+            self._process_row_death(finished)
+        if self.deadline_t:
+            now = self.clock()
+            for rid, t in list(self.deadline_t.items()):
+                s, req = self._find_request(rid)
+                if req is None or (s is not None and finished is not None
+                                   and finished[s]):
+                    self.deadline_t.pop(rid)
+                elif now >= t:
+                    self._abort_req.setdefault(rid, "deadline")
+        if self._abort_req:
+            for rid, reason in list(self._abort_req.items()):
+                s, req = self._find_request(rid)
+                if req is None:
+                    continue
+                if s is not None and finished is not None and finished[s] \
+                        and reason != "nan":
+                    continue
+                self._teardown(rid, reason)
+            self._abort_req.clear()
+        self._update_degradation()
+
+    def _maintain_cache(self) -> None:
+        """The cache's once-a-tick drain of last tick's swap-outs and its
+        watermark offload, unless an injected swap-tier stall skips it."""
+        if not (self.faults.enabled and self.faults.fire("swap_stall")):
+            self.cache.maintain()
+
+    # ---- the per-token tick --------------------------------------------
+    def step(self, finished_mask=None):
+        """One per-token tick: schedule -> prefill -> ONE decode step ->
+        sample on the host logits (``repro``'s reference path, and for
+        callers driving the engine token by token). Interleaves with
+        ``run()``: a pending fused finish mask is consumed, active slots
+        are marked dirty (this step advanced tokens and ctx on the host
+        only, so the device mirror re-syncs before the next horizon), and
+        the returned mask is also stashed for a later ``run()``."""
+        E = self.ecfg
+        with self._phase("host_s", "host", "schedule"):
+            self._drain_snapshots()
+            if self._pending_fin is not None:
+                finished_mask = self._pending_fin if finished_mask is None \
+                    else (np.asarray(finished_mask, bool) | self._pending_fin)
+                self._pending_fin = None
+            self._process_faults(finished_mask)
+            admitted, active = self.batcher.step(finished_mask)
+            if self.cache is not None:
+                self._maintain_cache()
+                if self.cache.has_pending:
+                    self.cache.apply_pending(self.state["pool"])
+        if admitted or self.prefiller.busy:
+            with self._phase("prefill_s", "prefill", "prefill"):
+                active = self.prefiller.run(admitted, active)
+        self.timing.steps += 1
+        if not active:
+            return np.zeros((E.n_slots,), bool)
+
+        with self._phase("host_s", "host", "config"):
+            ctx = self.batcher.context_lens()
+            W = self.pool_spec.max_pages_per_req
+            bt = self.batcher.block_tables(W)
+            active_mask = np.zeros((E.n_slots,), bool)
+            active_mask[active] = True
+            # host twin of the horizon's device-side write targets; idle
+            # slots write to the trash page (n_pages)
+            t = np.clip(ctx - 1, 0, None)
+            vp = np.minimum(t // E.page_size, W - 1)
+            npage = np.where(active_mask, bt[np.arange(E.n_slots), vp],
+                             E.n_pages).astype(np.int32)
+            noff = np.where(active_mask, t % E.page_size, 0).astype(np.int32)
+            if E.decode_bucket and W > 16:
+                bt = bt[:, :decode_table_bucket(self.batcher.max_live_pages(),
+                                                W)]
+        # ``run`` keeps the recurrent rows of idle and mid-chunk-prefill
+        # slots (their KV writes go to the trash page)
+        with self._phase("decode_s", "sync", "decode+sample"):
+            logits, _ = MDL.decode_step(
+                self.cfg, self.params, self.state, self._tensor(self.tokens),
+                self._tensor(np.ascontiguousarray(bt)),
+                self._tensor(ctx.astype(np.int32)), self._tensor(npage),
+                self._tensor(noff), run=self._tensor(active_mask),
+                rt=self.rt)
+            logits = logits.float().cpu().numpy()
+            self.timing.device_syncs += 1
+            self.timing.decode_steps += 1
+            nxt = self.sampler(logits)
+
+        with self._phase("host_s", "host", "bookkeep"):
+            # quarantine: a non-finite row (when guarded) or an injected
+            # NaN plan; the token is not emitted and the request goes
+            # terminal at the next safe point
+            quar = np.zeros((E.n_slots,), bool)
+            finite = (np.isfinite(logits[active]).all(axis=1)
+                      if self.nan_guard
+                      else np.ones((len(active),), bool))
+            for i, s in enumerate(active):
+                rid = self.batcher.slots[s].req_id
+                if (self.faults.enabled
+                        and self.faults.fire("nan_logits", key=rid)) \
+                        or not finite[i]:
+                    quar[s] = True
+                    self._abort_req.setdefault(rid, "nan")
+            gen = np.asarray([0 if r is None else r.generated
+                              for r in self.batcher.slots], np.int32)
+            budget = np.asarray([1 if r is None else r.max_new_tokens
+                                 for r in self.batcher.slots], np.int32)
+            self.tokens = np.where(active_mask & ~quar, nxt,
+                                   self.tokens).astype(np.int32)
+            finished = active_mask & ~quar \
+                & ((nxt == E.eos_token) | (gen >= budget))
+            emitted = [s for s in active if not quar[s]]
+            for s in emitted:
+                self.outputs[self.batcher.slots[s].req_id].append(int(nxt[s]))
+            self.timing.decode_tokens += len(emitted)
+            if self.tel.enabled:
+                tnow = self.clock()
+                for s in emitted:
+                    self.tel.on_tokens(self.batcher.slots[s].req_id, 1, tnow)
+                self.tel.on_horizon(float(ctx[emitted].sum()))
+            self.batcher.dirty.update(active)
+            self._pending_fin = finished
+        return finished
+
     # ---- fused multi-step path ---------------------------------------
     def _sync_device_slots(self) -> None:
         """Mirror the scheduler's dirty rows into the device-resident slot
@@ -586,27 +955,51 @@ class DecodeEngine:
         """Sync point: ONE readback of the in-flight horizon's packed
         ``(toks, emit, fin[, acc])`` and fold the emissions into the outputs
         and request bookkeeping (a speculative round: also the draft's
-        coverage and the accept counters)."""
+        coverage and the accept counters). A slot whose ids fall outside
+        the vocabulary (when guarded) or that draws an injected
+        ``nan_logits`` is quarantined: its tokens are not folded and it
+        goes terminal at this tick's safe point."""
         if self._inflight is None:
             return None
         packed, K, pairs, nprop = self._inflight
         self._inflight = None
+        meta, self._horizon_meta = self._horizon_meta, None
         n = self.ecfg.n_slots
-        with self._phase("decode_s"):
+        with self._phase("decode_s", "sync", "collect"):
             host = packed.cpu().numpy()
         self.timing.device_syncs += 1
+        tel = self.tel.enabled
+        if tel and meta is not None and self.tel.trace is not None:
+            # the horizon's device-busy window, inferred dispatch -> readback
+            self.tel.trace.span("device", "horizon", meta[2], meta[0],
+                                time.perf_counter(),
+                                args={"slots": len(pairs)})
         toks = host[:K * n].reshape(K, n)
         emit = host[K * n:2 * K * n].reshape(K, n).astype(bool)
         fin = host[2 * K * n:2 * K * n + n].astype(bool)
         acc = host[2 * K * n + n:]
+        # one readback stamp for the whole horizon (the tracker's TTFT
+        # equals first_tok_t - submit_t exactly)
         tnow = self.clock()
+        tok_ctx = 0.0
         finished = np.zeros((n,), bool)
         for slot, req in pairs:
             ts = toks[emit[:, slot], slot]
             if not len(ts):            # pool-starved to zero steps
                 continue
+            if (self.faults.enabled
+                    and self.faults.fire("nan_logits", key=req.req_id)) \
+                    or (self.nan_guard
+                        and (int(ts.min()) < 0
+                             or int(ts.max()) >= self.cfg.padded_vocab)):
+                self._abort_req.setdefault(req.req_id, "nan")
+                continue
             self.outputs[req.req_id].extend(int(t) for t in ts)
             self.first_tok_t.setdefault(req.req_id, tnow)
+            if tel:
+                self.tel.on_tokens(req.req_id, int(len(ts)), tnow)
+                if meta is not None:
+                    tok_ctx += len(ts) * float(meta[1][slot])
             if nprop is not None:
                 # the draft absorbed its proposals' KV up to the emitted
                 # frontier (req.total_len is still the dispatch-time
@@ -616,6 +1009,9 @@ class DecodeEngine:
                 self.spec_rounds += 1
                 self.spec_proposed += int(nprop[slot])
                 self.spec_accepted += int(acc[slot])
+                if tel:
+                    self.tel.on_spec(req.req_id, int(nprop[slot]),
+                                     int(acc[slot]))
             # the tick's scheduler step already reserved one token; the rest
             # of the horizon's emissions land here
             req.generated += len(ts) - 1
@@ -624,6 +1020,8 @@ class DecodeEngine:
             if fin[slot] and self.spec:
                 self._dlen.pop(req.req_id, None)
             self.timing.decode_tokens += int(len(ts))
+        if tel:
+            self.tel.on_horizon(tok_ctx)
         return finished
 
     def _draft_catchup(self, active) -> None:
@@ -673,8 +1071,9 @@ class DecodeEngine:
             valid_len=self._tensor(lens), rt=self.rt)
 
     def _step_fused(self) -> None:
-        """One pipelined tick: collect the previous horizon, schedule and
-        prefill, then dispatch the next horizon WITHOUT blocking on it."""
+        """One pipelined tick: collect the previous horizon, the safe
+        point, schedule and prefill, then dispatch the next horizon
+        WITHOUT blocking on it."""
         E = self.ecfg
         # ---- overlap window: host work that does not need the horizon's
         # results, done while it runs. Watermark offload gathers pages here
@@ -683,9 +1082,9 @@ class DecodeEngine:
         # (a node pinned by a request, or with a queued write, is never a
         # victim: the policy's ``_eligible``; tree pages are whole prompt
         # pages, written once)
-        with self._phase("host_s"):
+        with self._phase("host_s", "host", "overlap"):
             if self.cache is not None:
-                self.cache.maintain()
+                self._maintain_cache()
             self._drain_snapshots()
             if self._inflight is not None and self.batcher.queue:
                 self.batcher.prefetch_peeks(limit=2 * E.n_slots)
@@ -694,21 +1093,27 @@ class DecodeEngine:
         if finished is None:
             finished, self._pending_fin = self._pending_fin, None
 
-        with self._phase("host_s"):
+        with self._phase("host_s", "host", "faults"):
+            self._process_faults(finished)
+
+        with self._phase("host_s", "host", "schedule"):
             admitted, active = self.batcher.step(finished)
             if self.cache is not None and self.cache.has_pending:
                 # swap-ins and CoW copies queued by this tick's admissions
                 # land, in place, before prefill or decode read the pages
                 self.cache.apply_pending(self.state["pool"])
         if admitted or self.prefiller.busy:
-            with self._phase("prefill_s"):
+            with self._phase("prefill_s", "prefill", "prefill"):
                 active = self.prefiller.run(admitted, active)
         self.timing.steps += 1
         if not active:
             return
 
-        with self._phase("host_s"):
-            if self.spec:
+        with self._phase("host_s", "host", "config"):
+            # degradation bit 2 turns speculative decoding into the plain
+            # horizon (the draft's coverage goes stale, read only with spec)
+            spec = self.spec and not (self.degraded_mode & 2)
+            if spec:
                 # the draft re-absorbs every (re)admitted context
                 for _s, req in admitted:
                     self._dlen[req.req_id] = 0
@@ -718,6 +1123,8 @@ class DecodeEngine:
             cap = self.prefiller.max_horizon
             if cap is not None:
                 K = min(K, cap)
+            if (self.degraded_mode & 1) and not spec:
+                K = 1                  # bit 1: the per-token trajectory
             allow = self.batcher.reserve_horizon(active, K,
                                                  gentle=E.reserve_gentle)
             self._sync_device_slots()
@@ -726,14 +1133,20 @@ class DecodeEngine:
             if E.decode_bucket and W > 16:
                 width = decode_table_bucket(self.batcher.max_live_pages(), W)
 
-        key = (int(width), int(K))
+        key = (int(width), int(K), spec)
         if self.horizons.needs_capture(key):
-            with self._phase("capture_s"):
+            with self._phase("capture_s", "dispatch", "capture"):
                 self.horizons.capture(key)
             self.timing.graph_captures += 1
         nprop = None
-        with self._phase("decode_s"):
-            if self.spec:
+        with self._phase("decode_s", "dispatch",
+                         "spec_dispatch" if spec else "dispatch"):
+            if self.tel.enabled:
+                self._horizon_seq += 1
+                self._horizon_meta = (time.perf_counter(),
+                                      self.batcher._ctx.copy(),
+                                      self._horizon_seq)
+            if spec:
                 self._draft_catchup(active)
                 nprop = np.clip(np.asarray(allow) - 1, 0, K - 1)
                 sd = self.timing.spec_dispatches
@@ -745,8 +1158,14 @@ class DecodeEngine:
                               nprop)
 
     def tick(self) -> None:
-        """One pipelined fused tick (public driver API)."""
+        """One pipelined fused tick plus the serving-snapshot cadence
+        (public driver API: chaos drivers tick and may abandon the engine
+        between ticks)."""
         self._step_fused()
+        E = self.ecfg
+        if E.snapshot_every and E.snapshot_dir \
+                and self._tick_no % E.snapshot_every == 0:
+            self.save_snapshot()
 
     def run(self, max_steps: int = 10_000) -> dict[int, list[int]]:
         for _ in range(max_steps):
@@ -756,3 +1175,223 @@ class DecodeEngine:
         if self._inflight is not None:   # max_steps hit mid-horizon
             self._pending_fin = self._collect_horizon()
         return self.outputs
+
+    def quiesce(self) -> None:
+        """Bring the engine to the post-collect frame: fold an in-flight
+        horizon into host bookkeeping (its finish mask joins the pending
+        one for the next scheduler step) and drain the snapshot copies.
+        Snapshots and teardowns need this frame; one extra device sync
+        when a horizon was in flight."""
+        if self._inflight is not None:
+            fin = self._collect_horizon()
+            if fin is not None:
+                self._pending_fin = fin if self._pending_fin is None \
+                    else (self._pending_fin | fin)
+        self._drain_snapshots()
+
+    def adopt_request(self, req_id: int, ent: dict, prompt, out, *,
+                      kv=None, rows=None):
+        """Register a request arriving from outside ``submit()`` (a
+        snapshot restore): ``ent`` is its ``_snapshot_entry`` frame, ``out``
+        the tokens already streamed. A warm entry seeds the preemption
+        snapshot machinery (``kv``: host ``{"k", "v"}`` pages, ``rows``:
+        the host carry) so the prefiller restores instead of recomputing;
+        slot-mode prefill and cold entries re-prefill — token-identical
+        either way. Returns the queued Request."""
+        self.prompts[req_id] = np.asarray(prompt, np.int32)
+        self.outputs[req_id] = [int(t) for t in out]
+        now = self.submit_t[req_id] = self.clock()
+        spec = RequestSpec(req_id, self.prompts[req_id], int(ent["max_new"]),
+                           priority=int(ent.get("priority", 0)))
+        self.tel.on_submit(req_id, len(self.prompts[req_id]),
+                           int(ent["max_new"]), now, spec=spec)
+        req = Request(req_id, int(ent["prompt_len"]), int(ent["max_new"]),
+                      priority=spec.priority, submit_t=now, spec=spec)
+        if self.prefiller.name == "chunked":
+            req.chunked_prefill = True
+            req.prefill_done = False
+        warm_ok = self.ecfg.state_resume and self.prefiller.name != "slot"
+        if ent.get("state") == "warm" and warm_ok:
+            snap: dict[str, Any] = {"len": int(ent["depth"])}
+            if kv is not None:
+                snap["kv"] = kv
+            if rows is not None:
+                snap["rows"] = rows
+            self.rsnaps[req_id] = snap
+        self.batcher.submit(req)
+        return req
+
+    # ---- crash-consistent serving snapshots ---------------------------
+    def _named_generators(self) -> dict:
+        """Every generator the engine draws from, by name: their states are
+        the snapshot's counterpart of repro's ``dev_key``."""
+        gens = {"gen": self.gen, "dgen": self.dgen,
+                "sampler": self.sampler.gen}
+        return {k: g for k, g in gens.items() if g is not None}
+
+    def _snapshot_entry(self, req, s: int | None):
+        """(scalar manifest entry, arrays) for one live request. A running
+        warm slot saves its written KV pages (and recurrent carry) at the
+        quiescent depth; the requeue arithmetic mirrors ``drain_slot``, so
+        the saved ``prompt_len`` is the restore depth and a warm restore
+        takes the prefiller's full-restore path. A queued request with a
+        preemption snapshot saves that; everything else is cold (a
+        deterministic re-prefill)."""
+        E = self.ecfg
+        rid = req.req_id
+        out = self.outputs[rid]
+        arrs: dict[str, Any] = {"prompt": self.prompts[rid],
+                                "out": np.asarray(out, np.int32)}
+        ent = {"prompt_len": int(req.prompt_len),
+               "max_new": int(req.max_new_tokens), "state": "cold"}
+        if s is not None and req.prefill_done and out and req.kv_written:
+            P = len(self.prompts[rid])
+            g = min(int(req.generated),
+                    max(0, len(out) - 1 - (req.prompt_len - P)))
+            depth = req.prompt_len + g
+            ent = {"prompt_len": int(depth),
+                   "max_new": max(1, int(req.max_new_tokens) - g),
+                   "state": "warm", "depth": int(depth)}
+            if "pool" in self.state:
+                n = -(-depth // E.page_size)
+                pages = np.asarray(self.batcher.block_table_row(s)[:n])
+                k, v = gather_pages(self.state["pool"]["k"],
+                                    self.state["pool"]["v"], pages)
+                arrs["kv_k"] = CKPT.to_numpy(k)
+                arrs["kv_v"] = CKPT.to_numpy(v)
+            if self.has_rstate:
+                arrs["rows"] = MDL.tree_map(
+                    CKPT.to_numpy, MDL.gather_rstate(self.state, [s]))
+        elif s is None and rid in self.rsnaps:
+            # queued with a preemption snapshot (host memory after the
+            # drain): persist it so the restore resumes
+            snap = self.rsnaps[rid]
+            ent = {"prompt_len": int(req.prompt_len),
+                   "max_new": int(req.max_new_tokens),
+                   "state": "warm", "depth": int(snap["len"])}
+            if "kv" in snap:
+                arrs["kv_k"] = CKPT.to_numpy(snap["kv"]["k"])
+                arrs["kv_v"] = CKPT.to_numpy(snap["kv"]["v"])
+            if "rows" in snap:
+                arrs["rows"] = MDL.tree_map(CKPT.to_numpy, snap["rows"])
+        if req.priority:
+            ent["priority"] = int(req.priority)
+        return ent, arrs
+
+    def save_snapshot(self, ckpt_dir=None):
+        """Write a crash-consistent serving checkpoint: every live
+        request's prompt and output tokens plus, for warm slots, the
+        written KV pages and recurrent carry at the quiescent depth —
+        enough for a fresh engine to finish every in-flight request
+        token-identically (greedy). Quiesces first (one extra sync on a
+        snapshot tick); the manifest is written last, so a crash mid-save
+        never damages the latest restorable step."""
+        E = self.ecfg
+        d = ckpt_dir or E.snapshot_dir
+        if d is None:
+            return None
+        self.quiesce()
+        order: list[int] = []
+        ents: dict[str, dict] = {}
+        arrs: dict[str, dict] = {}
+        for s, req in enumerate(self.batcher.slots):
+            if req is None:
+                continue
+            if self._pending_fin is not None and self._pending_fin[s]:
+                ent = {"state": "done", "max_new": int(req.max_new_tokens),
+                       "prompt_len": int(req.prompt_len)}
+                a = {"prompt": self.prompts[req.req_id],
+                     "out": np.asarray(self.outputs[req.req_id], np.int32)}
+            else:
+                ent, a = self._snapshot_entry(req, s)
+            order.append(req.req_id)
+            ents[str(req.req_id)] = ent
+            arrs[str(req.req_id)] = a
+        for req in self.batcher.queue:
+            ent, a = self._snapshot_entry(req, None)
+            order.append(req.req_id)
+            ents[str(req.req_id)] = ent
+            arrs[str(req.req_id)] = a
+        tree = {"reqs": arrs,
+                "gen_state": {k: g.get_state().numpy() for k, g
+                              in self._named_generators().items()}}
+        path = CKPT.save(d, self._tick_no, tree,
+                         extra={"order": order, "reqs": ents,
+                                "tick": self._tick_no},
+                         keep=E.snapshot_keep)
+        self.snapshot_saves += 1
+        return path
+
+    def _rows_from_nested(self, nd):
+        """A one-slot recurrent carry as host tensors from its "/"-keyed
+        nested form (sequence indices became string keys): rebuilt against
+        the structure and dtypes of a live one-slot gather."""
+        like = MDL.gather_rstate(self.state, [0])
+
+        def build(node, d):
+            if isinstance(node, dict):
+                return {k: build(v, d[k]) for k, v in node.items()}
+            if isinstance(node, (tuple, list)):
+                return type(node)(build(v, d[str(i)])
+                                  for i, v in enumerate(node))
+            return torch.from_numpy(np.ascontiguousarray(d)).to(node.dtype)
+        return build(like, nd)
+
+    def restore_snapshot(self, ckpt_dir=None, step: int | None = None):
+        """Rebuild the serving state of the newest (or the given) snapshot
+        into THIS engine — a fresh one with the same model and engine
+        config, before its first tick: warm requests write their KV pages
+        (and carry) into the existing pool in place and continue, cold
+        ones re-prefill, done ones republish their outputs.
+
+        Every candidate step is fully validated (manifest, shard, per-array
+        crc32) before anything is applied: a torn or damaged step is
+        counted in ``snapshot_rejects`` and skipped for the next older one.
+        Returns the restored step, or None (the caller's cold start)."""
+        d = ckpt_dir or self.ecfg.snapshot_dir
+        if d is None:
+            return None
+        if self.horizons.captured or self._tick_no:
+            # the captured graphs hold the pool's and the slot state's
+            # addresses and the generators' offsets: restore before them
+            raise RuntimeError("restore_snapshot needs a fresh engine (no "
+                               "tick run, no graph captured)")
+        cands = ([step] if step is not None
+                 else sorted(CKPT.valid_steps(d), reverse=True))
+        for cand in cands:
+            if not CKPT.verify_step(d, cand):
+                self.snapshot_rejects += 1
+                continue
+            return self._restore_step(d, cand)
+        return None
+
+    def _restore_step(self, ckpt_dir, step: int):
+        """Apply one verified snapshot step (see ``restore_snapshot``)."""
+        manifest, nested = CKPT.load(ckpt_dir, step)
+        extra = manifest["extra"]
+        gens = self._named_generators()
+        for k, st in nested.get("gen_state", {}).items():
+            if k in gens:
+                gens[k].set_state(torch.from_numpy(np.array(st)))
+        pool_dtype = self.state["pool"]["k"].dtype \
+            if "pool" in self.state else torch.float32
+        reqs = nested.get("reqs", {})
+        for rid_s in map(str, extra["order"]):
+            ent = extra["reqs"][rid_s]
+            rid = int(rid_s)
+            a = reqs.get(rid_s, {})
+            prompt = np.asarray(a["prompt"], np.int32)
+            out = [int(t) for t in np.asarray(a.get("out", ()), np.int32)]
+            if ent["state"] == "done":         # finished during quiesce:
+                self.prompts[rid] = prompt     # republish, don't re-run
+                self.outputs[rid] = out
+                self.submit_t[rid] = self.clock()
+                continue
+            kv = ({name: torch.from_numpy(np.ascontiguousarray(
+                a[f"kv_{name}"])).to(pool_dtype) for name in ("k", "v")}
+                if "kv_k" in a else None)
+            rows = (self._rows_from_nested(a["rows"])
+                    if "rows" in a else None)
+            self.adopt_request(rid, ent, prompt, out, kv=kv, rows=rows)
+        self.snapshot_restores += 1
+        return step

@@ -1,5 +1,5 @@
 """The fused decode horizon, or a speculative round, as one CUDA graph per
-(table width, horizon).
+(table width, horizon, kind).
 
 The port's counterpart of ``repro/serving/engine.py::_make_fused`` and
 ``_make_spec``: JAX jits the horizon once for each static ``(horizon,
@@ -7,8 +7,10 @@ width)`` (a speculative round: the draft's proposal scan and the target's
 verify, two jits) and donates the slot state, so a horizon of K steps is
 one dispatch. Here the horizon (``models.model.decode_multi`` plus the
 copies below) or the round (``draft_propose`` then ``decode_verify``, K =
-``spec_horizon + 1``) is captured once per ``(width, K)`` into a
-``torch.cuda.CUDAGraph`` and replayed each tick;
+``spec_horizon + 1``) is captured once per ``(width, K, spec)`` into a
+``torch.cuda.CUDAGraph`` and replayed each tick (``spec`` says which of
+the two: a speculative engine whose degradation ladder turns spec off,
+``degraded_mode`` bit 2, captures plain horizons from then on);
 ``serving.prefill.decode_table_bucket`` keeps the widths to O(log maxp).
 The draft's catch-up prefill stays eager, as prefill does.
 
@@ -56,6 +58,8 @@ same body runs eagerly through the same static buffers and in-place copies.
 """
 from __future__ import annotations
 
+import gc
+
 import numpy as np
 import torch
 
@@ -98,21 +102,33 @@ class CapturedHorizon:
 def capture(body, graph, *, warmup, capture_ctx) -> CapturedHorizon:
     """Run ``warmup(body)``, then capture ``body`` into ``graph`` under
     ``capture_ctx(graph)``. The launch counters end as they began; the
-    result's replays add the capture pass's launches."""
-    before = launch_counts()
-    warmup(body)
-    mid = launch_counts()
-    with capture_ctx(graph):
-        body()
+    result's replays add the capture pass's launches.
+
+    Python's cyclic collector is held off until the capture ends: a dead
+    engine's graphs (an engine is a reference cycle) would otherwise be
+    reset by an automatic collection inside this capture, which CUDA
+    refuses and which invalidates the capture (``torch.cuda.graph`` no
+    longer collects on entry)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        before = launch_counts()
+        warmup(body)
+        mid = launch_counts()
+        with capture_ctx(graph):
+            body()
+    finally:
+        if enabled:
+            gc.enable()
     delta = tuple(a - m for a, m in zip(launch_counts(), mid))
     _set_counts(before)
     return CapturedHorizon(graph, delta)
 
 
 class HorizonRunner:
-    """Dispatches the engine's fused decode horizon (a speculative round on
-    an engine with a draft): a graph replay per ``(width, K)`` when
-    ``graphs``, else the same body run eagerly."""
+    """Dispatches the engine's fused decode horizon or speculative round: a
+    graph replay per key ``(width, K, spec)`` when ``graphs``, else the
+    same body run eagerly."""
 
     def __init__(self, engine, *, graphs: bool):
         self.eng = engine
@@ -120,17 +136,17 @@ class HorizonRunner:
         n = engine.ecfg.n_slots
         self.allow = torch.zeros((n,), dtype=torch.int32,
                                  device=engine.device)
-        self.outs: dict[tuple[int, int], torch.Tensor] = {}
+        self.outs: dict[tuple[int, int, bool], torch.Tensor] = {}
         # a round's static proposals [n, K-1] and draft logits [K-1, n, V]
-        self.spec_bufs: dict[tuple[int, int], tuple] = {}
-        self.captured: dict[tuple[int, int], CapturedHorizon] = {}
+        self.spec_bufs: dict[tuple[int, int, bool], tuple] = {}
+        self.captured: dict[tuple[int, int, bool], CapturedHorizon] = {}
         self.pool = torch.cuda.graph_pool_handle() if graphs else None
 
     def _out(self, key) -> torch.Tensor:
         out = self.outs.get(key)
         if out is None:
-            n, K = self.eng.ecfg.n_slots, key[1]
-            size = 2 * K * n + (2 * n if self.eng.spec else n)
+            n, (_, K, spec) = self.eng.ecfg.n_slots, key
+            size = 2 * K * n + (2 * n if spec else n)
             out = self.outs[key] = torch.zeros(
                 (size,), dtype=torch.int32, device=self.eng.device)
         return out
@@ -165,9 +181,9 @@ class HorizonRunner:
         """One horizon: ``decode_multi`` on the static buffers (a round:
         ``draft_propose`` then ``decode_verify``), its new slot state
         copied back in place and the readback packed."""
-        if self.eng.spec:
+        if key[2]:
             return self._spec_body(key)
-        eng, (width, K) = self.eng, key
+        eng, (width, K, _) = self.eng, key
         E, dev = eng.ecfg, eng.dev
         toks, emit, fin, _, tokens, ctx, rem = MDL.decode_multi(
             eng.cfg, eng.params, eng.state, dev.tokens, dev.bt, dev.ctx,
@@ -180,7 +196,7 @@ class HorizonRunner:
         """One speculative round: the draft proposes ``K - 1`` tokens a slot
         into the static proposals (its pool written in place), and the
         target verifies them in one multi-query pass."""
-        eng, (width, K) = self.eng, key
+        eng, (width, K, _) = self.eng, key
         E, dev = eng.ecfg, eng.dev
         prop, qlog = self._spec_buffers(key)
         geo = dict(horizon=K - 1, table_width=width, page_size=E.page_size,
@@ -213,7 +229,7 @@ class HorizonRunner:
         per key here; that is sound because a key's shapes and addresses
         never change."""
         self._out(key)
-        if self.eng.spec:
+        if key[2]:
             self._spec_buffers(key)
         self.allow.zero_()
         gens = self.eng.generators

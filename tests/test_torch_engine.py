@@ -113,16 +113,18 @@ def test_engine_plain_path_identity(models, jax_ref):
 
 
 def test_engine_rejects_unported_features():
-    """The fields of features still to port raise; the KV-cache hierarchy,
-    the recurrent snapshots, stochastic sampling and speculative decoding
-    are ported and do not."""
-    for field, value in (("telemetry", object()), ("faults", object()),
-                         ("snapshot_every", 1), ("role", "prefill")):
-        with pytest.raises(NotImplementedError, match=field):
-            EngineConfig(**{field: value}, **KW)
+    """The field of the feature still to port (cluster roles) raises; the
+    KV-cache hierarchy, the recurrent snapshots, stochastic sampling,
+    speculative decoding, telemetry, fault injection, the request
+    lifecycle and serving snapshots are ported and do not."""
+    with pytest.raises(NotImplementedError, match="role"):
+        EngineConfig(role="prefill", **KW)
     EngineConfig(prefix_cache=True, host_pages=8, state_resume=True, **KW)
     EngineConfig(sampler="top_k", top_k=8, temperature=0.8, sample_seed=3,
                  draft_config="llama3.2-1b", spec_horizon=3, **KW)
+    EngineConfig(telemetry=object(), faults=object(), snapshot_every=1,
+                 snapshot_dir="snaps", max_queue=4, default_deadline_s=1.0,
+                 degrade_after=2, nan_guard=True, snapshot_keep=2, **KW)
 
 
 def test_cuda_request_without_card_raises(models):

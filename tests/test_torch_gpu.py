@@ -606,7 +606,7 @@ def test_graph_engine_tracks_eager_tick_by_tick(arch):
     assert eager._inflight is None and eager.batcher.done()
     assert graphs.outputs == eager.outputs
     assert patched_before_replay > 0
-    widths = {w for w, _ in graphs.horizons.captured}
+    widths = {w for w, _, _ in graphs.horizons.captured}
     assert len(widths) >= 2, graphs.horizons.captured
 
 
@@ -960,3 +960,144 @@ def test_spec_with_moe_target_on_the_card(mode):
         assert outs[0] == outs[2] and counters[0] == counters[2]
     else:
         assert outs[0] != outs[2], "ROADMAP C.7 no longer shows: close it"
+
+
+# ---------------------------------------------------------------------------
+# the request lifecycle, telemetry and serving snapshots on the card
+# ---------------------------------------------------------------------------
+
+def _lifecycle_state(eng) -> dict:
+    return {"outputs": {k: list(v) for k, v in eng.outputs.items()},
+            "aborted": dict(eng.aborted), "events": list(eng.faults.events),
+            "degraded_mode": eng.degraded_mode,
+            "device_syncs": eng.timing.device_syncs,
+            "migrated": eng.batcher.stats.migrated}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-1.2b"])
+@pytest.mark.parametrize("mode,horizon", [("batched", 4), ("chunked", 1)])
+def test_lifecycle_storm_graphs_match_eager_and_plain(arch, mode, horizon):
+    """A seeded storm (exhaustion, row death, NaN quarantine, client
+    aborts, a deadline) on the graph engine: the same fired events,
+    terminal reasons, degradation, tokens and syncs as the eager and plain
+    engines, every request terminal and no page leaked."""
+    _card()
+    from repro_torch.runtime.faults import FaultConfig
+    fc = FaultConfig(seed=7, client_abort_p=0.03, row_death_p=0.02,
+                     alloc_exhaust_p=0.08, nan_logits_p=0.02)
+    engs = _engines(arch, ({}, dict(decode_graphs=False),
+                           dict(use_kernels=False)),
+                    prefill_mode=mode, decode_horizon=horizon,
+                    prefill_chunk=8, faults=fc, n_rows=2, n_shards=2,
+                    degrade_after=2, default_deadline_s=60.0)
+    for e in engs:
+        e.run(2000)
+    states = [_lifecycle_state(e) for e in engs]
+    assert states[0] == states[1] == states[2]
+    graphs = engs[0]
+    assert graphs.faults.total_fired > 0 and graphs.horizons.graphs
+    assert graphs.timing.graph_captures == len(graphs.horizons.captured)
+    for e in engs:
+        assert e.batcher.stats.completed + len(e.aborted) == 5
+        assert e.alloc.pages_in_use == 0 and not e.rsnaps
+        assert not e.deadline_t and not e._abort_req
+
+
+@pytest.mark.gpu
+def test_lifecycle_spec_degrades_to_a_captured_plain_horizon():
+    """Allocation pressure turns speculative decoding off mid-run: the
+    graph engine captures a plain horizon of its own, counts it, and its
+    tokens equal the eager engine's and the clean target-only run's."""
+    _card()
+    from repro_torch.runtime.faults import FaultConfig
+    fc = FaultConfig(seed=5, alloc_exhaust_p=0.15)
+    graphs, eager, clean = _spec_engines(
+        (dict(faults=fc, degrade_after=2),
+         dict(faults=fc, degrade_after=2, decode_graphs=False),
+         dict(draft=False)), prefill_mode="batched", spec_horizon=3)
+    outs = [e.run(2000) for e in (graphs, eager, clean)]
+    assert outs[0] == outs[1] == outs[2]
+    assert graphs.degraded_mode & 2 and eager.degraded_mode & 2
+    assert any(not spec for _, _, spec in graphs.horizons.captured)
+    assert graphs.timing.graph_captures == len(graphs.horizons.captured)
+    for k in ("spec_rounds", "spec_proposed", "spec_accepted"):
+        assert getattr(graphs, k) == getattr(eager, k), k
+    assert graphs.alloc.pages_in_use == 0 and not graphs._dlen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-1.2b"])
+def test_snapshot_kill_restore_on_the_card(arch, tmp_path):
+    """Snapshot at tick 3 on the graph engine, abandon it, restore into a
+    fresh graph engine (before its first capture): KV pages and carries
+    are written in place, and the tokens equal the uninterrupted run's
+    (graphs and plain)."""
+    _card()
+    ref, plain = _engines(arch, ({}, dict(use_kernels=False)),
+                          prefill_mode="batched", decode_horizon=4)
+    want = ref.run(1000)
+    assert plain.run(1000) == want
+    (eng,) = _engines(arch, (dict(snapshot_dir=str(tmp_path),
+                                  snapshot_every=3),),
+                      prefill_mode="batched", decode_horizon=4)
+    for _ in range(4):
+        eng.tick()
+    assert eng.snapshot_saves == 1
+    from dataclasses import replace
+    from repro_torch.serving import DecodeEngine
+    fresh = DecodeEngine(eng.cfg, replace(eng.ecfg, snapshot_every=0),
+                         eng.params, device="cuda")
+    ptrs = [t.data_ptr() for t in fresh.state["pool"].values()]
+    assert fresh.restore_snapshot() == 3
+    assert fresh.run(1000) == want
+    assert ptrs == [t.data_ptr() for t in fresh.state["pool"].values()]
+    assert fresh.horizons.graphs and fresh.alloc.pages_in_use == 0
+    with pytest.raises(RuntimeError):
+        fresh.restore_snapshot()
+
+
+@pytest.mark.gpu
+def test_telemetry_on_the_card_adds_no_sync():
+    """Telemetry on the graph engine: tokens, syncs and kernel launches
+    equal the run without it; the trace validates and the tracker's TTFT
+    is the engine's."""
+    _card()
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.telemetry import TelemetryConfig, validate_trace
+    off, on = _engines("llama3.2-1b", ({}, dict(
+        telemetry=TelemetryConfig(metrics=True, trace=True))),
+        prefill_mode="batched", decode_horizon=4)
+    counts = []
+    for e in (off, on):
+        before = (PA.paged_attention_partials.launches,
+                  FA.flash_attention_fwd.launches)
+        e.run(1000)
+        counts.append((PA.paged_attention_partials.launches - before[0],
+                       FA.flash_attention_fwd.launches - before[1]))
+    assert off.outputs == on.outputs and counts[0] == counts[1]
+    assert off.timing.device_syncs == on.timing.device_syncs
+    info = validate_trace(on.tel.trace.to_doc())
+    assert info["slices"] > 0
+    for r in on.tel.tracker.records:
+        assert r.ttft_s == on.first_tok_t[r.req_id] - on.submit_t[r.req_id]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-1.2b"])
+def test_step_matches_run_on_the_card(arch):
+    """``step()`` (one eager decode step, host logits) gives the graph
+    engine's ``run()`` tokens, and K1 served it."""
+    _card()
+    from repro_torch.kernels import paged_attention as PA
+    stepped, ran = _engines(arch, ({}, {}), prefill_mode="batched",
+                            decode_horizon=4)
+    before = PA.paged_attention_partials.launches
+    for _ in range(1000):
+        if stepped.batcher.done():
+            break
+        stepped.step()
+    assert PA.paged_attention_partials.launches > before
+    assert stepped.outputs == ran.run(1000)
+    assert stepped.alloc.pages_in_use == 0

@@ -135,7 +135,7 @@ def test_neutral_capture_leaves_the_live_state(arch, eager_run,
     assert before[1].sum() > 0                 # slots hold live contexts
     runner = eng.horizons
     _stand_in_graphs(monkeypatch, runner)
-    for key in ((16, 4), (8, 1)):
+    for key in ((16, 4, False), (8, 1, False)):
         runner.capture(key)
         for a, b in zip(_live_state(eng), before):
             assert torch.equal(a, b)

@@ -624,7 +624,7 @@ def test_spec_neutral_capture_leaves_the_live_state(draft, sampler,
     assert len(gens) == (2 if sampler != "greedy" else 0)
     runner = eng.horizons
     _stand_in_graphs(monkeypatch, runner)
-    for key in ((16, 4), (16, 1)):
+    for key in ((16, 4, True), (16, 1, True)):
         runner.capture(key)
         assert runner.captured[key].graph.gens == tuple(eng.generators)
         for a, b in zip(_live(eng), before):
