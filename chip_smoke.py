@@ -142,8 +142,30 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``run()``: tokens identical. Launches of (a), (d) and (f) equal what
    their decode steps and prefill calls imply.
 
+11. disagg — disaggregated serving on the graph path, llama3.2-1b at full
+   width (fp32 weights from seed 0, one copy shared by every engine, page
+   16, batched prefill, horizon 4, 4 splits): (a) one prefill and one
+   decode engine (``serving/cluster.py``, 8 slots and 1024 pages each, 8
+   prompts of 256-1024 tokens, 32 new) against one colocated engine:
+   tokens equal (the near-tie rule of phase 5), every request handed off
+   once and applied, no failure counter, launches equal what both
+   engines' steps and prefill calls imply; prints the handoff MB, the
+   extract / encode / decode / apply ms, decode tok/s against the
+   colocated engine's, syncs per token and each engine's graph captures;
+   (b) ``launch/chaos_soak.py``'s ``disagg`` scenario (engine death
+   rebuilt warm from snapshots every 3 ticks on the same card, torn and
+   corrupt handoffs, backpressure) at seeds 0, 1, 0 again and 3: terminal,
+   leak-free, completed requests held to a clean run, seed 0 replayed
+   identically, each dead engine's graphs and state released, each
+   rebuilt engine capturing its own graphs, launches per run checked;
+   prints device memory at each death and after its rebuild; (c) lazy
+   against static allocation through ``launch/serve.py`` at full width (6
+   slots, context 2048: 129 pages a static request, a 288-page pool):
+   peak pages, avg_batch and decode tok/s of each, static admitting less,
+   tokens equal, launches checked.
+
 ``python3 chip_smoke.py --lifecycle`` builds the kernels and runs phase 10
-alone.
+alone; ``--disagg`` builds them and runs phase 11 alone.
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
 and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
 bench and long-context shapes) and K4 (zamba2 prefill and decode, slot
@@ -1942,9 +1964,11 @@ LIFE = dict(prefill_mode="batched", decode_horizon=4, kernel_splits=4)
 
 def path_launches(cfg, engines) -> dict:
     """The launches the engines' decode steps, rounds and prefill calls
-    imply (``expected_launches``), summed."""
+    imply (``expected_launches``), summed. An entry may be a cluster: its
+    every engine counts (``EngineCluster.engines``: dead and rebuilt ones
+    included)."""
     want: dict[str, int] = {}
-    for e in engines:
+    for e in [x for c in engines for x in getattr(c, "engines", [c])]:
         tm = e.timing
         m = {"decode_steps": tm.decode_steps,
              "prefill_calls": tm.prefill_calls, "spec": e.spec,
@@ -1958,14 +1982,16 @@ def path_launches(cfg, engines) -> dict:
     return want
 
 
-def check_main_path(label, cfg, engines, la, launches) -> None:
-    """Launches of one lifecycle run against what its engines' steps and
-    calls imply, every engine on the graph path; adds them to the main
-    path's ``launches``."""
-    if not all(e.horizons.graphs for e in engines):
+def check_main_path(label, cfg, engines, la, launches,
+                    tag: str = "lifecycle") -> None:
+    """Launches of one run (phases 10 and 11) against what its engines'
+    steps and calls imply, every engine on the graph path; adds them to
+    the main path's ``launches``."""
+    if not all(e.horizons.graphs for c in engines
+               for e in getattr(c, "engines", [c])):
         fail(f"{label}: an engine is not on the graph path")
     want = path_launches(cfg, engines)
-    print(f"[lifecycle] {label} launches: " + " ".join(
+    print(f"[{tag}] {label} launches: " + " ".join(
         f"{k}={la[k]} (expected {want[k]})" for k in la if want[k] or la[k]),
         flush=True)
     if la != want or not all(la[k] for k in la if want[k]):
@@ -2151,7 +2177,9 @@ def life_chaos(cfg, params, smi, launches, fns) -> None:
                                               dtype=torch.float32,
                                               device=DEV),
                      page_size=16, same=same, **LIFE)
-    for name in ChaosSoak.SCENARIOS:
+    # the cluster's scenario (dead engines release their graphs) is
+    # phase 11's (b)
+    for name in (n for n in ChaosSoak.SCENARIOS if n != "disagg"):
         got = {}
         for seed, rep in ((0, 0), (0, 1), (1, 0)):
             reset_counts(fns)
@@ -2192,9 +2220,9 @@ def life_chaos(cfg, params, smi, launches, fns) -> None:
         if s0["events"] != s1["events"] or o0 != o1 \
                 or s0["abort_counts"] != s1["abort_counts"]:
             fail(f"(c) {name}[0]: two runs of one seed differ")
-    print(f"[lifecycle] (c) {len(ChaosSoak.SCENARIOS)} scenarios x seeds "
-          "0, 1 at full width terminal and leak-free; seed 0 replayed "
-          f"identically | {smi}", flush=True)
+    print(f"[lifecycle] (c) {len(ChaosSoak.SCENARIOS) - 1} scenarios x "
+          "seeds 0, 1 at full width terminal and leak-free; seed 0 "
+          f"replayed identically | {smi}", flush=True)
     del soak
     gc.collect()
     torch.cuda.empty_cache()
@@ -2371,6 +2399,255 @@ def phase_lifecycle(smi: str, launches: dict) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 11. disaggregated serving
+# ---------------------------------------------------------------------------
+
+def cluster_engine_cfg(**kw):
+    """Phase 11's engine: ``kv_engine``'s geometry (8 slots, page 16, 1024
+    pages, context 1280) and phase 10's path (batched, horizon 4, 4
+    splits)."""
+    from repro_torch.serving import EngineConfig
+    return EngineConfig(n_slots=8, page_size=16, n_pages=1024,
+                        max_context=1280, eos_token=-1, **{**LIFE, **kw})
+
+
+def dis_clean(cfg, params, prompts, smi, launches, fns) -> None:
+    """(a) one prefill and one decode engine against the colocated engine:
+    tokens (near-tie rule), handoffs, launches, handoff MB and ms, decode
+    tok/s, graph captures."""
+    from repro_torch.serving import ClusterConfig, EngineCluster, Request
+    serve_kv(cfg, params, prompts[:2], **LIFE)        # warm-up, unreported
+    reset_counts(fns)
+    ref, m = serve_kv(cfg, params, prompts, keep=True, **LIFE)
+    check_main_path("(a) colocated", cfg, [m["engine"]], launch_counts(fns),
+                    launches, "disagg")
+    col = m["engine"].timing
+    reset_counts(fns)
+    cl = EngineCluster(cfg, cluster_engine_cfg(), ClusterConfig(), params,
+                       device=DEV)
+    for i, p in enumerate(prompts):
+        cl.submit(Request(i, p, 32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = {k: list(v) for k, v in cl.run(100_000).items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_main_path("(a) disagg 1p+1d", cfg, [cl], launch_counts(fns),
+                    launches, "disagg")
+    c, T = cl.counters, cl.transfer
+    n = len(prompts)
+    bad = {k: v for k, v in c.items() if k not in ("handoffs", "handoff_ok")
+           and v}
+    if c["handoffs"] != n or c["handoff_ok"] != n or bad:
+        fail(f"(a) router counters {c}: want {n} handoffs, all applied, "
+             "no failure")
+    pre, dec = (h.eng for h in cl.handles)
+    for e in (pre, dec):
+        if e.alloc.pages_in_use or not e.horizons.graphs:
+            fail("(a) an engine leaked pages or left the graph path")
+    nbytes = T.applied_bytes
+    ctx = sum(len(p) for p in prompts)
+
+    def tok_s(tm):
+        return tm.decode_tokens / max(tm.decode_s, 1e-9)
+    print(f"[disagg] (a) 1 prefill + 1 decode engine: {n} handoffs, "
+          f"{nbytes / 1e6:.1f} MB ({nbytes / ctx:.0f} B a prompt token), "
+          f"extract {1e3 * T.extract_s:.1f} ms, encode "
+          f"{1e3 * T.encode_s:.1f} ms, decode {1e3 * T.decode_s:.1f} ms, "
+          f"apply {1e3 * T.apply_s:.1f} ms (all {n}); wall {wall:.3f} s "
+          f"against colocated {m['wall_s']:.3f} s | {smi}", flush=True)
+    print(f"[disagg] (a) decode tok/s: decode engine {tok_s(dec.timing):.1f}"
+          f" (prefill engine {tok_s(pre.timing):.1f}) against colocated "
+          f"{tok_s(col):.1f}; syncs/token decode engine "
+          f"{dec.timing.device_syncs / max(1, dec.timing.decode_tokens):.4f}"
+          f" colocated {col.device_syncs / max(1, col.decode_tokens):.4f}; "
+          f"graph captures prefill {pre.timing.graph_captures} "
+          f"{sorted(pre.horizons.captured)} decode "
+          f"{dec.timing.graph_captures} {sorted(dec.horizons.captured)} "
+          f"colocated {col.graph_captures}; decode steps prefill / decode "
+          f"{pre.timing.decode_steps} / {dec.timing.decode_steps}, prefill "
+          f"calls {pre.timing.prefill_calls} / {dec.timing.prefill_calls} | "
+          f"{smi}", flush=True)
+    compare_tokens("disagg (a) 1p+1d vs colocated", cfg, params, prompts,
+                   ref, out, ("colocated", "disagg"))
+    del cl, pre, dec, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dis_chaos(cfg, params, smi, launches, fns) -> None:
+    """(b) ``ChaosSoak.disagg`` at full width on the graph path, seeds 0,
+    1, 0 again and 3 (whose two rebuilt engines decode, and one dies again
+    with its graphs captured): engine death rebuilt warm on the same card,
+    torn and corrupt handoffs, backpressure; device memory around each
+    rebuild."""
+    from repro_torch.launch.chaos_soak import ChaosSoak
+    from repro_torch.serving import EngineCluster
+
+    def same(what, prompts, ref, outs):
+        compare_tokens(f"disagg (b) {what}", cfg, params, prompts, ref,
+                       outs, ("clean", "chaos"))
+    soak = ChaosSoak(DEV, cfg=cfg, params=params, page_size=16, same=same,
+                     **LIFE)
+    kill, mem = EngineCluster._kill, []
+
+    def measured_kill(self, h):
+        torch.cuda.synchronize()
+        mem.append([torch.cuda.memory_allocated(),
+                    torch.cuda.max_memory_allocated()])
+        torch.cuda.reset_peak_memory_stats()
+        kill(self, h)
+        torch.cuda.synchronize()
+        mem[-1].append(torch.cuda.memory_allocated())
+    EngineCluster._kill = measured_kill
+    got, rebuilt_decoded = {}, 0
+    try:
+        for seed, rep in ((0, 0), (0, 1), (1, 0), (3, 0)):
+            mem.clear()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(fns)
+            t = time.perf_counter()
+            stats, outs = soak.disagg(seed)
+            dt = time.perf_counter() - t
+            la = launch_counts(fns)
+            engs, soak.engines = soak.engines, []
+            peak_end = torch.cuda.max_memory_allocated()
+            label = f"(b) {stats['scenario']}" + (" again" if rep else "")
+            check_main_path(label, cfg, engs, la, launches, "disagg")
+            # engs: the clean engine, then the cluster's in build order
+            cl_engs = engs[1:]
+            dead = [e for e in cl_engs if not e.state]
+            live = [e for e in cl_engs if e.state]
+            for e in dead:
+                if e.horizons.captured or e.dev is not None:
+                    fail(f"{label}: a dead engine kept its graphs or state")
+            for e in live + engs[:1]:
+                if e.timing.graph_captures != len(e.horizons.captured):
+                    fail(f"{label}: captures counted and held differ")
+            # engines rebuilt from a snapshot (a rebuild whose restore
+            # found none was released at once; a rebuilt one may die too)
+            rebuilt = [e for e in cl_engs[2:] if e.snapshot_restores]
+            if not all(e.timing.graph_captures for e in rebuilt
+                       if e.timing.decode_steps):
+                fail(f"{label}: a rebuilt engine decoded without a graph "
+                     "of its own")
+            rebuilt_decoded += sum(1 for e in rebuilt
+                                   if e.timing.decode_steps)
+            c = stats["cluster"]
+            if c["engine_restores"] != len(rebuilt):
+                fail(f"{label}: {c['engine_restores']} restores, "
+                     f"{len(rebuilt)} rebuilt engines")
+            got[seed, rep] = (stats, outs)
+            if rep == 0:
+                print(f"[disagg] {label}: done={stats['completed']} "
+                      f"shed={c['shed']} faults={stats['fault_counts']} "
+                      f"router {c} degraded={stats['degraded_mode']} "
+                      f"engines built {len(cl_engs)} (dead {len(dead)}, "
+                      f"rebuilt {len(rebuilt)}), captures "
+                      f"{[e.timing.graph_captures for e in cl_engs]}, "
+                      f"device MB at each death allocated / peak before "
+                      f"-> allocated after rebuild: "
+                      + ", ".join(f"{a / 2**20:.0f} / {p / 2**20:.0f} -> "
+                                  f"{b / 2**20:.0f}" for a, p, b in mem)
+                      + f"; peak after {peak_end / 2**20:.0f} MB, wall "
+                      f"{dt:.2f} s | {smi}", flush=True)
+            del engs, cl_engs, dead, live, rebuilt
+            gc.collect()
+    finally:
+        EngineCluster._kill = kill
+    (s0, o0), (s1, o1) = got[0, 0], got[0, 1]
+    if s0["events"] != s1["events"] or o0 != o1 \
+            or s0["cluster"] != s1["cluster"]:
+        fail("(b) disagg[0]: two runs of one seed differ")
+    if not rebuilt_decoded:
+        fail("(b) no rebuilt engine decoded: the rebuild path did not run")
+    print(f"[disagg] (b) disagg seeds 0, 1, 3 at full width terminal and "
+          f"leak-free; seed 0 replayed identically; {rebuilt_decoded} "
+          f"rebuilt engines decoded on graphs of their own | {smi}",
+          flush=True)
+    del soak
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dis_static(cfg, params, smi, launches, fns) -> None:
+    """(c) lazy (DPA) against static allocation through ``serve``'s
+    ``--static`` path at full width: 6 slots, context 2048 (static
+    reserves 129 pages a request), a 288-page pool (2 static requests
+    fit)."""
+    from repro_torch.launch import serve as SV
+    argv = ["--full-width", "--device", DEV, "--requests", "12", "--slots",
+            "6", "--page", "16", "--pages", "288", "--max-context", "2048",
+            "--mean-new", "32", "--decode-horizon", "4",
+            "--kernel-splits", "4"]
+    res = {}
+    for mode, extra in (("lazy", []), ("static", ["--static"])):
+        reset_counts(fns)
+        st = SV.serve(argv + extra)
+        la = launch_counts(fns)
+        want = expected_launches(cfg, st)
+        print(f"[disagg] (c) {mode} launches: " + " ".join(
+            f"{k}={la[k]} (expected {want[k]})" for k in la
+            if want[k] or la[k]), flush=True)
+        if la != want or not la["paged_attention"] \
+                or not la["flash_attention"]:
+            fail(f"(c) {mode}: kernel launches {la} do not match {want}")
+        for k, v in la.items():
+            launches[k] = launches.get(k, 0) + v
+        res[mode] = st
+        print(f"[disagg] (c) {mode}: completed={st['completed']}/12 "
+              f"peak pages {st['peak_pages']} avg_batch "
+              f"{st['avg_batch']:.3f} decode tok/s {st['decode_tok_s']:.1f} "
+              f"wall {st['wall_s']:.3f} s graph captures "
+              f"{st['graph_captures']} | {smi}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    lazy, static = res["lazy"], res["static"]
+    if lazy["completed"] != 12 or static["completed"] != 12:
+        fail("(c) a run did not complete")
+    if static["peak_pages"] > 2 * 129 or static["avg_batch"] >= \
+            lazy["avg_batch"]:
+        fail(f"(c) static allocation admitted as much as lazy: {static} "
+             f"vs {lazy}")
+    args = SV.parse_args(argv)
+    prompts = [r.prompt for r in SV.trace_requests(args, cfg.vocab_size)]
+    # serve builds its own weights from seed 0: ``params``' values
+    compare_tokens("disagg (c) static vs lazy", cfg, params, prompts,
+                   lazy["outputs"], static["outputs"], ("lazy", "static"))
+
+
+def phase_disagg(smi: str, launches: dict) -> None:
+    """Phase 11: disaggregated serving on the graph path, llama3.2-1b at
+    full width (random fp32 weights from seed 0, shared by every engine):
+    (a) a clean 1 prefill + 1 decode pool against one colocated engine,
+    (b) the chaos scenario with engine deaths rebuilt warm on the same
+    card, (c) lazy against static allocation through ``serve``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    fns = _kernel_fns()
+    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n_tok))
+               for n_tok in rng.integers(256, 1025, 8)]
+    steps = (("a", lambda: dis_clean(cfg, params, prompts, smi, launches,
+                                      fns)),
+             ("b", lambda: dis_chaos(cfg, params, smi, launches, fns)),
+             ("c", lambda: dis_static(cfg, params, smi, launches, fns)))
+    for label, fn in steps:
+        t = time.perf_counter()
+        fn()
+        print(f"[disagg] ({label}) in {time.perf_counter() - t:.1f} s",
+              flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[disagg] phase 11 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
     """``--kernel-times SRC``: K1, K2, K3 and K4 of the ``repro_torch``
     under ``SRC`` (this checkout's ``src`` or another's, e.g. an unpacked
@@ -2500,6 +2777,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--lifecycle"]:
         phase_lifecycle(smi, {})
         return 0
+    if sys.argv[1:2] == ["--disagg"]:
+        phase_disagg(smi, {})
+        return 0
     main_cases = phase_kernels()
     bench_launches = phase_bench(smi)
     launches = phase_engine(smi)
@@ -2507,6 +2787,7 @@ def main() -> int:
     phase_spec(smi, launches)
     phase_models(smi, launches)
     phase_lifecycle(smi, launches)
+    phase_disagg(smi, launches)
     launches["flash_decode"] = bench_launches["flash_decode"]
     meta = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",

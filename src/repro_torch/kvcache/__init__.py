@@ -8,12 +8,13 @@ serving engine:
 * ``offload`` — host-DRAM capacity tier: pinned host buffers filled on a
   side stream, drained ping-pong style;
 * ``policy``  — pluggable placement/eviction (LRU, watermarks);
-* ``cache``   — the ``PrefixCache`` facade the engine and scheduler use.
-
-``repro``'s ``handoff`` (cross-engine KV transfer blobs) waits for the
-cluster roles (ROADMAP A.8).
+* ``cache``   — the ``PrefixCache`` facade the engine and scheduler use;
+* ``handoff`` — the checksummed wire blob that moves a finished prefill's
+  KV pages and recurrent carry between the cluster's engines
+  (``serving/cluster.py``).
 """
 from repro_torch.kvcache.cache import CacheHit, CacheStats, PrefixCache
+from repro_torch.kvcache.handoff import Handoff, HandoffError
 from repro_torch.kvcache.offload import (DeviceOpQueue, HostCopier, HostTier,
                                          TierStats)
 from repro_torch.kvcache.policy import (EvictionPolicy, LRUPolicy,
@@ -25,4 +26,5 @@ __all__ = [
     "HostTier", "TierStats", "DeviceOpQueue", "HostCopier",
     "EvictionPolicy", "LRUPolicy", "WatermarkConfig", "make_cache_policy",
     "RadixTree", "RadixNode", "MatchResult",
+    "Handoff", "HandoffError",
 ]

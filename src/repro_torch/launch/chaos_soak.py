@@ -7,11 +7,13 @@ The single-engine scenarios of ``benchmarks/chaos_soak.py`` on
 fp32, random weights from seed 0, the draft's from seed 7, 4 slots, 4-token
 pages): mixed fault storms, prefix-cache / host-tier swap failures, client
 aborts and deadlines, serving-row deaths, speculative decoding under
-allocation pressure, and a kill + restore over the crash-consistent
-snapshots; beyond the reference, ``swap_drop`` drives swap-ins that fail
-until the host tier is dropped. ``ChaosSoak`` also takes another model,
-weights and geometry (``chip_smoke.py`` runs full-width llama3.2-1b at
-16-token pages): prompt lengths, new tokens and the context scale with the
+allocation pressure, a kill + restore over the crash-consistent
+snapshots, and ``disagg``, a 1-prefill + 1-decode cluster
+(``serving/cluster.py``) under engine death, torn and corrupt handoffs and
+router backpressure; beyond the reference, ``swap_drop`` drives swap-ins
+that fail until the host tier is dropped. ``ChaosSoak`` also takes another
+model, weights and geometry (``chip_smoke.py`` runs full-width llama3.2-1b
+at 16-token pages): prompt lengths, new tokens and the context scale with the
 page size, so each scenario keeps its page counts. Each enforces the
 reference's invariants:
 
@@ -21,7 +23,8 @@ reference's invariants:
   carry snapshot, draft coverage, deadline or pending abort left;
 * row deaths, spec degradation, refused swap-ins and kill + restore leave
   the greedy outputs of the clean run unchanged (exactly, or by the
-  caller's ``same`` rule);
+  caller's ``same`` rule), and so does the cluster for every request it
+  completes;
 * a wall-clock watchdog per scenario.
 
 Every injection is replayable from the scenario's seed
@@ -46,7 +49,8 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import model as MDL
 from repro_torch.runtime.faults import FaultConfig
-from repro_torch.serving import DecodeEngine, EngineConfig
+from repro_torch.serving import (ClusterConfig, DecodeEngine, EngineCluster,
+                                 EngineConfig)
 from repro_torch.serving import Request as Req
 
 WATCHDOG_S = 240.0          # per-scenario wall budget
@@ -315,13 +319,85 @@ class ChaosSoak:
         finally:
             shutil.rmtree(d, ignore_errors=True)
 
+    def disagg(self, seed: int):
+        """A 1-prefill + 1-decode cluster under the router's fault kinds
+        at once: engine death (recovered warm from snapshots taken every 3
+        ticks, on the same device), corrupt and torn handoffs, and a
+        backpressure storm (14 submissions into a backlog bound of 8).
+        Every request terminal (served or shed at the router), every
+        surviving engine leak-free, and every completed request's greedy
+        output the clean colocated run's."""
+        rng = np.random.default_rng(seed)
+        prompts = [self.tokens(rng, int(rng.integers(4, 20)))
+                   for _ in range(14)]
+        clean = self.engine()
+        for r, p in enumerate(prompts):
+            clean.submit(Req(r, p, 8 * self.scale))
+        ref = self.outputs_of(clean)
+        d = tempfile.mkdtemp(prefix="chaos_disagg_")
+        cl = EngineCluster(
+            self.cfg, EngineConfig(**{"prefill_mode": "batched",
+                                      **self.geo}),
+            ClusterConfig(max_backlog=8, snapshot_dir=d, snapshot_every=3,
+                          faults=FaultConfig(
+                              seed=seed, engine_death_p=0.03,
+                              handoff_corrupt_p=0.25, handoff_torn_p=0.1,
+                              start_tick=2, max_faults=6)),
+            self.params, device=self.device)
+        try:
+            for r, p in enumerate(prompts):
+                cl.submit(Req(r, p, 8 * self.scale))
+            outs = {k: list(v) for k, v in cl.run(5000).items()}
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        self.engines.extend(cl.engines)
+        name = f"disagg[{seed}]"
+        term = {s: sum(1 for rec in cl.reqs.values() if rec["state"] == s)
+                for s in ("done", "aborted")}
+        assert term["done"] + term["aborted"] == 14, \
+            f"{name}: {term} != 14 submitted"
+        assert cl.done(), f"{name}: cluster not drained"
+        assert cl.counters["shed"] >= 1, f"{name}: backpressure never fired"
+        assert cl.counters["handoffs"] >= 1, f"{name}: no handoffs exercised"
+        for h in cl.handles:
+            if not h.alive:
+                continue
+            eng = h.eng
+            retained = (eng.cache.tree.device_pages()
+                        if eng.cache is not None else 0)
+            assert eng.alloc.pages_in_use == retained, \
+                f"{name}: engine {h.ix} leaked pages"
+            assert not eng.rsnaps and not eng.deadline_t \
+                and not eng._abort_req, f"{name}: engine {h.ix} dangling state"
+        done = [r for r, rec in cl.reqs.items() if rec["state"] == "done"]
+        self.same(f"{name} (completed requests)",
+                  dict(enumerate(prompts)), {r: ref[r] for r in done},
+                  {r: outs[r] for r in done})
+        if cl.faults.counts.get("handoff_corrupt", 0) \
+                or cl.faults.counts.get("handoff_torn", 0):
+            assert cl.counters["handoff_retries"] >= 1, \
+                f"{name}: damaged transfer neither retried nor re-driven"
+        return {"scenario": name, "submitted": 14,
+                "completed": term["done"], "aborted": term["aborted"],
+                "abort_counts": dict(cl.aborted),
+                "faults_fired": cl.faults.total_fired,
+                "fault_counts": dict(cl.faults.counts),
+                "degraded_mode": cl.degraded_mode,
+                "migrated": 0, "preempted": 0,
+                "cluster": cl.stats_dict(),
+                "events": list(cl.faults.events),
+                "graph_captures": sum(e.timing.graph_captures
+                                      for e in cl.engines),
+                "graph_keys": sorted({tuple(k) for e in cl.engines
+                                      for k in e.horizons.captured})}, outs
+
     def outputs_of(self, eng) -> dict:
         eng.run(5000)
         return self.outputs(eng)
 
     SCENARIOS = ("mixed_storm", "swap_faults", "swap_drop",
                  "abort_deadline", "row_death_identity", "spec_chaos",
-                 "kill_restore")
+                 "kill_restore", "disagg")
 
     def run(self, emit, *, seeds=(0, 1)) -> list[dict]:
         all_stats = []

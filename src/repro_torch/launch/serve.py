@@ -26,6 +26,26 @@ tokens a slot each tick and one multi-query target pass verifies them; the
 run then ends with a ``spec:`` line (rounds, accepted / proposed, mean
 accept length).
 
+The first line reports the allocation mode, the achieved average batch
+(the paper's Fig. 4(b) metric) and the peak of device pages in use.
+``--static`` switches to baseline-PIM static allocation (every admission
+reserves ``max_context / page + 1`` pages) for the paper's §5.4 lazy (DPA)
+against static comparison (``examples/serve_longbench_torch.py``);
+``--sched-policy`` (alias ``--policy``) picks the admission policy and
+``--no-decode-bucket`` turns off the pow2 bucketing of the decode table
+width.
+
+``--disagg`` serves through a disaggregated prefill/decode pool
+(``--engines P+D``, ``serving/cluster.py``) on one device: prefill-role
+engines hand each finished prefill's KV pages (and a hybrid's carry) to a
+decode-role engine as a checksummed handoff blob, with the router's
+retries, timeouts, engine-death recovery (``--snapshot-dir`` /
+``--snapshot-every`` make it warm) and backpressure (``--max-queue``
+bounds the decode backlog). ``--fault-engine-death`` /
+``--fault-handoff-corrupt`` / ``--fault-handoff-torn`` drive the router's
+seeded injector. It ends with a ``cluster:`` line of the router's
+counters; greedy tokens equal the single engine's.
+
 Telemetry (``repro_torch.telemetry``): ``--metrics-port N`` serves
 Prometheus text on ``http://127.0.0.1:N/metrics`` (0 = an ephemeral port,
 printed at startup), ``--trace-out trace.perfetto.json`` writes the tick
@@ -54,20 +74,27 @@ import numpy as np
 from repro_torch.configs import get_config, list_configs, reduced
 from repro_torch.data.pipeline import LONGBENCH_STATS, request_trace
 from repro_torch.runtime.faults import FaultConfig
-from repro_torch.serving import DecodeEngine, EngineConfig, Request
+from repro_torch.serving import (ClusterConfig, DecodeEngine, EngineCluster,
+                                 EngineConfig, Request)
+from repro_torch.serving.policies import available_policies
 from repro_torch.telemetry import TelemetryConfig, make_telemetry
 from repro_torch.telemetry.prom import MetricsServer
+
+
+def make_serve_tel_cfg(args):
+    """The TelemetryConfig from the CLI flags, or None when every
+    telemetry flag is off."""
+    want_metrics = args.metrics_port >= 0 or args.stats_every > 0
+    if not (want_metrics or args.trace_out or args.request_log):
+        return None
+    return TelemetryConfig(metrics=True, trace_path=args.trace_out or None,
+                           request_log=args.request_log or None)
 
 
 def make_serve_telemetry(args):
     """The Telemetry facade from the CLI flags; the shared no-op when
     every telemetry flag is off."""
-    want_metrics = args.metrics_port >= 0 or args.stats_every > 0
-    if not (want_metrics or args.trace_out or args.request_log):
-        return make_telemetry(None)
-    return make_telemetry(TelemetryConfig(
-        metrics=True, trace_path=args.trace_out or None,
-        request_log=args.request_log or None))
+    return make_telemetry(make_serve_tel_cfg(args))
 
 
 def make_serve_faults(args):
@@ -82,7 +109,19 @@ def make_serve_faults(args):
     return FaultConfig(seed=args.fault_seed, **ps)
 
 
-def build_engine(args, telemetry=None) -> DecodeEngine:
+def make_cluster_faults(args):
+    """The router's FaultConfig (engine death, handoff damage) from the
+    --fault-engine-death / --fault-handoff-* flags; None when all are 0."""
+    ps = dict(engine_death_p=args.fault_engine_death,
+              handoff_corrupt_p=args.fault_handoff_corrupt,
+              handoff_torn_p=args.fault_handoff_torn)
+    if not any(ps.values()):
+        return None
+    return FaultConfig(seed=args.fault_seed, **ps)
+
+
+def model_configs(args):
+    """The served configuration and the draft's (or None), fp32."""
     cfg = get_config(args.arch)
     if not args.full_width:
         cfg = reduced(cfg)
@@ -93,10 +132,17 @@ def build_engine(args, telemetry=None) -> DecodeEngine:
         d = replace(d, n_layers=1) if args.full_width else reduced(d,
                                                                    layers=1)
         draft_cfg = replace(d, dtype="float32")
-    ecfg = EngineConfig(n_slots=args.slots, page_size=args.page,
+    return cfg, draft_cfg
+
+
+def engine_config(args, draft_cfg, telemetry=None) -> EngineConfig:
+    return EngineConfig(n_slots=args.slots, page_size=args.page,
                         n_pages=args.pages, max_context=args.max_context,
+                        static_alloc=args.static,
                         eos_token=-1, prefill_mode=args.prefill_mode,
                         prefill_chunk=args.chunk,
+                        sched_policy=args.sched_policy,
+                        decode_bucket=not args.no_decode_bucket,
                         decode_horizon=args.decode_horizon,
                         use_kernels={"on": None, "off": False}[args.kernel],
                         kernel_splits=args.kernel_splits,
@@ -114,10 +160,23 @@ def build_engine(args, telemetry=None) -> DecodeEngine:
                         nan_guard=True if args.nan_guard else None,
                         snapshot_dir=args.snapshot_dir or None,
                         snapshot_every=args.snapshot_every)
-    return DecodeEngine(cfg, ecfg, device=args.device)
 
 
-def submit_trace(eng: DecodeEngine, args) -> None:
+def build_engine(args, telemetry=None) -> DecodeEngine:
+    cfg, draft_cfg = model_configs(args)
+    return DecodeEngine(cfg, engine_config(args, draft_cfg, telemetry),
+                        device=args.device)
+
+
+def submit_trace(eng, args) -> None:
+    """Submit the LongBench-like trace to an engine or a cluster."""
+    for req in trace_requests(args, eng.cfg.vocab_size):
+        eng.submit(req)
+
+
+def trace_requests(args, vocab_size: int) -> list[Request]:
+    """The run's requests: LongBench-like prompt lengths, random ids from
+    seed 0."""
     rng = np.random.default_rng(0)
     # scale the LongBench length distribution into max_context so its
     # variability survives (paper Table 2 / §5.4)
@@ -126,18 +185,20 @@ def submit_trace(eng: DecodeEngine, args) -> None:
                           mean_new_tokens=args.mean_new)
     # common system prompt: every request opens with the same token run —
     # the multi-tenant traffic shape radix prefix sharing pays off on
-    system = rng.integers(0, eng.cfg.vocab_size,
+    system = rng.integers(0, vocab_size,
                           size=args.max_context) if args.shared_frac else None
+    reqs = []
     for i, (plen, new) in enumerate(trace):
         plen = max(1, min(int(plen * factor), args.max_context - new - 1))
-        prompt = rng.integers(0, eng.cfg.vocab_size, size=plen)
+        prompt = rng.integers(0, vocab_size, size=plen)
         if system is not None:
             k = min(int(plen * args.shared_frac), plen - 1)
             prompt[:k] = system[:k]
-        eng.submit(Request(i, prompt, new))
+        reqs.append(Request(i, prompt, new))
+    return reqs
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b", choices=list_configs())
     ap.add_argument("--requests", type=int, default=12)
@@ -150,6 +211,16 @@ def main(argv=None):
     ap.add_argument("--prefill-mode", default="batched",
                     choices=["slot", "batched", "chunked"])
     ap.add_argument("--chunk", type=int, default=32)
+    ap.add_argument("--static", action="store_true",
+                    help="baseline-PIM static allocation: every admission "
+                         "reserves max_context / page + 1 pages (default: "
+                         "lazy, DPA)")
+    # choices come from the policy registry (serving.policies)
+    ap.add_argument("--sched-policy", "--policy", dest="sched_policy",
+                    default="fcfs", choices=available_policies())
+    ap.add_argument("--no-decode-bucket", action="store_true",
+                    help="no pow2 live-page bucketing of the decode block "
+                         "table width")
     ap.add_argument("--shared-frac", type=float, default=0.0,
                     help="fraction of each prompt drawn from a common "
                          "system prompt")
@@ -197,6 +268,14 @@ def main(argv=None):
     ap.add_argument("--stats-every", type=float, default=0.0,
                     help="print a telemetry stats line every S seconds "
                          "while serving (0 = off)")
+    # ---- disaggregation (serving/cluster.py) ----
+    ap.add_argument("--disagg", action="store_true",
+                    help="serve through a disaggregated prefill/decode "
+                         "engine pool (EngineCluster) with checksummed KV "
+                         "handoff instead of one colocated engine")
+    ap.add_argument("--engines", default="1+1",
+                    help="pool shape for --disagg: P+D prefill/decode "
+                         "engine counts (e.g. 2+2)")
     # ---- lifecycle and faults ----
     ap.add_argument("--max-queue", type=int, default=0,
                     help="bounded admission queue: shed beyond this many "
@@ -226,10 +305,105 @@ def main(argv=None):
                        ("--fault-row-death", "serving-row death"),
                        ("--fault-nan", "NaN-logits quarantine"),
                        ("--fault-slow-tick", "straggler tick"),
-                       ("--fault-abort", "client abort")):
+                       ("--fault-abort", "client abort"),
+                       ("--fault-engine-death", "pool engine death "
+                        "(--disagg)"),
+                       ("--fault-handoff-corrupt", "handoff byte flip "
+                        "(--disagg)"),
+                       ("--fault-handoff-torn", "handoff truncation "
+                        "(--disagg)")):
         ap.add_argument(flag, type=float, default=0.0,
                         help=f"per-decision injection probability: {kind}")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def run_until_done(eng) -> int:
+    """Tick ``eng`` (an engine or a cluster) until it drains; returns the
+    peak of device pages in use over its engines, read after every
+    tick."""
+    cluster = isinstance(eng, EngineCluster)
+    peak = 0
+    for _ in range(100_000):
+        if (eng.done() if cluster
+                else eng._inflight is None and eng.batcher.done()):
+            break
+        eng.tick()
+        engines = [h.eng for h in eng.handles] if cluster else [eng]
+        peak = max(peak, sum(e.alloc.pages_in_use for e in engines))
+    if eng.device.type == "cuda":
+        import torch
+        torch.cuda.synchronize(eng.device)
+    return peak
+
+
+def serve_cluster(args) -> dict:
+    """--disagg: route the trace through an EngineCluster pool
+    (``--engines P+D``) on ``--device`` instead of one engine. Greedy
+    tokens equal the single engine's; the summary adds the router's
+    handoff and recovery counters. Returns the run's stats."""
+    try:
+        n_p, n_d = (int(x) for x in args.engines.split("+"))
+    except ValueError:
+        raise SystemExit(f"--engines wants P+D (e.g. 1+1), "
+                         f"got {args.engines!r}")
+    tel_cfg = make_serve_tel_cfg(args)
+    cfg, draft_cfg = model_configs(args)
+    ccfg = ClusterConfig(n_prefill=n_p, n_decode=n_d,
+                         max_backlog=args.max_queue,
+                         snapshot_dir=args.snapshot_dir or None,
+                         snapshot_every=args.snapshot_every,
+                         faults=make_cluster_faults(args),
+                         telemetry=tel_cfg)
+    # the router sheds past --max-queue; the engines keep no bound of
+    # their own
+    ecfg = replace(engine_config(args, draft_cfg, tel_cfg), max_queue=0)
+    cl = EngineCluster(cfg, ecfg, ccfg, device=args.device)
+    if cl.tel.enabled and args.metrics_port >= 0:
+        srv = MetricsServer(cl.tel.registry, args.metrics_port)
+        print(f"[serve] metrics: {srv.url}", flush=True)
+    submit_trace(cl, args)
+    t0 = time.perf_counter()
+    peak = run_until_done(cl)
+    dt = time.perf_counter() - t0
+    toks = sum(len(v) for v in cl.outputs.values())
+    done = sum(1 for r in cl.reqs.values() if r["state"] == "done")
+    c, T = cl.counters, cl.transfer
+    print(f"[serve] mode=disagg engines={n_p}p+{n_d}d device={cl.device} "
+          f"arch={cfg.name} prefill={args.prefill_mode} "
+          f"alloc={'static' if args.static else 'lazy(DPA)'} "
+          f"completed={done}/{args.requests} aborted={len(cl.aborted)} "
+          f"tokens={toks} tok/s={toks / max(dt, 1e-9):.1f} "
+          f"peak_pages={peak}", flush=True)
+    print(f"[serve] cluster: handoffs={c['handoffs']} ok={c['handoff_ok']} "
+          f"retries={c['handoff_retries']} timeouts={c['handoff_timeouts']} "
+          f"redispatches={c['handoff_redispatches']} "
+          f"redrives={c['handoff_redrives']} deaths={c['engine_deaths']} "
+          f"restores={c['engine_restores']} "
+          f"redispatched_requests={c['redispatched_requests']} "
+          f"shed={c['shed']} degraded_mode={cl.degraded_mode} "
+          f"handoff MB={T.applied_bytes / 1e6:.2f}", flush=True)
+    for h in cl.handles:
+        if h.alive:
+            bal = h.eng.alloc.shard_balance()
+            print(f"[serve] engine {h.ix} ({h.role}): page balance per "
+                  f"shard: max={bal.max()} min={bal.min()}", flush=True)
+    if cl.tel.enabled:
+        print(f"[serve] {cl.tel.stats_line()}", flush=True)
+        cl.tel.close()
+    return {"completed": done, "aborted": dict(cl.aborted), "tokens": toks,
+            "wall_s": dt, "peak_pages": peak, "cluster": cl.stats_dict(),
+            "outputs": {k: list(v) for k, v in cl.outputs.items()}}
+
+
+def serve(argv=None) -> dict:
+    """Run the CLI and return the run's stats: ``completed``,
+    ``avg_batch``, ``peak_pages``, ``tokens``, ``wall_s``, ``decode_tok_s``,
+    ``decode_steps``, ``prefill_calls``, ``graph_captures`` and the greedy
+    ``outputs`` (a ``--disagg`` run: the router's ``cluster`` counters in
+    place of the batch and decode figures)."""
+    args = parse_args(argv)
+    if args.disagg:
+        return serve_cluster(args)
 
     tel = make_serve_telemetry(args)
     eng = build_engine(args, telemetry=tel)
@@ -256,20 +430,19 @@ def main(argv=None):
     else:
         submit_trace(eng, args)
     t0 = time.perf_counter()
-    eng.run(100_000)
-    if eng.device.type == "cuda":
-        import torch
-        torch.cuda.synchronize()
+    peak = run_until_done(eng)
     dt = time.perf_counter() - t0
     if stop_stats is not None:
         stop_stats.set()
     st = eng.batcher.stats
     toks = sum(len(v) for v in eng.outputs.values())
     tm = eng.timing.as_dict()
-    print(f"[serve] device={eng.device} arch={eng.cfg.name} "
+    print(f"[serve] mode={'static' if args.static else 'lazy(DPA)'} "
+          f"device={eng.device} arch={eng.cfg.name} "
           f"prefill={eng.prefiller.name} policy={eng.batcher.policy.name} "
           f"completed={st.completed}/{args.requests} "
-          f"avg_batch={st.avg_batch:.2f} preempted={st.preempted} "
+          f"avg_batch={st.avg_batch:.2f} peak_pages={peak} "
+          f"preempted={st.preempted} "
           f"tokens={toks} tok/s={toks / max(dt, 1e-9):.1f} "
           f"host_us/step={tm['host_us_per_step']:.0f} "
           f"horizon={args.decode_horizon} "
@@ -324,7 +497,18 @@ def main(argv=None):
             print(f"[serve] trace: {args.trace_out} ({n} events)",
                   flush=True)
         tel.close()
-    return st.completed
+    return {"completed": st.completed, "avg_batch": st.avg_batch,
+            "peak_pages": peak, "tokens": toks, "wall_s": dt,
+            "decode_tok_s": tm["decode_tokens"] / max(tm["decode_s"], 1e-9),
+            "decode_steps": tm["decode_steps"],
+            "prefill_calls": tm["prefill_calls"],
+            "graph_captures": tm["graph_captures"],
+            "outputs": {k: list(v) for k, v in eng.outputs.items()}}
+
+
+def main(argv=None) -> int:
+    """The CLI; returns the number of completed requests."""
+    return serve(argv)["completed"]
 
 
 if __name__ == "__main__":

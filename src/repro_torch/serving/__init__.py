@@ -3,8 +3,11 @@
 ``engine`` orchestrates the tick; ``prefill`` holds the slot / batched /
 chunked strategies; ``policies`` the pluggable admission policies;
 ``sampling`` the greedy, temperature and top-k samplers and the
-speculative verifier.
+speculative verifier; ``cluster`` the disaggregated prefill/decode router
+over a pool of engines.
 """
+from repro_torch.serving.cluster import (ClusterConfig, EngineCluster,
+                                         EngineHandle)
 from repro_torch.serving.engine import DecodeEngine, EngineConfig, EngineTiming
 from repro_torch.serving.policies import available_policies, make_policy
 from repro_torch.serving.prefill import (BatchedPrefiller, ChunkedPrefiller,
@@ -15,6 +18,7 @@ from repro_torch.serving.sampling import (Sampler, greedy_sample,
 
 __all__ = [
     "DecodeEngine", "EngineConfig", "EngineTiming", "Request",
+    "EngineCluster", "ClusterConfig", "EngineHandle",
     "make_policy", "available_policies",
     "SlotPrefiller", "BatchedPrefiller", "ChunkedPrefiller", "make_prefiller",
     "Sampler", "greedy_sample", "make_sampler", "make_scan_sampler",

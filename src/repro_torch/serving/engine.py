@@ -85,14 +85,19 @@ registry's pull bindings, the request tracker as the scheduler's events
 hook, the tick's phases as Perfetto slices and each horizon's inferred
 device span; the ``NULL`` facade when off. None of it reads the device.
 
-Not ported yet (ROADMAP queue A): cluster roles. ``role`` keeps its
-default; setting another value raises.
+Cross-engine movement (``serving/cluster.py``): ``extract_request`` pulls
+a live request out at the quiescent frame (its snapshot entry, written KV
+pages and carry) and ``adopt_request`` takes one in, writing the pages and
+carry into the running engine's pool and rows in place at admission, as a
+preemption snapshot restores; ``release`` drops a dead engine's device
+state. ``EngineConfig.role`` only records the engine's role in a cluster:
+the cluster's router enforces it.
 """
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -117,11 +122,6 @@ from repro_torch.serving.request import Request as RequestSpec
 from repro_torch.serving.sampling import (make_generator, make_sampler,
                                           make_scan_sampler, make_verifier)
 from repro_torch.telemetry import make_telemetry
-
-# EngineConfig fields of features the port does not serve yet, with the
-# only value it accepts (see the module docstring)
-_UNPORTED = {"role": "both"}
-
 
 @dataclass
 class EngineConfig:
@@ -221,16 +221,13 @@ class EngineConfig:
     # real-logits quarantine (step(): non-finite rows; the horizon:
     # out-of-range ids). None = armed together with fault injection
     nan_guard: bool | None = None
-    # ---- disaggregated serving: not ported yet, must keep its default
+    # ---- disaggregated serving (serving/cluster.py) ----
+    # the engine's role in a cluster: "prefill" engines run requests to
+    # their first token and hand them off, "decode" engines adopt and
+    # finish them, "both" is the colocated behaviour. The engine only
+    # records it: the cluster's router enforces it (a standalone engine
+    # ignores it)
     role: str = "both"
-
-    def __post_init__(self):
-        for f in fields(self):
-            if f.name in _UNPORTED and \
-                    getattr(self, f.name) != _UNPORTED[f.name]:
-                raise NotImplementedError(
-                    f"EngineConfig.{f.name}={getattr(self, f.name)!r}: "
-                    "not ported to repro_torch yet (ROADMAP queue A)")
 
 
 @dataclass
@@ -1189,15 +1186,63 @@ class DecodeEngine:
                     else (self._pending_fin | fin)
         self._drain_snapshots()
 
+    def extract_request(self, req_id: int):
+        """Pull a live request out of this engine for a cross-engine
+        handoff: quiesce, take its snapshot-entry frame (the written KV
+        pages and recurrent carry, copied to host numpy, when warm), then
+        tear it down here (reason ``handoff``: its private pages free;
+        prefixes it already published to the radix cache stay under the
+        tree's own references). Returns ``(entry, arrays)``, or None when
+        the request is not live or finished during the quiesce (its output
+        is complete: nothing to move)."""
+        self.quiesce()
+        s, req = self._find_request(req_id)
+        if req is None:
+            return None
+        if s is not None and self._pending_fin is not None \
+                and self._pending_fin[s]:
+            return None
+        ent, arrs = self._snapshot_entry(req, s)
+        self._teardown(req_id, "handoff")
+        return ent, arrs
+
+    def release(self) -> None:
+        """Drop this engine's device state (a dead cluster member): its
+        captured graphs and their memory pool, the horizon's static
+        buffers, the slot state, the pools and recurrent rows, the draft's
+        pool, and the snapshot copies (drained first). The graphs are freed
+        here, at a tick boundary and outside any capture, not by a later
+        collection that could land inside another engine's capture (the
+        collector is held off only during ``graphs.capture``). The engine
+        cannot tick after; its host bookkeeping (outputs, aborts) stays
+        readable."""
+        if self.device.type == "cuda":
+            # an uncollected horizon may still be writing the pool
+            torch.cuda.synchronize(self.device)
+        self._snap_copy.drain()
+        self._inflight = None
+        self.rsnaps.clear()
+        self.horizons.captured.clear()
+        self.horizons.outs.clear()
+        self.horizons.spec_bufs.clear()
+        self.horizons.pool = None
+        self.state = {}
+        self._dstate = None
+        self.dev = None
+
     def adopt_request(self, req_id: int, ent: dict, prompt, out, *,
                       kv=None, rows=None):
         """Register a request arriving from outside ``submit()`` (a
-        snapshot restore): ``ent`` is its ``_snapshot_entry`` frame, ``out``
-        the tokens already streamed. A warm entry seeds the preemption
-        snapshot machinery (``kv``: host ``{"k", "v"}`` pages, ``rows``:
-        the host carry) so the prefiller restores instead of recomputing;
-        slot-mode prefill and cold entries re-prefill — token-identical
-        either way. Returns the queued Request."""
+        snapshot restore or a cross-engine handoff): ``ent`` is its
+        ``_snapshot_entry`` frame, ``out`` the tokens already streamed. A
+        warm entry seeds the preemption snapshot machinery (``kv``: host
+        ``{"k", "v"}`` pages in the pool's dtype, ``rows``: the host carry)
+        so the prefiller writes them into the pool and rows in place at
+        admission instead of recomputing (a running engine's captured
+        graphs keep their addresses); slot-mode prefill and cold entries
+        re-prefill — token-identical either way. SLO targets do not survive
+        the move: the request's stamps restart on this engine's clock.
+        Returns the queued Request."""
         self.prompts[req_id] = np.asarray(prompt, np.int32)
         self.outputs[req_id] = [int(t) for t in out]
         now = self.submit_t[req_id] = self.clock()

@@ -63,7 +63,8 @@ def _serve_jax(models, mode, horizon):
 def _serve_torch(models, mode, horizon, **kw):
     _, _, cfg, params = models
     eng = DecodeEngine(cfg, EngineConfig(prefill_mode=mode,
-                                         decode_horizon=horizon, **KW, **kw),
+                                         decode_horizon=horizon,
+                                         **{**KW, **kw}),
                        params, device="cpu")
     for r, prompt, n in _requests():
         eng.submit(Request(r, prompt, n))
@@ -113,18 +114,46 @@ def test_engine_plain_path_identity(models, jax_ref):
 
 
 def test_engine_rejects_unported_features():
-    """The field of the feature still to port (cluster roles) raises; the
-    KV-cache hierarchy, the recurrent snapshots, stochastic sampling,
-    speculative decoding, telemetry, fault injection, the request
-    lifecycle and serving snapshots are ported and do not."""
-    with pytest.raises(NotImplementedError, match="role"):
-        EngineConfig(role="prefill", **KW)
+    """Every EngineConfig feature is ported: cluster roles, the KV-cache
+    hierarchy, the recurrent snapshots, stochastic sampling, speculative
+    decoding, telemetry, fault injection, the request lifecycle and
+    serving snapshots all construct (the engine records its role; the
+    cluster's router enforces it)."""
+    for role in ("prefill", "decode", "both"):
+        assert EngineConfig(role=role, **KW).role == role
     EngineConfig(prefix_cache=True, host_pages=8, state_resume=True, **KW)
     EngineConfig(sampler="top_k", top_k=8, temperature=0.8, sample_seed=3,
                  draft_config="llama3.2-1b", spec_horizon=3, **KW)
     EngineConfig(telemetry=object(), faults=object(), snapshot_every=1,
                  snapshot_dir="snaps", max_queue=4, default_deadline_s=1.0,
                  degrade_after=2, nan_guard=True, snapshot_keep=2, **KW)
+
+
+@pytest.mark.parametrize("kw", [dict(static_alloc=True),
+                                # tables past 16 pages, where the pow2
+                                # bucketing would apply
+                                dict(decode_bucket=False, max_context=96),
+                                dict(sched_policy="sjf"),
+                                dict(sched_policy="memory_aware")],
+                         ids=["static_alloc", "no_decode_bucket", "sjf",
+                              "memory_aware"])
+def test_engine_options_match_repro(models, kw):
+    """Static allocation, unbucketed decode tables and the sjf and
+    memory-aware admission policies: tokens, decode tokens and device syncs
+    equal repro's engine with the same option."""
+    jcfg, jparams, _, _ = models
+    jeng = JaxEngine(jcfg, JaxEngineConfig(decode_horizon=REF_HORIZON,
+                                           use_pallas=False,
+                                           **{**KW, **kw}), jparams)
+    for r, prompt, n in _requests():
+        jeng.submit(JaxRequest(r, prompt, n))
+    want = {k: list(v) for k, v in jeng.run(500).items()}
+    got, eng = _serve_torch(models, "batched", REF_HORIZON, **kw)
+    assert got == want
+    assert eng.timing.decode_tokens == jeng.timing.decode_tokens
+    assert eng.timing.device_syncs == jeng.timing.device_syncs
+    assert eng.batcher.stats.completed == jeng.batcher.stats.completed
+    assert eng.batcher.stats.avg_batch == jeng.batcher.stats.avg_batch
 
 
 def test_cuda_request_without_card_raises(models):
@@ -192,9 +221,15 @@ def test_port_imports_without_jax():
     assert res.stdout.startswith("ok")
 
 
-def test_port_source_never_imports_jax_or_repro():
+@pytest.mark.parametrize("what", ["src/repro_torch", "chip_smoke.py",
+                                  "examples/serve_longbench_torch.py"])
+def test_port_source_never_imports_jax_or_repro(what):
+    """The port's package, its card script and its example: no import of
+    jax or repro anywhere in their source."""
+    paths = ([p for p, _ in _port_modules()] if what == "src/repro_torch"
+             else [SRC.parent / what])
     bad = []
-    for path, _ in _port_modules():
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 mods = [a.name for a in node.names]

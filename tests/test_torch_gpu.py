@@ -1101,3 +1101,134 @@ def test_step_matches_run_on_the_card(arch):
     assert PA.paged_attention_partials.launches > before
     assert stepped.outputs == ran.run(1000)
     assert stepped.alloc.pages_in_use == 0
+
+
+# tests/test_cluster.py's geometry: 3 slots, 4-token pages
+CLUSTER_KW = dict(n_slots=3, page_size=4, n_pages=96, max_context=64,
+                  eos_token=-1, prefill_mode="batched", decode_horizon=4)
+
+
+def _cluster_case(arch, n=6, **kw):
+    from dataclasses import replace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DecodeEngine, EngineConfig, Request
+    cfg = replace(reduced(get_config(arch)), dtype="float32")
+    params = init_params(cfg, 0, torch.float32, "cuda")
+    rng = np.random.default_rng(0)
+    reqs = [Request(r, rng.integers(0, 256, int(rng.integers(3, 20))), 8)
+            for r in range(n)]
+    ref = DecodeEngine(cfg, EngineConfig(**{**CLUSTER_KW, **kw}), params,
+                       device="cuda")
+    for q in reqs:
+        ref.submit(q)
+    return cfg, params, reqs, {k: list(v) for k, v in ref.run(2000).items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-1.2b"])
+def test_disagg_matches_colocated_on_the_card(arch):
+    """One prefill and one decode engine on one card, both on the graph
+    path and the kernels: every request handed off once, tokens equal the
+    colocated graph engine's, K1 and K2 launched."""
+    _card()
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serving import ClusterConfig, EngineCluster, EngineConfig
+    cfg, params, reqs, want = _cluster_case(arch)
+    before = (PA.paged_attention_partials.launches,
+              FA.flash_attention_fwd.launches)
+    cl = EngineCluster(cfg, EngineConfig(**CLUSTER_KW), ClusterConfig(),
+                       params, device="cuda")
+    for q in reqs:
+        cl.submit(q)
+    assert {k: list(v) for k, v in cl.run(2000).items()} == want
+    assert cl.counters["handoffs"] == cl.counters["handoff_ok"] == len(reqs)
+    assert PA.paged_attention_partials.launches > before[0]
+    assert FA.flash_attention_fwd.launches > before[1]
+    for h in cl.handles:
+        assert h.eng.horizons.graphs and h.eng.alloc.pages_in_use == 0
+        assert h.eng.timing.graph_captures == len(h.eng.horizons.captured)
+    if arch == "zamba2-1.2b":
+        assert cl.handles[1].eng.rstate_restores >= 1
+
+
+@pytest.mark.gpu
+def test_engine_death_warm_rebuild_on_the_card(tmp_path):
+    """An engine dies mid-run and is rebuilt from its snapshot on the same
+    card: the dead engine's graphs and pool are released, the rebuilt
+    engine captures its own graphs, the survivor keeps replaying its
+    captures, and the tokens equal the colocated run's."""
+    _card()
+    from repro_torch.runtime.faults import FaultConfig
+    from repro_torch.serving import ClusterConfig, EngineCluster, EngineConfig
+    # horizon 1: enough ticks for tests/test_cluster.py's death plan
+    cfg, params, reqs, want = _cluster_case("llama3.2-1b", decode_horizon=1)
+    cl = EngineCluster(cfg, EngineConfig(**{**CLUSTER_KW,
+                                            "decode_horizon": 1}),
+                       ClusterConfig(
+        snapshot_dir=str(tmp_path), snapshot_every=2,
+        faults=FaultConfig(seed=2, engine_death_p=0.04, start_tick=6,
+                           max_faults=1)), params, device="cuda")
+    for q in reqs:
+        cl.submit(q)
+    survivor_keys = {}
+    while not cl.done():
+        if not cl.counters["engine_deaths"]:
+            survivor_keys = {h.ix: set(h.eng.horizons.captured)
+                             for h in cl.handles}
+        cl.tick()
+    assert {k: list(v) for k, v in cl.outputs.items()} == want
+    assert cl.counters["engine_deaths"] == cl.counters["engine_restores"] == 1
+    dead = [e for e in cl.engines if not e.state]
+    rebuilt = [e for e in cl.engines[2:] if e.snapshot_restores]
+    assert len(dead) == 1 and not dead[0].horizons.captured
+    assert len(rebuilt) == 1 and rebuilt[0].timing.graph_captures >= 1
+    survivor = next(h for h in cl.handles if h.eng not in rebuilt)
+    # the survivor's graphs from before the death are still held and were
+    # never captured again
+    assert survivor_keys[survivor.ix] <= set(survivor.eng.horizons.captured)
+    assert survivor.eng.timing.graph_captures \
+        == len(survivor.eng.horizons.captured)
+    assert all(h.alive and h.eng.alloc.pages_in_use == 0
+               for h in cl.handles)
+
+
+@pytest.mark.gpu
+def test_adopt_into_captured_decode_engine_on_the_card():
+    """Handoffs adopted after the decode engine's first capture write
+    their pages into its pool in place: no tensor a graph reads is
+    rebound, no (width, K, spec) key is captured twice, tokens equal the
+    colocated run's."""
+    _card()
+    from repro_torch.serving import ClusterConfig, EngineCluster, EngineConfig
+    cfg, params, reqs, want = _cluster_case("llama3.2-1b", n=9)
+    cl = EngineCluster(cfg, EngineConfig(**CLUSTER_KW), ClusterConfig(),
+                       params, device="cuda")
+    dec = cl.handles[1].eng
+    captures, late = [], []
+    capture, adopt = dec.horizons.capture, dec.adopt_request
+
+    def capture_key(key):
+        captures.append(key)
+        capture(key)
+
+    def adopt_late(rid, *a, **k):
+        if captures:
+            late.append(rid)
+        return adopt(rid, *a, **k)
+    dec.horizons.capture, dec.adopt_request = capture_key, adopt_late
+
+    def ptrs():
+        return [t.data_ptr() for t in (
+            dec.state["pool"]["k"], dec.state["pool"]["v"], dec.dev.bt,
+            dec.dev.ctx, dec.dev.tokens, dec.dev.rem, dec.horizons.allow)]
+    before = ptrs()
+    for q in reqs:
+        cl.submit(q)
+    while not cl.done():
+        cl.tick()
+        assert ptrs() == before
+    assert late and captures
+    assert len(captures) == len(set(captures)) == len(dec.horizons.captured)
+    assert {k: list(v) for k, v in cl.outputs.items()} == want
