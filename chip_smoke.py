@@ -164,8 +164,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    peak pages, avg_batch and decode tok/s of each, static admitting less,
    tokens equal, launches checked.
 
+12. xlstm — the attention-free xLSTM family and the benches as entry points
+   of the port: (a) xlstm-350m at full width and depth (24 layers, 12
+   mLSTM + sLSTM cycles, random fp32 weights from seed 0; 8 slots, page
+   16, 8 prompts of 256-1024 tokens, 32 new, horizon 4) in batched
+   prefill on the graph path, eagerly and on the plain path, in slot and
+   chunked (128) prefill, and batched on a 120-page pool that preempts
+   with snapshots (``state_resume``): tokens equal the batched graph
+   run's (the near-tie rule of phase 5), K1-K4 launch 0 times (no Pallas
+   kernel is on the reference's xLSTM path), device syncs equal across
+   the batched ways, the small pool restores, every page released;
+   prints TTFT, decode tok/s, replayed device ms/step, syncs per token and
+   peak device memory beside zamba2's phase-5 batched numbers. (b)
+   ``launch/serving_bench.py`` in-process at ``BENCH_serving.json``'s
+   sizes: its 12 rows, its own asserts, and the counter layer of
+   ``benchmarks/check_regression.py::check_serving`` (tokens, syncs per
+   token, accept length, the robustness and handoff counters) clean
+   against the baseline; the timing layer's messages are printed at the
+   default tolerance, not asserted; each row's decode tok/s, TTFT and
+   syncs per token printed. (c) ``launch/kvcache_bench.py``'s ``run``: its
+   share levels (0 / 50 / 90%) with and without the cache (outputs equal;
+   at 90% at least 16 hits and fewer pages; the TTFT ratio printed) and
+   its host-tier scenario (admitted KV past the 40-page pool, swaps both
+   ways); the rows printed. The benches'
+   launches (K1 and K2 on their llama rows) join the totals.
+
 ``python3 chip_smoke.py --lifecycle`` builds the kernels and runs phase 10
-alone; ``--disagg`` builds them and runs phase 11 alone.
+alone; ``--disagg`` builds them and runs phase 11 alone; ``--xlstm``
+phase 12 alone.
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
 and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
 bench and long-context shapes) and K4 (zamba2 prefill and decode, slot
@@ -970,6 +996,8 @@ def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
          "spec": eng.spec, "draft_catchups": tm.draft_catchups,
          "spec_dispatches": dict(tm.spec_dispatches),
          "pages_in_use": eng.alloc.pages_in_use,
+         "preempted": st.preempted, "rstate_restores": eng.rstate_restores,
+         "rsnaps_left": len(eng.rsnaps),
          "peak_bytes": torch.cuda.max_memory_allocated()}
     if eng.spec:
         m.update(spec_rounds=eng.spec_rounds,
@@ -1177,10 +1205,11 @@ WAYS = (("graphs", dict(use_kernels=None)),
         ("plain", dict(use_kernels=False)))
 
 
-def run_arch(arch: str, smi: str, launches: dict, **serve_kw) -> None:
+def run_arch(arch: str, smi: str, launches: dict, ref: dict | None = None,
+             **serve_kw) -> None:
     """Serve ``arch`` at full width in batched and chunked prefill, each
     three ways (``WAYS``), then profile the batched configuration on the
-    graph path."""
+    graph path. ``ref[arch]`` gets the batched graph run's metrics."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params, param_count_actual
     cfg = replace(get_config(arch), dtype="float32")
@@ -1260,17 +1289,19 @@ def run_arch(arch: str, smi: str, launches: dict, **serve_kw) -> None:
             fail(f"{label}: device syncs differ across the ways: {syncs}")
         for k, v in las["graphs"].items():
             launches[k] = launches.get(k, 0) + v
+        if ref is not None and label.endswith("batched"):
+            ref[arch] = ms["graphs"]
     phase_profile(cfg, params, prompts, smi, serve_kw)
     del params
     torch.cuda.empty_cache()
 
 
-def phase_engine(smi: str) -> dict:
+def phase_engine(smi: str, ref: dict) -> dict:
     launches: dict = {}
-    run_arch("llama3.2-1b", smi, launches)
+    run_arch("llama3.2-1b", smi, launches, ref)
     # pow2 prefill buckets (256/512/1024): the Mamba2 scan runs at chunk
     # 128 in every bucket
-    run_arch("zamba2-1.2b", smi, launches, max_prefill=1024)
+    run_arch("zamba2-1.2b", smi, launches, ref, max_prefill=1024)
     return launches
 
 
@@ -2648,6 +2679,200 @@ def phase_disagg(smi: str, launches: dict) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 12. xLSTM and the benches as entry points of the port
+# ---------------------------------------------------------------------------
+
+XL_TIGHT = 120                  # the preempting pool's pages (phase 7's)
+
+
+def xl_metrics(m: dict) -> str:
+    dec = m["decode_tokens"]
+    return (f"ttft mean/max={m['ttft_mean_ms']:.1f}/{m['ttft_max_ms']:.1f} "
+            f"ms decode tok/s={dec / max(m['decode_s'], 1e-9):.1f} "
+            + (f"replay device ms/step={m['replay_step_ms']:.3f} "
+               if m["replay_step_ms"] is not None else "")
+            + f"syncs/token={m['device_syncs'] / max(1, dec):.4f}")
+
+
+def xl_engine(cfg, params, smi: str, zref: dict | None) -> None:
+    """(a) xlstm-350m at full width and depth: batched prefill at horizon
+    4 on the graph path, eagerly and on the plain path; slot and chunked
+    (128) prefill on the graph path; batched on a preempting pool with
+    snapshots. Tokens equal the batched graph run's (near ties printed),
+    no kernel launches, device syncs equal across the three batched ways,
+    every request complete and every page released."""
+    fns = _kernel_fns()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n_tok))
+               for n_tok in rng.integers(256, 1025, 8)]
+    # pow2 prefill buckets (256/512/1024): three sLSTM loops a batched run
+    kw0 = dict(splits=4, n_req=8, chunk=128, max_prefill=1024, horizon=4,
+               use_kernels=None)
+    serve(cfg, params, prompts=prompts, mode="batched",
+          **dict(kw0, n_req=2))         # first use of each shape: unreported
+    runs = (("batched graphs", dict(mode="batched")),
+            ("batched eager", dict(mode="batched", decode_graphs=False)),
+            ("batched plain", dict(mode="batched", use_kernels=False)),
+            ("slot", dict(mode="slot")),
+            ("chunked", dict(mode="chunked")),
+            ("batched state_resume", dict(mode="batched", n_pages=XL_TIGHT)))
+    outs, ms = {}, {}
+    for label, kw in runs:
+        # the counts are set to 0 just before each run and read just after
+        reset_counts(fns)
+        outs[label], m = serve(cfg, params, prompts=prompts,
+                               **dict(kw0, **kw))
+        ms[label] = m
+        la = launch_counts(fns)
+        print(f"[xlstm] {cfg.name} {label}: completed={m['completed']}/"
+              f"{m['n']} page balance max={m['bal_max']} min={m['bal_min']}"
+              f" tokens={m['tokens']} wall={m['wall_s']:.3f} s "
+              f"{xl_metrics(m)} prefill s={m['prefill_s']:.3f} "
+              f"peak device MB={m['peak_bytes'] / 2**20:.1f} "
+              f"graph captures={m['graph_captures']} capture ms="
+              f"{1e3 * m['capture_s']:.1f} preempted={m['preempted']} "
+              f"restores={m['rstate_restores']} decode_steps="
+              f"{m['decode_steps']} prefill_calls={m['prefill_calls']} "
+              f"launches {la} | {smi}", flush=True)
+        if any(la.values()):
+            fail(f"{cfg.name} {label}: a kernel launched on the xLSTM path "
+                 f"{la}")
+        if m["completed"] != m["n"] or m["bal_max"] or m["bal_min"] \
+                or m["pages_in_use"] or m["rsnaps_left"]:
+            fail(f"{cfg.name} {label}: completed {m['completed']}/{m['n']}, "
+                 f"{m['pages_in_use']} pages and {m['rsnaps_left']} "
+                 "snapshots left")
+    if not ms["batched graphs"]["graphs"] or ms["batched eager"]["graphs"]:
+        fail(f"{cfg.name}: the default engine did not run the horizon as "
+             "graphs, or decode_graphs=False did")
+    syncs = {w: ms[w]["device_syncs"] for w in
+             ("batched graphs", "batched eager", "batched plain")}
+    if len(set(syncs.values())) != 1:
+        fail(f"{cfg.name}: device syncs differ across the ways: {syncs}")
+    tight = ms["batched state_resume"]
+    if not (tight["preempted"] and tight["rstate_restores"]):
+        fail(f"{cfg.name}: the {XL_TIGHT}-page pool restored no preemption "
+             f"({tight['preempted']} preempted)")
+    for label, _ in runs[1:]:
+        compare_tokens(f"{cfg.name} {label}", cfg, params, prompts,
+                       outs["batched graphs"], outs[label],
+                       ("batched graphs", label))
+    z = (xl_metrics(zref) + f" peak device MB="
+         f"{zref['peak_bytes'] / 2**20:.1f}") if zref else \
+        "not run in this call (phase 5)"
+    print(f"[xlstm] beside zamba2-1.2b batched graphs (phase 5): {z} | "
+          f"{smi}", flush=True)
+
+
+def _check_regression():
+    """``benchmarks/check_regression.py`` (framework-free) as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "check_regression", HERE / "benchmarks" / "check_regression.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bench_launches_line(label, la, launches) -> None:
+    """A bench's launches: K1 and K2 carry its llama rows, K4 has no
+    Mamba2 row to run; added to the run's totals."""
+    print(f"[bench] {label} launches: {la}", flush=True)
+    if not (la["paged_attention"] and la["flash_attention"]) \
+            or any(la[k] for k in la if k.startswith("ssm_scan")):
+        fail(f"{label}: launches {la}: K1 and K2 must run, K4 must not")
+    for k, v in la.items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def xl_serving_bench(smi: str, launches: dict) -> None:
+    """(b) ``launch/serving_bench.py`` at the baseline's sizes: the 12
+    rows of ``BENCH_serving.json``, the counter layer of
+    ``check_regression.check_serving`` clean, its timing layer printed."""
+    from repro_torch.launch import serving_bench as SB
+    fns = _kernel_fns()
+    reset_counts(fns)
+    rows = SB.run(lambda n, us, d: print(f"[bench] {n},{us:.2f},{d}",
+                                         flush=True), device=DEV)
+    la = launch_counts(fns)
+    for r in rows:
+        print(f"[bench] {r['trace']} {r['arch']} {r['mode']} "
+              f"h{r['horizon']}: decode_tok_s={r.get('decode_tok_s')} "
+              f"ttft_ms={r.get('ttft_ms')} syncs_per_token="
+              f"{r.get('syncs_per_token')} tokens={r['tokens']}"
+              + (f" accept_len_mean={r['accept_len_mean']}"
+                 if "accept_len_mean" in r else "") + f" | {smi}",
+              flush=True)
+    base = json.loads((HERE / "BENCH_serving.json").read_text())
+    fresh = {"bench": "serving", "rows": [
+        {k: v for k, v in r.items() if k != "outputs"} for r in rows]}
+    if len(rows) != len(base["rows"]):
+        fail(f"serving_bench: {len(rows)} rows, the baseline has "
+             f"{len(base['rows'])}")
+    msgs = _check_regression().check_serving(base, [fresh], 0.20, False)
+    timing = [m for m in msgs if "normalized" in m]
+    counters = [m for m in msgs if "normalized" not in m]
+    for m in timing:
+        print(f"[bench] timing layer (reported, not asserted): {m}",
+              flush=True)
+    if counters:
+        fail(f"serving_bench: counter layer against BENCH_serving.json: "
+             f"{counters}")
+    print(f"[bench] serving_bench: {len(rows)} rows, counter layer clean "
+          f"against BENCH_serving.json, {len(timing)} timing messages",
+          flush=True)
+    bench_launches_line("serving_bench", la, launches)
+
+
+def xl_kvcache_bench(smi: str, launches: dict) -> None:
+    """(c) ``launch/kvcache_bench.py``'s ``run``, the entry point's own
+    checks: each share level with and without the cache (outputs equal; at
+    90% at least 16 hits and fewer pages; the TTFT ratio printed), then
+    the host tier (admitted KV past the pool, swaps both ways)."""
+    from repro_torch.launch import kvcache_bench as KB
+    from repro_torch.models.model import init_params
+    fns = _kernel_fns()
+    params = init_params(KB.bench_config(), seed=0, dtype=torch.float32,
+                         device=DEV)
+    reset_counts(fns)
+    rows = KB.run(lambda n, us, d: print(f"[bench] {n},{us:.2f},{d}",
+                                         flush=True),
+                  params=params, device=DEV)
+    la = launch_counts(fns)
+    for r in rows:
+        print(f"[bench] {r} | {smi}", flush=True)
+    bench_launches_line("kvcache_bench", la, launches)
+
+
+def phase_xlstm(smi: str, launches: dict, zref: dict | None) -> None:
+    """Phase 12: (a) xlstm-350m through the engine at full width and depth,
+    (b) the port's serving bench, (c) its KV-cache bench."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, param_count_actual
+    t0 = time.perf_counter()
+    cfg = replace(get_config("xlstm-350m"), dtype="float32")
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    n = param_count_actual(params)
+    print(f"[xlstm] {cfg.name}: {cfg.n_layers} layers ({cfg.n_layers // 2} "
+          f"mLSTM + sLSTM cycles) d={cfg.d_model} d_inner={cfg.d_inner} "
+          f"heads={cfg.n_heads} vocab={cfg.vocab_size} params={n} fp32 "
+          f"({4 * n / 2**30:.2f} GiB)", flush=True)
+    steps = (("a", lambda: xl_engine(cfg, params, smi, zref)),
+             ("b", lambda: xl_serving_bench(smi, launches)),
+             ("c", lambda: xl_kvcache_bench(smi, launches)))
+    for label, fn in steps:
+        t = time.perf_counter()
+        fn()
+        print(f"[xlstm] ({label}) in {time.perf_counter() - t:.1f} s",
+              flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[xlstm] phase 12 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
     """``--kernel-times SRC``: K1, K2, K3 and K4 of the ``repro_torch``
     under ``SRC`` (this checkout's ``src`` or another's, e.g. an unpacked
@@ -2780,14 +3005,19 @@ def main() -> int:
     if sys.argv[1:2] == ["--disagg"]:
         phase_disagg(smi, {})
         return 0
+    if sys.argv[1:2] == ["--xlstm"]:
+        phase_xlstm(smi, {}, None)
+        return 0
     main_cases = phase_kernels()
     bench_launches = phase_bench(smi)
-    launches = phase_engine(smi)
+    ref: dict = {}
+    launches = phase_engine(smi, ref)
     phase_kvcache(smi, launches)
     phase_spec(smi, launches)
     phase_models(smi, launches)
     phase_lifecycle(smi, launches)
     phase_disagg(smi, launches)
+    phase_xlstm(smi, launches, ref.get("zamba2-1.2b"))
     launches["flash_decode"] = bench_launches["flash_decode"]
     meta = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",

@@ -10,8 +10,9 @@ and depth with random weights from a seed. ``--arch`` picks any registered confi
 (``repro_torch.configs.list_configs()``): ``llama3.2-1b`` (default), the
 paper's ``qwen1.5-7b`` / ``-14b`` / ``-72b``, ``internlm2-1.8b``,
 ``yi-34b``, ``gemma3-27b``, the MoE stacks ``mixtral-8x22b`` and
-``phi3.5-moe-42b-a6.6b``, or the Mamba2 + shared-attention hybrid
-``zamba2-1.2b``. Prompts are random token ids
+``phi3.5-moe-42b-a6.6b``, the Mamba2 + shared-attention hybrid
+``zamba2-1.2b`` or the attention-free ``xlstm-350m``. Prompts are random
+token ids
 whose lengths follow the task's LongBench distribution, scaled into
 ``--max-context``; ``--shared-frac f`` opens each prompt with a common
 system prompt covering that fraction of it, the traffic

@@ -7,9 +7,11 @@ dicts, so a MoE layer's ``moe`` leaves come out as router ``[D, E]``,
 ``w1`` / ``w3`` ``[V, D, ff/v]`` and ``w2`` ``[V, ff/v, D]``. The zamba2
 hybrid's Mamba2 weights stay stacked (``mamba/*`` ``[L_mamba, ...]``) and
 its shared attention block ``attn_shared`` is one unstacked dict, in both
-packages. Dense weights keep the JAX layout ``[d_in, d_out]`` — no
-transpose: both packages compute ``x @ w``. The tied embedding stays ``[V,
-D]`` and is transposed by ``layers.lm_head``, as in JAX.
+packages; so do xLSTM's ``mlstm/*`` and ``slstm/*`` (``[n_cyc, ...]``,
+``slstm/r`` ``[n_cyc, 4, H, dh, dh]``). Dense weights keep the JAX layout
+``[d_in, d_out]`` — no transpose: both packages compute ``x @ w``. The
+tied embedding stays ``[V, D]`` and is transposed by ``layers.lm_head``,
+as in JAX.
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ import torch
 
 from repro_torch.kernels.backend import resolve_device
 
-# Mamba2 leaves JAX keeps in fp32 whatever the model dtype
-_FP32_LEAVES = ("A_log", "D", "dt_bias")
+# leaves JAX keeps in fp32 whatever the model dtype: Mamba2's decay, skip
+# and step bias, the mLSTM gate biases and the sLSTM gate bias
+_FP32_LEAVES = ("A_log", "D", "dt_bias", "bi", "bf", "b")
 
 
 def _tensor(a, device, dtype):
@@ -51,7 +54,8 @@ def params_from_numpy(cfg, tree: dict, device=None,
 
 def state_from_numpy(tree, device=None):
     """A ``repro`` recurrent state tree (dicts / tuples of arrays, e.g.
-    ``{"conv", "ssm": (C, n, m)}`` rows) as fp32 tensors on ``device``."""
+    ``{"conv", "ssm": (C, n, m)}`` Mamba2 rows, the mLSTM ``(C, n, m)`` and
+    sLSTM ``(c, n, m, h)`` carries) as fp32 tensors on ``device``."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: state_from_numpy(v, dev) for k, v in tree.items()}

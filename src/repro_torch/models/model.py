@@ -1,7 +1,7 @@
 """The model: parameters, decode, fused multi-step decode, speculative
 decode (the draft's proposal scan and the one-pass multi-query verify),
-prefill and chunked prefill, for attention-only stacks and the zamba2
-hybrid.
+prefill and chunked prefill, for attention-only stacks, the zamba2
+hybrid and xLSTM.
 
 Port of ``repro/models/model.py``. Each ``lax.scan`` over layers or decode
 steps becomes a Python loop; the paged pool is updated in place (each layer
@@ -22,7 +22,16 @@ keeps its own pool layer. Mamba2 weights are stacked leaves
 ``mamba/* [L_mamba, ...]`` and the state rows ``mamba`` are stacked
 ``[L_mamba, B, ...]``, as in JAX.
 
-xLSTM, enc-dec and VLM families wait for ROADMAP queue A.6.
+xLSTM (``pattern == ("mlstm", "slstm")``, attention-free): cycles of one
+mLSTM and one sLSTM block, each residual. Weights are stacked leaves
+``mlstm/* [n_cyc, ...]`` and ``slstm/* [n_cyc, ...]`` and the carries are
+stacked rows ``mlstm`` = (C, n, m) and ``slstm`` = (c, n, m, h), each
+``[n_cyc, B, ...]``, as in JAX. The decode state holds no pool. No kernel
+runs on this path: the mLSTM is the plain ``chunked_gla(normalize=True)``
+and the sLSTM a loop of cell steps (``models/ssm.py``), as in JAX.
+
+The enc-dec family (whisper) is ROADMAP A.6.3, multimodal rope (qwen2-vl)
+A.6.4 and ring pools A.6.5.
 """
 from __future__ import annotations
 
@@ -52,7 +61,7 @@ class Runtime:
     def __post_init__(self):
         if self.ring_width:
             raise NotImplementedError(
-                "ring pools (all-windowed stacks) are ROADMAP queue A.6")
+                "ring pools (all-windowed stacks) are ROADMAP A.6.5")
 
     def itpp_apply(self, q, k, v, pk, pv, bt, ctx, npage, noff, window):
         return itpp_decode_attention_shard(
@@ -69,16 +78,29 @@ def _is_hybrid(cfg) -> bool:
     return set(cfg.pattern) == {"mamba", "attn"}
 
 
+def _is_xlstm(cfg) -> bool:
+    """The xLSTM pattern: (mLSTM, sLSTM) cycles, no attention."""
+    return tuple(cfg.pattern) == ("mlstm", "slstm")
+
+
 def _check_family(cfg) -> None:
-    attn_only = all(k in ("attn", "local") for k in cfg.block_kinds())
-    if cfg.family == "encdec" or cfg.rope_kind == "mrope" \
-            or (cfg.is_moe and not attn_only) \
-            or not (attn_only or _is_hybrid(cfg)):
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"{cfg.name}: only attention-only stacks (dense or MoE) and the "
-            "zamba2 hybrid are ported (ROADMAP queue A.6)")
-    if _is_hybrid(cfg) and cfg.n_layers % len(cfg.pattern):
-        raise ValueError(f"{cfg.name}: a hybrid runs whole pattern cycles; "
+            f"{cfg.name}: the encoder-decoder family is ROADMAP A.6.3")
+    if cfg.rope_kind == "mrope":
+        raise NotImplementedError(
+            f"{cfg.name}: multimodal rope is ROADMAP A.6.4")
+    attn_only = all(k in ("attn", "local") for k in cfg.block_kinds())
+    if (cfg.is_moe and not attn_only) \
+            or not (attn_only or _is_hybrid(cfg) or _is_xlstm(cfg)):
+        raise NotImplementedError(
+            f"{cfg.name}: pattern {cfg.pattern!r} is not ported; the port "
+            "serves attention-only stacks (dense or MoE), the zamba2 hybrid "
+            "and xLSTM")
+    if (_is_hybrid(cfg) or _is_xlstm(cfg)) \
+            and cfg.n_layers % len(cfg.pattern):
+        raise ValueError(f"{cfg.name}: a recurrent stack runs whole pattern "
+                         "cycles; "
                          f"{cfg.n_layers} layers is not a multiple of "
                          f"{len(cfg.pattern)}")
 
@@ -118,9 +140,10 @@ def init_params(cfg, seed: int = 0, dtype=torch.float32, device=None):
     from JAX's). Layout: ``{"embed" [V, D], "final_norm" [D], ("head"
     [D, V]), "layers": [per-layer dict]}`` for attention stacks; hybrids
     hold ``"mamba"`` (stacked ``[L_mamba, ...]`` leaves) and
-    ``"attn_shared"`` (one attention layer) instead of ``"layers"``. Dense
-    weights are ``[d_in, d_out]``; the Mamba2 ``A_log``, ``D`` and
-    ``dt_bias`` stay fp32, as in JAX.
+    ``"attn_shared"`` (one attention layer) instead of ``"layers"``; xLSTM
+    holds ``"mlstm"`` and ``"slstm"`` (stacked ``[n_cyc, ...]`` leaves).
+    Dense weights are ``[d_in, d_out]``; the Mamba2 ``A_log``, ``D`` and
+    ``dt_bias`` and the xLSTM gate biases stay fp32, as in JAX.
     """
     _check_family(cfg)
     dev = resolve_device(device)
@@ -141,13 +164,22 @@ def init_params(cfg, seed: int = 0, dtype=torch.float32, device=None):
     }
     if not cfg.tie_embeddings:
         params["head"] = normal((d, cfg.padded_vocab), 0.02)
+
+    def stack(layers):
+        return {k: torch.stack([lp.pop(k) for lp in layers])
+                for k in list(layers[0])}
     if _is_hybrid(cfg):
         n_cyc, per_cyc = _hybrid_cycles(cfg)
-        layers = [SSM.init_mamba(cfg, normal, zeros, dtype, dev)
-                  for _ in range(n_cyc * per_cyc)]
-        params["mamba"] = {k: torch.stack([lp.pop(k) for lp in layers])
-                           for k in list(layers[0])}
+        params["mamba"] = stack([SSM.init_mamba(cfg, normal, zeros, dtype, dev)
+                                 for _ in range(n_cyc * per_cyc)])
         params["attn_shared"] = _init_attn_layer(cfg, normal, zeros)
+        return params
+    if _is_xlstm(cfg):
+        n_cyc = cfg.n_layers // 2
+        params["mlstm"] = stack([SSM.init_mlstm(cfg, normal, zeros, dtype, dev)
+                                 for _ in range(n_cyc)])
+        params["slstm"] = stack([SSM.init_slstm(cfg, normal, zeros, dtype, dev)
+                                 for _ in range(n_cyc)])
         return params
     params["layers"] = [_init_attn_layer(cfg, normal, zeros)
                         for _ in range(cfg.n_layers)]
@@ -183,8 +215,8 @@ def _cos_sin(cfg, positions):
 # state entries with a per-slot batch row at axis 1 ([L, B, ...] leaves):
 # the recurrent carry the serving engine resets, gathers and scatters per
 # slot for state-carrying batched / chunked prefill. The paged ``pool`` is
-# not here (pages are per request via the block table). Only ``mamba``
-# exists in the port so far; the rest come with their families (A.6).
+# not here (pages are per request via the block table). The cross-attention
+# rows come with the enc-dec family (A.6.3).
 RSTATE_KEYS = ("mamba", "mlstm", "slstm", "cross_k", "cross_v")
 
 
@@ -204,14 +236,28 @@ def rstate_entries(state) -> dict[str, Any]:
 
 
 def init_rstate(cfg, batch: int, *, device=None) -> dict[str, Any]:
-    """Fresh (zero) recurrent state for ``batch`` slots — every leaf
-    [L, batch, ...]."""
+    """Fresh recurrent state for ``batch`` slots — every leaf [L, batch,
+    ...]: zeros, and the xLSTM stabilisers ``m`` at ``NEG_INF``."""
     state: dict[str, Any] = {}
+    dev = resolve_device(device)
     n_m = sum(1 for k in cfg.block_kinds() if k == "mamba")
     if n_m:
-        state["mamba"] = SSM.mamba_init_state(
-            cfg, batch, device=resolve_device(device), lead=(n_m,))
+        state["mamba"] = SSM.mamba_init_state(cfg, batch, device=dev,
+                                              lead=(n_m,))
+    if _is_xlstm(cfg):
+        n = cfg.n_layers // 2
+        state["mlstm"] = SSM.mlstm_init_state(cfg, batch, device=dev,
+                                              lead=(n,))
+        state["slstm"] = SSM.slstm_init_state(cfg, batch, device=dev,
+                                              lead=(n,))
     return state
+
+
+def _first_leaf(tree) -> torch.Tensor:
+    while isinstance(tree, (dict, tuple, list)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return tree
 
 
 def _row_index(idx, device) -> torch.Tensor:
@@ -226,8 +272,7 @@ def gather_rstate(state, idx) -> dict[str, Any]:
     rows = rstate_entries(state)
     if not rows:
         return {}
-    dev = next(iter(rows.values()))["conv"].device
-    ix = _row_index(idx, dev)
+    ix = _row_index(idx, _first_leaf(rows).device)
     return tree_map(lambda a: a.index_select(1, ix), rows)
 
 
@@ -236,16 +281,16 @@ def scatter_rstate(state, idx, rows) -> dict[str, Any]:
     ``idx`` of ``state``, in place; returns ``state``."""
     entries = rstate_entries(state)
     if entries:
-        dev = next(iter(entries.values()))["conv"].device
-        ix = _row_index(idx, dev)
+        ix = _row_index(idx, _first_leaf(entries).device)
         tree_map(lambda a, r: a.index_copy_(1, ix, r.to(a.dtype)),
                   {k: entries[k] for k in rows}, rows)
     return state
 
 
 def init_decode_state(cfg, pool_spec, batch: int, *, device=None):
-    """Decode-side caches: the paged pools of the attention layers plus the
-    recurrent rows of the Mamba2 layers (``batch`` slots)."""
+    """Decode-side caches: the paged pools of the attention layers (none
+    for xLSTM) plus the recurrent rows of the Mamba2 / xLSTM layers
+    (``batch`` slots)."""
     from repro_torch.core.paged_kv import init_pool
     _check_family(cfg)
     dev = resolve_device(device)
@@ -264,25 +309,23 @@ def _keep_rows(new, old, run):
     return torch.where(run.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
 
 
-def _mamba_layers(params) -> list[dict]:
-    """Per-layer views of the stacked Mamba2 weights."""
-    cols = {k: v.unbind(0) for k, v in params["mamba"].items()}
+def _stacked_layers(stack) -> list[dict]:
+    """Per-layer views of stacked ``[L, ...]`` weight leaves."""
+    cols = {k: v.unbind(0) for k, v in stack.items()}
     n = len(next(iter(cols.values())))
     return [{k: v[i] for k, v in cols.items()} for i in range(n)]
 
 
-def _layer_rows(mst, i) -> dict:
-    C, n, m = mst["ssm"]
-    return {"conv": mst["conv"][i], "ssm": (C[i], n[i], m[i])}
+def _layer_rows(rows, i):
+    """Layer ``i``'s rows (views) of a stacked ``[L, B, ...]`` carry."""
+    return tree_map(lambda a: a[i], rows)
 
 
-def _put_layer_rows(mst, i, new, run=None) -> None:
-    """Write Mamba2 layer ``i``'s new state into the stacked rows in place
-    (rows with ``run=False`` keep their carry)."""
-    C, n, m = mst["ssm"]
-    for dst, src in zip((mst["conv"][i], C[i], n[i], m[i]),
-                        (new["conv"], *new["ssm"])):
-        dst.copy_(_keep_rows(src, dst, run))
+def _put_layer_rows(rows, i, new, run=None) -> None:
+    """Write layer ``i``'s new carry into the stacked rows in place (rows
+    with ``run=False`` keep their carry)."""
+    tree_map(lambda dst, src: dst.copy_(_keep_rows(src, dst, run)),
+             _layer_rows(rows, i), new)
 
 
 def _hybrid_stack(cfg, params, state, x, mamba, attn, run=None):
@@ -290,7 +333,7 @@ def _hybrid_stack(cfg, params, state, x, mamba, attn, run=None):
     x, rows) -> (y, new_rows)``, residual) then the shared attention block
     on pool layer ``c`` (``attn(lp, x, c) -> x``)."""
     n_cyc, per_cyc = _hybrid_cycles(cfg)
-    layers = _mamba_layers(params)
+    layers = _stacked_layers(params["mamba"])
     mst = state["mamba"]
     for c in range(n_cyc):
         for i in range(c * per_cyc, (c + 1) * per_cyc):
@@ -298,6 +341,19 @@ def _hybrid_stack(cfg, params, state, x, mamba, attn, run=None):
             x = x + y
             _put_layer_rows(mst, i, new, run)
         x = attn(params["attn_shared"], x, c)
+    return x
+
+
+def _xlstm_stack(cfg, params, state, x, mlstm, slstm, run=None):
+    """The xLSTM stack: per cycle ``c``, an mLSTM block then an sLSTM block
+    (``fn(lp, x, rows) -> (y, new_rows)``, each residual) on rows ``c`` of
+    the ``mlstm`` / ``slstm`` carries, written back in place."""
+    for c, (lm, ls) in enumerate(zip(_stacked_layers(params["mlstm"]),
+                                     _stacked_layers(params["slstm"]))):
+        for fn, lp, key in ((mlstm, lm, "mlstm"), (slstm, ls, "slstm")):
+            y, new = fn(lp, x, _layer_rows(state[key], c))
+            x = x + y
+            _put_layer_rows(state[key], c, new, run)
     return x
 
 
@@ -355,6 +411,14 @@ def decode_step(cfg, params, state, tokens, bt, ctx, npage, noff, *,
     state) — the state's pool and rows are written in place.
     """
     x = L.embed(params["embed"], tokens)                # [B, D]
+    if "mlstm" in params:
+        def mlstm(lp, h, rows):
+            return SSM.mlstm_step(lp, cfg, h, rows)
+
+        def slstm(lp, h, rows):
+            return SSM.slstm_step(lp, cfg, h, rows)
+        x = _xlstm_stack(cfg, params, state, x, mlstm, slstm, run)
+        return _logits(cfg, params, x), state
     cs = _cos_sin(cfg, (ctx.long() - 1)[:, None])
     pool = state["pool"]
     if "mamba" in params:
@@ -599,10 +663,24 @@ def _mamba_prefill(cfg, rt: Runtime, mask):
     return mamba
 
 
+def _xlstm_prefill(cfg, params, state, x, rt: Runtime, mask):
+    """The xLSTM stack over a prompt or a chunk (JAX's
+    ``_xlstm_prefill_body``), shared by ``prefill`` and ``prefill_chunk``:
+    the rows of ``state`` hold the carry in and the carry out."""
+    def mlstm(lp, h, rows):
+        return SSM.mlstm_forward(lp, cfg, h, state=rows, chunk=rt.gla_chunk,
+                                 mask=mask)
+
+    def slstm(lp, h, rows):
+        return SSM.slstm_forward(lp, cfg, h, state=rows, mask=mask)
+    return _xlstm_stack(cfg, params, state, x, mlstm, slstm)
+
+
 def prefill(cfg, params, state, tokens, bt, *, last_idx=None, valid_len=None,
             rt: Runtime = DEFAULT_RT):
-    """Run the prompt through the model, writing its KV pages and (hybrids)
-    the recurrent rows of ``state``, which hold the rows' carry in.
+    """Run the prompt through the model, writing its KV pages and
+    (recurrent families) the recurrent rows of ``state``, which hold the
+    rows' carry in.
 
     tokens [B, S] (padded to a shared S); ``last_idx`` [B] picks each
     request's true last position for the logits and ``valid_len`` [B]
@@ -610,6 +688,10 @@ def prefill(cfg, params, state, tokens, bt, *, last_idx=None, valid_len=None,
     (fp32 logits of the last position [B, V], state)."""
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens)
+    if "mlstm" in params:
+        x = _xlstm_prefill(cfg, params, state, x, rt,
+                           _prefill_mask(valid_len, S, x.device))
+        return _logits(cfg, params, _last_rows(x, last_idx)), state
     pos = torch.arange(S, device=x.device)[None].expand(B, S)
     cs = _cos_sin(cfg, pos)
     pool = state["pool"]
@@ -634,13 +716,18 @@ def prefill_chunk(cfg, params, state, tokens, bt, ctx_start, *,
     Processes tokens [B, C] at global positions ctx_start..ctx_start+C-1
     against context already held by earlier chunks: attention layers write
     the chunk's K/V (``write_prefill(ctx_start=...)``), gather their pages
-    and attend with ``q_offset=ctx_start``; Mamba2 layers resume from the
-    per-row carry in ``state`` (the previous chunk's returned state).
+    and attend with ``q_offset=ctx_start``; Mamba2 / mLSTM / sLSTM layers
+    resume from the per-row carry in ``state`` (the previous chunk's
+    returned state).
     ``ctx_start`` is a scalar or a [B] vector (each request at its own
     depth); ``valid_len`` keeps end-padding out of the pool and the carry.
     Returns (fp32 logits at last_idx (default C-1) [B, V], state)."""
     B, C = tokens.shape
     x = L.embed(params["embed"], tokens)
+    if "mlstm" in params:
+        x = _xlstm_prefill(cfg, params, state, x, rt,
+                           _prefill_mask(valid_len, C, x.device))
+        return _logits(cfg, params, _last_rows(x, last_idx)), state
     start = torch.as_tensor(ctx_start, dtype=torch.long, device=x.device)
     offset = start if start.ndim == 0 else start[:, None]
     pos = (torch.arange(C, device=x.device)[None] + offset).expand(B, C)

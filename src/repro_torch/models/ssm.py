@@ -1,17 +1,25 @@
-"""State-space blocks: the chunkwise gated-linear-attention engine and Mamba2.
+"""State-space and recurrent blocks: the chunkwise gated-linear-attention
+engine, Mamba2 and xLSTM (mLSTM + sLSTM).
 
-Port of the Mamba2 half of ``repro/models/ssm.py``. Mamba2 (and mLSTM,
-still to port) are gated linear attention: the state
-``h_t = a_t h_{t-1} + g_t k_t v_t^T`` is computed chunkwise in parallel
-(``chunked_gla``: attention-like products inside a chunk, the state handed
-across chunks). Mamba2's scan runs through ``kernels/ops.mamba_mixer``, so
-on the card it is the hand-written chunk-scan kernel
-(``kernels/ssm_scan.py``); decode is the same scan at ``S = 1``.
+Port of ``repro/models/ssm.py``. Mamba2 and mLSTM are gated linear
+attention: the state ``h_t = a_t h_{t-1} + g_t k_t v_t^T`` is computed
+chunkwise in parallel (``chunked_gla``: attention-like products inside a
+chunk, the state handed across chunks); ``gla_step`` is the exact
+single-step recurrence. Mamba2's scan runs through ``kernels/ops.mamba_mixer``,
+so on the card it is the hand-written chunk-scan kernel
+(``kernels/ssm_scan.py``); decode is the same scan at ``S = 1``. The mLSTM
+runs on the plain ``chunked_gla(normalize=True)`` (its exponential input
+gate needs the normaliser ``n`` and stabiliser ``m``), as in JAX, at
+``scan_geometry``'s chunk. The sLSTM mixes its memory through recurrent
+weights, so it is sequential by construction: a Python loop of cell steps
+over time (JAX's ``lax.scan``).
 
 State of one Mamba2 layer, as in JAX: ``{"conv": [B, K-1, C], "ssm":
 (C [B, nh, N, P], n [B, nh, N], m [B, nh])}``. ``n`` is accumulated but never
 read by Mamba2 and ``m`` stays at its seed; both are carried so the state
-equals the JAX state leaf for leaf.
+equals the JAX state leaf for leaf. An mLSTM layer carries ``(C [B, H, dh,
+dh], n [B, H, dh], m [B, H])`` with ``m`` seeded at ``NEG_INF``; an sLSTM
+layer ``(c, n, m, h)``, each ``[B, D]``.
 """
 from __future__ import annotations
 
@@ -107,6 +115,31 @@ def chunked_gla(q, k, v, log_a, log_g, *, chunk: int = 128,
         m = m_new
     y = torch.stack(ys, dim=1).reshape(b, s, h, dv)
     return y, (C, n, m)
+
+
+def gla_step(q, k, v, log_a, log_g, state, *, normalize: bool = False):
+    """Exact single-step recurrence. q, k [B, H, dk]; v [B, H, dv]; log_a,
+    log_g [B, H]; state as in ``chunked_gla``. Returns (y [B, H, dv],
+    state)."""
+    C, n, m = (x.float() for x in state)
+    q, k, v = q.float(), k.float(), v.float()
+    la, lg = log_a.float(), log_g.float()
+    if normalize:
+        m_new = torch.maximum(la + m, lg)
+        fa = torch.exp(la + m - m_new)
+        gi = torch.exp(lg - m_new)
+    else:
+        m_new = m
+        fa = torch.exp(la)
+        gi = torch.exp(lg.clamp(NEG_INF, 60.0))
+    C_new = C * fa[..., None, None] + gi[..., None, None] * (
+        k[..., :, None] * v[..., None, :])
+    n_new = n * fa[..., None] + gi[..., None] * k
+    y = torch.einsum("bhd,bhdv->bhv", q, C_new)
+    if normalize:
+        den = torch.einsum("bhd,bhd->bh", q, n_new)
+        y = y / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    return y, (C_new, n_new, m_new)
 
 
 # ---------------------------------------------------------------------------
@@ -312,3 +345,173 @@ def mamba_init_state(cfg, batch: int, dtype=F32, device=None, *,
         return torch.zeros((*lead, batch, *shape), dtype=dt, device=device)
     return {"conv": z(cfg.ssm_conv - 1, conv_ch, dt=dtype),
             "ssm": (z(nh, N, P), z(nh, N), z(nh))}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block (xLSTM)
+# ---------------------------------------------------------------------------
+
+def init_mlstm(cfg, normal, zeros, dtype, device):
+    """One mLSTM layer's weights with the distributions of
+    ``repro.models.ssm.init_mlstm`` (gate biases fp32, forget gates open)."""
+    D, di, H = cfg.d_model, cfg.d_inner, cfg.n_heads
+    return {
+        "ln": zeros(D),
+        "wu": normal((D, di), 1 / math.sqrt(D)),
+        "wg": normal((D, di), 1 / math.sqrt(D)),
+        "wq": normal((di, di), 1 / math.sqrt(di)),
+        "wk": normal((di, di), 1 / math.sqrt(di)),
+        "wv": normal((di, di), 1 / math.sqrt(di)),
+        "wi": normal((di, H), 0.01),
+        "bi": torch.zeros((H,), dtype=F32, device=device),
+        "wf": normal((di, H), 0.01),
+        "bf": torch.full((H,), 3.0, dtype=F32, device=device),
+        "norm": zeros(di),
+        "down": normal((di, D), 1 / math.sqrt(di * 2 * cfg.n_layers)),
+    }
+
+
+def _mlstm_qkvg(p, cfg, xin):
+    di, H = cfg.d_inner, cfg.n_heads
+    dh = di // H
+    u, g = dense(xin, p["wu"]), dense(xin, p["wg"])
+    shp = (*u.shape[:-1], H, dh)
+    q = dense(u, p["wq"]).reshape(shp)
+    k = dense(u, p["wk"]).reshape(shp) / math.sqrt(dh)
+    v = dense(u, p["wv"]).reshape(shp)
+    log_g = dense(u, p["wi"]).float() + p["bi"]              # input gate
+    log_a = -F.softplus(-(dense(u, p["wf"]).float() + p["bf"]))  # log sigmoid
+    return q, k, v, log_a, log_g, g
+
+
+def mlstm_forward(p, cfg, x, state=None, *, chunk: int = 128, mask=None):
+    """x [B, S, D] -> (y [B, S, D], (C, n, m)). ``mask`` [B, S] bool: pad
+    positions are identity steps (the carry passes through unchanged);
+    their outputs are garbage and must not be read.
+
+    The scan runs at ``scan_geometry(S, chunk)``: JAX's chunk
+    (``min(chunk, S)``) wherever it divides S, and where it does not (JAX
+    asserts) the largest chunk that does, S padded with identity steps
+    when that chunk would be shorter than ``CHUNK_FLOOR``."""
+    B, S, _ = x.shape
+    xin = rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k, v, log_a, log_g, g = _mlstm_qkvg(p, cfg, xin)
+    if mask is not None:
+        log_a, log_g = mask_log_gates(log_a, log_g, mask)
+    c, S_scan = scan_geometry(S, chunk)
+    if S_scan > S:
+        def pad(t):
+            return torch.cat([t, t.new_zeros((B, S_scan - S, *t.shape[2:]))],
+                             dim=1)
+        q, k, v, log_a = map(pad, (q, k, v, log_a))
+        log_g = torch.cat([log_g, log_g.new_full(
+            (B, S_scan - S, log_g.shape[2]), NEG_INF)], dim=1)
+    y, new_state = chunked_gla(q, k, v, log_a, log_g, chunk=c,
+                               normalize=True, state=state)
+    y = y[:, :S].reshape(B, S, cfg.d_inner).to(x.dtype)
+    y = rms_norm(y, p["norm"], cfg.norm_eps) * F.silu(g.float()).to(x.dtype)
+    return dense(y, p["down"]), new_state
+
+
+def mlstm_step(p, cfg, x, state):
+    """x [B, D] single token; the scan at chunk 1, as in JAX."""
+    y, new_state = mlstm_forward(p, cfg, x[:, None, :], state, chunk=1)
+    return y[:, 0], new_state
+
+
+def mlstm_init_state(cfg, batch: int, device=None, *,
+                     lead: tuple[int, ...] = ()):
+    """Fresh mLSTM carry ``(C, n, m)`` for ``batch`` rows (``m`` at
+    ``NEG_INF``); ``lead`` prepends axes (the model stacks the layers'
+    carries as ``[L, B, ...]``)."""
+    H, dh = cfg.n_heads, cfg.d_inner // cfg.n_heads
+    return (torch.zeros((*lead, batch, H, dh, dh), dtype=F32, device=device),
+            torch.zeros((*lead, batch, H, dh), dtype=F32, device=device),
+            torch.full((*lead, batch, H), NEG_INF, dtype=F32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block (xLSTM): sequential by construction (memory mixing)
+# ---------------------------------------------------------------------------
+
+def init_slstm(cfg, normal, zeros, dtype, device):
+    """One sLSTM layer's weights with the distributions of
+    ``repro.models.ssm.init_slstm``: input weights ``w`` [D, 4D] for the
+    (i, f, z, o) gates, fp32 biases ``b`` [4D] (forget gates open), the
+    block-diagonal recurrent weights ``r`` [4, H, dh, dh]."""
+    D, H = cfg.d_model, cfg.n_heads
+    dh = D // H
+    b = torch.zeros((4 * D,), dtype=F32, device=device)
+    b[D:2 * D] = 3.0
+    return {
+        "ln": zeros(D),
+        "w": normal((D, 4 * D), 1 / math.sqrt(D)),
+        "b": b,
+        "r": normal((4, H, dh, dh), 1 / math.sqrt(dh)),
+        "norm": zeros(D),
+        "proj": normal((D, D), 1 / math.sqrt(D * 2 * cfg.n_layers)),
+    }
+
+
+def _slstm_cell(p, cfg, x_pre, state):
+    """x_pre [B, 4D] input preactivations (bias included); state = (c, n,
+    m, h), each [B, D]. ``p["r"]`` is read as ``[H, dh, 4 dh]`` (the four
+    gates' recurrent weights side by side: one batched product a step)."""
+    D, H = cfg.d_model, cfg.n_heads
+    dh = D // H
+    c, n, m, hprev = state
+    rec = torch.bmm(hprev.reshape(-1, H, dh).transpose(0, 1), p["r"])
+    rec = rec.reshape(H, -1, 4, dh).permute(1, 2, 0, 3).reshape(-1, 4, D)
+    pre = x_pre.reshape(-1, 4, D) + rec
+    it, ft, zt, ot = pre.unbind(1)
+    log_f = -F.softplus(-ft)
+    m_new = torch.maximum(log_f + m, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(log_f + m - m_new)
+    c_new = f_p * c + i_p * torch.tanh(zt)
+    n_new = f_p * n + i_p
+    h_new = torch.sigmoid(ot) * (c_new / n_new.clamp_min(1e-6))
+    return (c_new, n_new, m_new, h_new), h_new
+
+
+def slstm_forward(p, cfg, x, state=None, *, mask=None):
+    """x [B, S, D] -> (y [B, S, D], (c, n, m, h)). ``mask`` [B, S] bool:
+    pad positions keep the previous carry (their emitted h is garbage and
+    must not be read). The cell runs once a position, in fp32."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    dh = D // H
+    xin = rms_norm(x, p["ln"], cfg.norm_eps)
+    x_pre = dense(xin, p["w"]).float() + p["b"]              # [B, S, 4D]
+    cell = {"r": p["r"].float().permute(1, 2, 0, 3).reshape(H, dh, 4 * dh)}
+    if state is None:
+        state = slstm_init_state(cfg, B, device=x.device)
+    hs = []
+    for t in range(S):
+        new, h = _slstm_cell(cell, cfg, x_pre[:, t], state)
+        if mask is not None:
+            mt = mask[:, t, None]
+            new = tuple(torch.where(mt, a, o) for a, o in zip(new, state))
+        state = new
+        hs.append(h)
+    h = torch.stack(hs, dim=1).to(x.dtype)
+    h = rms_norm(h, p["norm"], cfg.norm_eps)
+    return dense(h, p["proj"]), state
+
+
+def slstm_step(p, cfg, x, state):
+    """x [B, D] single token."""
+    y, state = slstm_forward(p, cfg, x[:, None, :], state)
+    return y[:, 0], state
+
+
+def slstm_init_state(cfg, batch: int, device=None, *,
+                     lead: tuple[int, ...] = ()):
+    """Fresh sLSTM carry ``(c, n, m, h)`` for ``batch`` rows (``m`` at
+    ``NEG_INF``); ``lead`` as in ``mlstm_init_state``."""
+    shape = (*lead, batch, cfg.d_model)
+
+    def z():
+        return torch.zeros(shape, dtype=F32, device=device)
+    return (z(), z(), torch.full(shape, NEG_INF, dtype=F32, device=device),
+            z())

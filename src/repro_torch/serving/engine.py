@@ -1,7 +1,7 @@
 """Decode engine: tick = schedule -> prefill -> fused decode horizon.
 
 Port of the fused multi-step path of ``repro/serving/engine.py`` for
-greedy serving of attention-only stacks and the zamba2 hybrid. The host
+attention-only stacks, the zamba2 hybrid and xLSTM. The host
 loop mirrors the paper's Fig. 2(c): each tick the host updates the
 "configuration buffer" (block tables, context lengths) and dispatches
 decode work; finished requests release their pages and their slots refill
@@ -36,9 +36,11 @@ last tick's swap-out copies, applies the occupancy watermarks and peeks
 the queue's prefixes. The pool is never rebound: every captured horizon
 holds its address.
 
-Recurrent rows (hybrids): the Mamba2 carry of each slot lives in the
-decode state as ``[L, n_slots, ...]`` rows. Admission resets a slot's rows
-to zero, or restores them from a preemption snapshot
+Recurrent rows (zamba2's Mamba2 carry, xLSTM's mLSTM and sLSTM carries):
+each slot's carry lives in the decode state as ``[L, n_slots, ...]`` rows
+(xLSTM's state has no pool at all). Admission resets a slot's rows to
+fresh ones (zeros; xLSTM's stabilisers at ``NEG_INF``), or restores them
+from a preemption snapshot
 (``EngineConfig.state_resume``: the rows and the written KV pages are
 copied to pinned host memory at preemption and back at re-admission, so
 the request resumes instead of recomputing); group prefill gathers the
@@ -180,7 +182,7 @@ class EngineConfig:
     # engine raises
     decode_graphs: bool | None = None
     # ---- recurrent-state preemption snapshots ----
-    # a preempted hybrid request's carry rows and written KV pages go to
+    # a preempted recurrent request's carry rows and written KV pages go to
     # pinned host memory, and re-admission restores them instead of
     # re-prefilling. Off = full recompute on resume. Slot-mode prefill
     # never consumes snapshots (it is the recompute reference path).

@@ -22,7 +22,8 @@ the engine's life:
   (the host patches dirty rows in place) and this runner's ``allow``
   ``[n_slots]`` int32, written before each replay;
 * the decode state: the paged pool (written in place by the decode step)
-  and the Mamba2 rows (``copy_`` into the stacked leaves);
+  and the recurrent rows (Mamba2, mLSTM and sLSTM carries: ``copy_`` into
+  the stacked leaves);
 * a speculative round's: the draft pool (written in place like the
   target's), the static proposals ``[n, K-1]`` and, for stochastic
   kinds, the draft's logits ``[K-1, n, V]`` that the verify reads;
@@ -40,7 +41,7 @@ path draws what an eager run draws: the same seed and call sequence give
 the same tokens either way.
 
 Capture runs the horizon with ``allow`` zeroed, so no slot runs: KV writes
-land on the trash page, the Mamba2 rows keep their carry and tokens, ctx
+land on the trash page, the recurrent rows keep their carry and tokens, ctx
 and rem are left as they were. A capture in the middle of serving
 therefore leaves the live state unchanged. The warm-up pass runs on a side
 stream (as the ``torch.cuda.graphs`` documentation asks), all of an

@@ -1,11 +1,11 @@
 """Prefill strategies for the serving engine.
 
-Port of ``repro/serving/prefill.py`` for attention-only stacks and the
-zamba2 hybrid:
+Port of ``repro/serving/prefill.py`` for attention-only stacks, the
+zamba2 hybrid and xLSTM:
 
 * ``slot`` — one batch-1 ``prefill`` per admitted request (the recompute
-  reference path); a hybrid's prefill starts from fresh rows and its
-  result is merged into the slot's rows;
+  reference path); a recurrent family's prefill starts from fresh rows and
+  its result is merged into the slot's rows;
 * ``batched`` — length-bucketed batched prefill: the requests admitted in a
   tick are grouped into padded-length buckets, one ``prefill`` call per
   bucket (``last_idx`` picks each request's true last position,
@@ -23,9 +23,10 @@ this tick: chunked prefill caps it to 1 while chunks stream.
 
 Resume depths: prefix-cache hits (``req.cached_len > 0``, attention
 stacks) and preemption snapshots of the recurrent carry
-(``engine._take_snapshot``, hybrids) both mean prefill covers only the
-suffix beyond the resume depth. ``chunked`` starts its chunk cursor there;
-``batched`` groups resumes into suffix-length buckets and runs each as one
+(``engine._take_snapshot``, recurrent families) both mean prefill covers
+only the suffix beyond the resume depth. ``chunked`` starts its chunk
+cursor there; ``batched`` groups resumes into suffix-length buckets and
+runs each as one
 ``prefill_chunk`` call with the per-request depths as the ``ctx_start``
 vector (``prefill_suffix``: on a card, the flash-attention kernel at a
 per-row ``q_offset`` and, for zamba2, the chunk-scan kernel from the
@@ -121,7 +122,9 @@ class SlotPrefiller:
             req.generated = 1          # prefill emits the first token
             prompt, emit = eng._prompt_seq(req)
             bt = eng.batcher.block_table_row(slot)
-            state1 = {"pool": eng.state["pool"]}
+            state1 = {}
+            if "pool" in eng.state:
+                state1["pool"] = eng.state["pool"]
             if eng.has_rstate:
                 state1.update(MDL.init_rstate(eng.cfg, 1, device=eng.device))
             eng.timing.prefill_calls += 1

@@ -548,7 +548,7 @@ def _engines(arch, ways, **kw):
             for r in range(5)]
     engs = []
     for way in ways:
-        eng = DecodeEngine(cfg, EngineConfig(**ENGINE_KW, **kw, **way),
+        eng = DecodeEngine(cfg, EngineConfig(**{**ENGINE_KW, **kw, **way}),
                            params, device="cuda")
         for r, prompt, n in reqs:
             eng.submit(Request(r, prompt, n))
@@ -1232,3 +1232,83 @@ def test_adopt_into_captured_decode_engine_on_the_card():
     assert late and captures
     assert len(captures) == len(set(captures)) == len(dec.horizons.captured)
     assert {k: list(v) for k, v in cl.outputs.items()} == want
+
+
+# ---------------------------------------------------------------------------
+# xLSTM on the card (no kernel on its path)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,horizon", [("batched", 4), ("chunked", 1),
+                                          ("slot", 8)])
+def test_xlstm_graph_engine_matches_eager_and_plain(mode, horizon):
+    """Reduced xlstm-350m: the graph engine (its mLSTM / sLSTM carries
+    written in place inside the captured horizon) against the eager and
+    plain engines: tokens and syncs equal, and none of the port's kernels
+    launches on the xLSTM path."""
+    _card()
+    from repro_torch.serving.graphs import launch_counts
+    before = launch_counts()
+    graphs, eager, plain = _engines(
+        "xlstm-350m", ({}, dict(decode_graphs=False),
+                       dict(use_kernels=False)),
+        prefill_mode=mode, decode_horizon=horizon, prefill_chunk=8)
+    outs = [e.run(1000) for e in (graphs, eager, plain)]
+    assert outs[0] == outs[1] == outs[2]
+    assert launch_counts() == before
+    assert graphs.horizons.graphs and graphs.timing.graph_captures >= 1
+    assert "pool" not in graphs.state
+    assert (graphs.timing.device_syncs == eager.timing.device_syncs
+            == plain.timing.device_syncs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["batched", "chunked"])
+def test_xlstm_state_resume_on_the_card(mode):
+    """A 24-page pool preempts: the carry rows go to pinned host memory on
+    the side stream and come back at re-admission into the rows a captured
+    horizon holds; tokens equal the ample pool's."""
+    _card()
+    (ample,) = _engines("xlstm-350m", ({},), prefill_mode="batched",
+                        decode_horizon=4)
+    (tight,) = _engines("xlstm-350m", (dict(n_pages=24),),
+                        prefill_mode=mode, decode_horizon=4, prefill_chunk=8)
+    ptrs = [t.data_ptr() for t in tight.state["mlstm"]]
+    assert tight.run(2000) == ample.run(2000)
+    assert tight.batcher.stats.preempted and tight.rstate_restores
+    assert ptrs == [t.data_ptr() for t in tight.state["mlstm"]]
+    assert tight.alloc.pages_in_use == 0 and not tight.rsnaps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", ["mlstm", "slstm"])
+def test_xlstm_blocks_on_the_card_match_the_cpu(block):
+    """An xLSTM block at xlstm-350m's head widths (mLSTM head dim 512, sLSTM
+    256) over 48 masked positions and two steps from a fresh carry, on the
+    card and on the CPU: finite, within 1e-5 of the largest magnitude."""
+    _card()
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MDL
+    from repro_torch.models import ssm as SSM
+    cfg = replace(get_config("xlstm-350m"), n_layers=2, dtype="float32")
+    params = MDL.init_params(cfg, 0, torch.float32, "cpu")
+    p = {k: v[0] for k, v in params[block].items()}
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 48, cfg.d_model),
+                                             np.float32))
+    mask = torch.arange(48)[None] < torch.tensor([48, 30])[:, None]
+    fwd = getattr(SSM, f"{block}_forward")
+    step = getattr(SSM, f"{block}_step")
+    outs = []
+    for dev in ("cpu", "cuda"):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        st = getattr(SSM, f"{block}_init_state")(cfg, 2, device=dev)
+        y1, _ = step(pd, cfg, x[:, 0].to(dev), st)
+        y2, st = fwd(pd, cfg, x.to(dev), state=st, mask=mask.to(dev))
+        y3, st = step(pd, cfg, x[:, 1].to(dev), st)
+        outs.append([t.cpu() for t in (y1, y2[mask], y3, *st)])
+    for a, b in zip(*outs):
+        assert torch.isfinite(b).all()
+        gap = float((a - b).abs().max())
+        assert gap <= 1e-5 * max(1.0, float(a.abs().max())), gap
