@@ -31,8 +31,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    inputs are exact in TF32, and otherwise only the reduction order
    differs; the sums reach magnitudes of ~100).
    K3 (ITPP split-K flash decode) at the kernel bench's shape, at a tail
-   split with dead splits and a ctx = 0 row, and at llama3.2-1b's decode
-   geometry over 32768 tokens, with ``F.scaled_dot_product_attention`` as
+   split with dead splits and a ctx = 0 row, at llama3.2-1b's decode
+   geometry over 32768 tokens and at whisper-small's cross-attention decode
+   (B 8, 12 heads, 1500 encoder rows, 8 splits, the tail split padded: its
+   serving shape, the ``kernels`` line's), with
+   ``F.scaled_dot_product_attention`` as
    its library yardstick (it gives the MERGED output, not the partials);
    K1 also at 256-token pages with D 128, at the bench's decode-step
    shape (ctx 262144, ``n_splits`` 1 and 64) and in its speculative verify
@@ -49,10 +52,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    gemma3-27b (16 / 2, its local layers' 1024-token window), phi3.5-moe
    (8 / 4) and yi-34b (8 / 7); K1 at 8 slots of up to 2048 tokens, also
    qwen's verify pass at qpos 5; K2 at Sq = Skv = 1024, gemma3 also as a
-   chunk at offsets 1024 / 512 against 2048 keys.
+   chunk at offsets 1024 / 512 against 2048 keys. K2 without the causal
+   mask at whisper-small's encoder (B 8, Sq = Skv = 1500, ragged against
+   its 64-token tiles) and cross prefill (Sq 416 against 1500 keys), with
+   SDPA without a mask as the library call.
 4. bench   — ``python -m repro_torch.launch.kernel_bench`` at full size,
    in-process: its asserts must hold and each kernel's launch count must
-   equal the calls the bench made of its wrapper (K3 launches only here).
+   equal the calls the bench made of its wrapper (K3 launches here and on
+   whisper's decode path, phase 13).
 5. engine  — llama3.2-1b and zamba2-1.2b at full width and depth (random
    fp32 weights from a seed, fp32 paged pool) served through
    ``repro_torch.serving.DecodeEngine`` in batched and chunked prefill,
@@ -189,9 +196,35 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ways); the rows printed. The benches'
    launches (K1 and K2 on their llama rows) join the totals.
 
+13. families — the enc-dec and M-RoPE families and the ring pool, each at
+   full width with random fp32 weights from seed 0, each model freed before
+   the next loads: (a) whisper-small whole (12 encoder + 12 decoder
+   layers, 8 slots of 16-token pages, 8 prompts of 128-416 tokens, 32
+   new, inside its 448 text positions, stub zero frames) batched at
+   horizon 4 on the graph path, eagerly and on the plain path, slot and
+   chunked (128): tokens equal the graph run's (the near-tie rule of phase
+   5); launches by kernel equal what the steps and calls imply: K3 (the
+   cross-attention decode, inside the captured horizon) and K1 12 a
+   decode step, K2 non-causal (the encoder and the cross prefill) 12 + 12
+   a prefill call that runs the encoder, K2 causal 12 a prefill call;
+   TTFT, decode tok/s, replayed device ms/step and peak device memory
+   printed; kill and restore (snapshot at tick 6 into a fresh engine, the
+   cross rows written in place) and a 1 + 1 cluster (pages and cross rows
+   handed over) keep the tokens. (b) qwen2-vl-7b whole, batched at horizon
+   4 on graphs against the plain path (tokens); at the model level 4 rows
+   of a 16 x 16 image grid (distinct t / h / w ids, ``extra_embeds``) and
+   64 text positions, 8 decode steps: kernel against plain logits (3e-4
+   prefill, 4e-3 decode, of max(1, |logits|)). (c) mixtral-8x22b's first
+   2 of 56 layers (window 4096): 4 slots, slot prefill, prompts of
+   4600-6000 tokens, 32 new, on ``Runtime(ring_width=258)`` against the
+   full pool (tokens, peak pages); at the model level 6000 + 8 tokens in
+   258 ring pages against 376 (logits within 2e-4). The whisper and
+   qwen2-vl main-path launches join the totals; the ``kernels`` line's K3
+   count is whisper's serving launches plus the bench's.
+
 ``python3 chip_smoke.py --lifecycle`` builds the kernels and runs phase 10
 alone; ``--disagg`` builds them and runs phase 11 alone; ``--xlstm``
-phase 12 alone.
+phase 12 alone; ``--families`` phase 13 alone.
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
 and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
 bench and long-context shapes) and K4 (zamba2 prefill and decode, slot
@@ -496,10 +529,11 @@ def check_paged(rng, dtype, *, B=8, KVH=8, G=4, D=64, page=16, W=128,
         esz = torch.finfo(dtype).bits // 8
         S = max(1, min(n_splits, W))
         # row t of a slot's qpos rows sees ctx + t tokens (of the W * page
-        # its table holds), only the last `window` of them under a window;
-        # the tokens read run from the first row's lowest to the last's end
+        # its table holds; a ring's table holds the last W pages of any
+        # ctx), only the last `window` of them under a window; the tokens
+        # read run from the first row's lowest to the last's end
         c = ctx.long().cpu()[:, None] + torch.arange(qpos)[None]
-        hi = c.clamp(0, W * page)
+        hi = c if ring_width else c.clamp(0, W * page)
         lo = (c - window).clamp_min(0) if window else torch.zeros_like(c)
         seen = (hi - lo).clamp_min(0).float()
         live = float((hi[:, -1] - lo[:, 0]).clamp_min(0).sum())
@@ -529,21 +563,22 @@ def _causal_pairs(B, Sq, Skv, offs, window) -> float:
 
 
 def check_flash(dtype, *, B=2, Sq=1024, Skv=1024, H=32, KVH=8, D=64,
-                offs=(0, 0), window=0, time_it=False):
+                offs=None, window=0, causal=True, time_it=False):
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain)
     dev = DEV
+    offs = (0,) * B if offs is None else offs
     q = torch.randn(B, Sq, H, D, device=dev).to(dtype)
     k = torch.randn(B, Skv, KVH, D, device=dev).to(dtype)
     v = torch.randn(B, Skv, KVH, D, device=dev).to(dtype)
     off = torch.tensor(offs, dtype=torch.int32, device=dev)
 
     def kern():
-        return flash_attention_fwd(q, k, v, causal=True, window=window,
+        return flash_attention_fwd(q, k, v, causal=causal, window=window,
                                    q_offset=off)
 
     def plain():
-        return flash_attention_plain(q, k, v, causal=True, window=window,
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=off)
 
     got, want = kern(), plain()
@@ -557,7 +592,9 @@ def check_flash(dtype, *, B=2, Sq=1024, Skv=1024, H=32, KVH=8, D=64,
         res["plain_ms"] = cuda_ms(plain, iters=5)
         esz = torch.finfo(dtype).bits // 8
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
-        flops = 4.0 * H * D * _causal_pairs(B, Sq, Skv, offs, window)
+        pairs = (_causal_pairs(B, Sq, Skv, offs, window) if causal
+                 else float(B * Sq * Skv))
+        flops = 4.0 * H * D * pairs
         peak = TF32X3 if dtype == torch.float32 else PEAK[dtype]
         res["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_S, flops / peak)
         res["bound_by"] = ("bytes" if nbytes / HBM_BYTES_S
@@ -565,19 +602,22 @@ def check_flash(dtype, *, B=2, Sq=1024, Skv=1024, H=32, KVH=8, D=64,
         if dtype == torch.float32:
             res["bound_ms_cuda_cores"] = 1e3 * max(
                 nbytes / HBM_BYTES_S, flops / PEAK[dtype])
-        if not any(offs) and not window and Sq == Skv:
+        if not any(offs) and not window and (Sq == Skv or not causal):
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             res["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
     return res
 
 
 # K1 and K2 at the head layouts of the model zoo, D 128: qwen1.5-7b (32 kv
 # heads, one query head each), gemma3-27b (16 / 2; its local layers'
-# 1024-token window), phi3.5-moe (8 / 4) and yi-34b (8 / 7); K1 at 8 slots
-# of up to 2048 tokens in 16-token pages, also qwen's verify pass at qpos
-# 5; K2 at Sq = Skv = 1024, gemma3 also as a chunk at per-row offsets
-# against 2048 keys
+# 1024-token window), phi3.5-moe (8 / 4), yi-34b (8 / 7) and qwen2-vl-7b
+# (4 / 7); K1 at 8 slots of up to 2048 tokens in 16-token pages, also
+# qwen's verify pass at qpos 5; K2 at Sq = Skv = 1024, gemma3 also as a
+# chunk at per-row offsets against 2048 keys. mixtral-8x22b (8 / 6, window
+# 4096) as phase 13 (c) serves it: K1 on the ring of 258 pages (4 slots,
+# ctx 6000 wraps it; random ctx up to 6000), K2 as its slot prefill of
+# 6000 tokens (ragged against the 64-token tiles)
 ZOO_PAGED = (
     ("qwen1.5-7b decode KVH=32 G=1 D=128", dict(KVH=32, G=1)),
     ("gemma3-27b local decode KVH=16 G=2 D=128 window=1024",
@@ -586,7 +626,14 @@ ZOO_PAGED = (
     ("phi3.5-moe decode KVH=8 G=4 D=128", dict(KVH=8, G=4)),
     ("yi-34b decode KVH=8 G=7 D=128", dict(KVH=8, G=7)),
     ("qwen1.5-7b verify qpos=5 KVH=32 G=1 D=128",
-     dict(KVH=32, G=1, qpos=5)))
+     dict(KVH=32, G=1, qpos=5)),
+    ("qwen2-vl-7b decode KVH=4 G=7 D=128", dict(KVH=4, G=7)),
+    ("mixtral-8x22b ring decode B=4 KVH=8 G=6 D=128 window=4096 "
+     "ring_width=258 ctx=6000", dict(B=4, KVH=8, G=6, W=258, ring_width=258,
+                                     window=4096, ctx_fixed=6000)),
+    ("mixtral-8x22b ring decode B=4 KVH=8 G=6 D=128 window=4096 "
+     "ring_width=258 ctx<=6000", dict(B=4, KVH=8, G=6, W=258, ring_width=258,
+                                      window=4096, ctx_max=6000)))
 ZOO_FLASH = (
     ("qwen1.5-7b H=KVH=32 D=128 Sq=1024", dict(H=32, KVH=32)),
     ("gemma3-27b H=32 KVH=16 D=128 Sq=1024 window=1024",
@@ -596,7 +643,10 @@ ZOO_FLASH = (
      "window=1024", dict(H=32, KVH=16, Skv=2048, offs=(1024, 512),
                          window=1024)),
     ("phi3.5-moe H=32 KVH=8 D=128 Sq=1024", dict(H=32, KVH=8)),
-    ("yi-34b H=56 KVH=8 D=128 Sq=1024", dict(H=56, KVH=8)))
+    ("yi-34b H=56 KVH=8 D=128 Sq=1024", dict(H=56, KVH=8)),
+    ("qwen2-vl-7b H=28 KVH=4 D=128 Sq=1024", dict(H=28, KVH=4)),
+    ("mixtral-8x22b slot prefill B=1 H=48 KVH=8 D=128 Sq=Skv=6000 "
+     "window=4096", dict(B=1, Sq=6000, Skv=6000, H=48, KVH=8, window=4096)))
 
 # K4 at the shapes zamba2-1.2b serves (H 64, N = P = 64): batched prefill,
 # the decode step, slot prefill (one row) and chunked prefill (chunk 128)
@@ -822,11 +872,19 @@ def phase_kernels() -> dict:
                 ("llama decode B8 KVH8 G4 D64 T32768 S16",
                  dict(B=8, KVH=8, G=4, D=64, T=32768, S=16,
                       ctx=[int(x) for x in np.linspace(8192, 32768, 8)],
+                      time_it=True)),
+                # whisper-small's cross-attention decode (phase 13's
+                # serving path): 8 slots over the 1500 encoder rows, every
+                # one live, splits of 188 with the tail split (184) padded
+                ("whisper cross decode B8 KVH12 G1 D64 T1500 S8",
+                 dict(B=8, KVH=12, G=1, D=64, T=1500, S=8, ctx=[1500] * 8,
                       time_it=True))):
             r = check_flash_decode(dtype, **kw)
             cases.append(("flash_decode", tag, name, r))
             if tag == "fp32" and name.startswith("bench"):
                 main["flash_decode"] = r
+            if tag == "fp32" and name.startswith("whisper"):
+                main["flash_decode serving"] = r
         for name, kw in (
                 ("main Sq=1024", dict(time_it=True)),
                 ("zamba2 H=KVH=32 Sq=1024", dict(KVH=32, time_it=True)),
@@ -838,11 +896,24 @@ def phase_kernels() -> dict:
                                           D=128)),
                 ("G=1 D=128 Sq=100 Skv=164 q_offset=[0,64] window=48",
                  dict(Sq=100, Skv=164, H=4, KVH=4, D=128, offs=(0, 64),
-                      window=48))):
+                      window=48)),
+                # whisper-small without the causal mask (phase 13): the
+                # encoder (1500 frames, ragged against the 64-token
+                # tiles) and the cross prefill (the prompt x the frames)
+                ("whisper encoder non-causal B8 Sq=Skv=1500 H=KVH=12",
+                 dict(B=8, Sq=1500, Skv=1500, H=12, KVH=12, causal=False,
+                      time_it=True)),
+                ("whisper cross prefill non-causal B8 Sq=416 Skv=1500 "
+                 "H=KVH=12", dict(B=8, Sq=416, Skv=1500, H=12, KVH=12,
+                                  causal=False, time_it=True))):
             r = check_flash(dtype, **kw)
             cases.append(("flash_attention", tag, name, r))
             if tag == "fp32" and name == "main Sq=1024":
                 main["flash_attention"] = r
+            if tag == "fp32" and name.startswith("whisper encoder"):
+                main["flash_attention encoder"] = r
+            if tag == "fp32" and name.startswith("whisper cross"):
+                main["flash_attention cross"] = r
         # the model zoo's head layouts at D 128 (phase 9's paths)
         for name, kw in ZOO_PAGED:
             r = check_paged(rng, dtype, D=128, n_splits=4, time_it=True,
@@ -910,7 +981,8 @@ def phase_kernels() -> dict:
             if kk == k and t == "fp32"),
         "max_abs_err_bf16": max(r["max_abs_err"] for kk, t, _, r in cases
                                 if kk == k and t == "bf16"),
-        "launches": ("counted on the bench run below" if k == "flash_decode"
+        "launches": ("counted on the bench and whisper runs below"
+                     if k == "flash_decode"
                      else "counted on the engine run below")}
         for k in status}), flush=True)
     if bad:
@@ -987,6 +1059,7 @@ def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
          "ttft_mean_ms": 1e3 * float(np.mean(ttft)),
          "ttft_max_ms": 1e3 * float(np.max(ttft)),
          "decode_steps": tm.decode_steps, "prefill_calls": tm.prefill_calls,
+         "encoder_calls": tm.encoder_calls,
          "decode_tokens": tm.decode_tokens, "device_syncs": tm.device_syncs,
          "decode_s": tm.decode_s, "prefill_s": tm.prefill_s,
          "graphs": eng.horizons.graphs, "graph_captures": tm.graph_captures,
@@ -1092,10 +1165,12 @@ def spec_round_ms(eng) -> dict:
 
 def _kernel_fns():
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.paged_attention import paged_attention_partials
     from repro_torch.kernels.ssm_scan import ssm_chunk_scan
     return {"paged_attention": paged_attention_partials,
             "flash_attention": flash_attention_fwd,
+            "flash_decode": flash_decode,
             "ssm_scan": ssm_chunk_scan}
 
 
@@ -1111,13 +1186,22 @@ def expected_launches(cfg, m) -> dict:
     pass (per target layer, one paged launch per tile of the G * K query
     rows: ``row_tiles``); plus one flash launch per draft layer and
     catch-up call. Its decode steps outside rounds (the degradation ladder
-    turned spec off) launch as plain steps."""
+    turned spec off) launch as plain steps. The enc-dec family adds, per
+    decoder layer, one flash-decode launch (the cross-attention) a decode
+    step and one non-causal flash launch (the cross prefill) a prefill
+    call, and one non-causal flash launch per encoder layer and encoder
+    pass (``m["encoder_calls"]``)."""
     from repro_torch.kernels.paged_attention import row_tiles
     kinds = cfg.block_kinds()
     n_attn = sum(1 for k in kinds if k in ("attn", "local"))
     n_mamba = sum(1 for k in kinds if k == "mamba")
+    n_cross = cfg.n_layers if cfg.family == "encdec" else 0
+    noncausal = (n_cross * m["prefill_calls"]
+                 + cfg.enc_layers * m.get("encoder_calls", 0))
     want = {"paged_attention": n_attn * m["decode_steps"],
-            "flash_attention": n_attn * m["prefill_calls"],
+            "flash_attention": n_attn * m["prefill_calls"] + noncausal,
+            "flash_attention noncausal": noncausal,
+            "flash_decode": n_cross * m["decode_steps"],
             "ssm_scan": n_mamba * (m["decode_steps"] + m["prefill_calls"]),
             "ssm_scan chunk": n_mamba * m["prefill_calls"],
             "ssm_scan step": n_mamba * m["decode_steps"]}
@@ -1135,9 +1219,12 @@ def expected_launches(cfg, m) -> dict:
 
 
 def launch_counts(fns) -> dict:
-    """Each wrapper's launch count, and K4's by route (its chunk kernel
-    carries prefill, its step kernel the decode step)."""
+    """Each wrapper's launch count, K2's non-causal launches apart, and
+    K4's by route (its chunk kernel carries prefill, its step kernel the
+    decode step)."""
     la = {k: fn.launches for k, fn in fns.items()}
+    la["flash_attention noncausal"] = fns["flash_attention"] \
+        .launches_noncausal
     la["ssm_scan chunk"] = fns["ssm_scan"].launches_chunk
     la["ssm_scan step"] = fns["ssm_scan"].launches_step
     return la
@@ -1146,6 +1233,7 @@ def launch_counts(fns) -> dict:
 def reset_counts(fns) -> None:
     for fn in fns.values():
         fn.launches = 0
+    fns["flash_attention"].launches_noncausal = 0
     fns["ssm_scan"].launches_chunk = fns["ssm_scan"].launches_step = 0
 
 
@@ -1161,8 +1249,11 @@ def near_tie_gap(cfg, params, seq) -> float:
     state = MDL.init_decode_state(cfg, spec, 1, device=DEV)
     tok = torch.tensor(np.asarray(seq, np.int32)[None], device=DEV)
     bt = torch.arange(W, dtype=torch.int32, device=DEV)[None]
-    logits, _ = MDL.prefill(cfg, params, state, tok, bt, rt=MDL.Runtime(
-        kernels=KernelConfig(use_kernels=False)))
+    frames = (MDL.stub_frames(cfg, 1, DEV) if cfg.family == "encdec"
+              else None)
+    logits, _ = MDL.prefill(cfg, params, state, tok, bt, frames=frames,
+                            rt=MDL.Runtime(kernels=KernelConfig(
+                                use_kernels=False)))
     top = logits[0, :cfg.vocab_size].topk(2).values
     return float(top[0] - top[1])
 
@@ -2002,7 +2093,8 @@ def path_launches(cfg, engines) -> dict:
     for e in [x for c in engines for x in getattr(c, "engines", [c])]:
         tm = e.timing
         m = {"decode_steps": tm.decode_steps,
-             "prefill_calls": tm.prefill_calls, "spec": e.spec,
+             "prefill_calls": tm.prefill_calls,
+             "encoder_calls": tm.encoder_calls, "spec": e.spec,
              "draft_catchups": tm.draft_catchups,
              "spec_dispatches": dict(tm.spec_dispatches)}
         if e.spec:
@@ -2873,6 +2965,396 @@ def phase_xlstm(smi: str, launches: dict, zref: dict | None) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 13. families: whisper-small (enc-dec), qwen2-vl-7b (M-RoPE), ring pools
+# ---------------------------------------------------------------------------
+
+FAM_DIR = HERE / "build" / "families"
+# whisper's engine: 8 slots of 16-token pages over its 448 text positions,
+# pow2 prefill buckets up to 512, horizon 4 (phase 5's batched path)
+WHISPER = dict(splits=4, n_req=8, chunk=128, max_prefill=512, horizon=4,
+               use_kernels=None, max_context=448)
+
+
+def fam_metrics(m: dict) -> str:
+    return (xl_metrics(m) + f" prefill s={m['prefill_s']:.3f} peak device "
+            f"MB={m['peak_bytes'] / 2**20:.1f} graph captures="
+            f"{m['graph_captures']} capture ms={1e3 * m['capture_s']:.1f} "
+            f"decode_steps={m['decode_steps']} prefill_calls="
+            f"{m['prefill_calls']} encoder_calls={m['encoder_calls']}")
+
+
+def fam_launches(label, cfg, m, la, launches=None) -> None:
+    """One run's launches against ``expected_launches``; the main path's
+    (``launches`` given) are added to the totals."""
+    want = expected_launches(cfg, m)
+    print(f"[families] {label} launches: " + " ".join(
+        f"{k}={la[k]} (expected {want[k]})" for k in la if want[k] or la[k]),
+        flush=True)
+    if la != want or not all(la[k] for k in la if want[k]):
+        fail(f"{label}: kernel launches {la} do not match {want}")
+    if launches is not None:
+        for k, v in la.items():
+            launches[k] = launches.get(k, 0) + v
+
+
+def whisper_engine(cfg, params, **kw):
+    """``serve``'s engine at WHISPER's geometry (for the restore and the
+    cluster, which drive it themselves)."""
+    from repro_torch.serving import EngineConfig
+    return EngineConfig(
+        n_slots=8, page_size=16, n_pages=1024,
+        max_context=WHISPER["max_context"], eos_token=-1,
+        prefill_mode="batched", prefill_chunk=WHISPER["chunk"],
+        decode_horizon=WHISPER["horizon"], kernel_splits=WHISPER["splits"],
+        max_prefill=WHISPER["max_prefill"], **kw)
+
+
+def fam_whisper(smi: str, launches: dict) -> None:
+    """(a) whisper-small whole: batched h4 on graphs (the main path),
+    eagerly and on the plain path, slot and chunked (128); kill and
+    restore; a 1 + 1 cluster. Tokens equal the graph run's (near ties
+    printed); launches by kernel equal what the steps and calls imply."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, param_count_actual
+    from repro_torch.serving import (ClusterConfig, DecodeEngine,
+                                     EngineCluster, Request)
+    cfg = replace(get_config("whisper-small"), dtype="float32")
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    n = param_count_actual(params)
+    print(f"[families] {cfg.name}: {cfg.enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers d={cfg.d_model} heads="
+          f"{cfg.n_heads} enc_seq={cfg.enc_seq} vocab={cfg.vocab_size} "
+          f"params={n} fp32 ({4 * n / 2**30:.2f} GiB); cross rows "
+          f"{2 * 4 * cfg.n_layers * 8 * cfg.enc_seq * cfg.kv_dim / 2**20:.1f}"
+          " MiB at 8 slots", flush=True)
+    fns = _kernel_fns()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n_tok))
+               for n_tok in rng.integers(128, 417, 8)]
+    serve(cfg, params, prompts=prompts, mode="batched",
+          **dict(WHISPER, n_req=2))     # first use of each shape: unreported
+    runs = (("batched graphs", dict(mode="batched")),
+            ("batched eager", dict(mode="batched", decode_graphs=False)),
+            ("batched plain", dict(mode="batched", use_kernels=False)),
+            ("slot", dict(mode="slot")),
+            ("chunked", dict(mode="chunked")))
+    outs, ms = {}, {}
+    for label, kw in runs:
+        # the counts are set to 0 just before each run and read just after
+        reset_counts(fns)
+        outs[label], m = serve(cfg, params, prompts=prompts,
+                               **dict(WHISPER, **kw))
+        ms[label] = m
+        la = launch_counts(fns)
+        print(f"[families] {cfg.name} {label}: completed={m['completed']}/"
+              f"{m['n']} page balance max={m['bal_max']} min={m['bal_min']}"
+              f" tokens={m['tokens']} wall={m['wall_s']:.3f} s "
+              f"{fam_metrics(m)} | {smi}", flush=True)
+        if label == "batched plain":
+            if any(la.values()):
+                fail(f"{cfg.name} plain: a kernel launched {la}")
+        else:
+            fam_launches(f"{cfg.name} {label}", cfg, m, la,
+                         launches if label == "batched graphs" else None)
+        if m["completed"] != m["n"] or m["bal_max"] or m["bal_min"] \
+                or m["pages_in_use"]:
+            fail(f"{cfg.name} {label}: completed {m['completed']}/{m['n']},"
+                 f" {m['pages_in_use']} pages left")
+    if not ms["batched graphs"]["graphs"] or ms["batched eager"]["graphs"]:
+        fail(f"{cfg.name}: the default engine did not run the horizon as "
+             "graphs, or decode_graphs=False did")
+    for label, _ in runs[1:]:
+        compare_tokens(f"{cfg.name} {label}", cfg, params, prompts,
+                       outs["batched graphs"], outs[label],
+                       ("batched graphs", label))
+    ref = outs["batched graphs"]
+
+    # kill and restore: snapshot at tick 6, a fresh engine restores it
+    d = FAM_DIR / "snapshots"
+    shutil.rmtree(d, ignore_errors=True)
+    eng = DecodeEngine(cfg, whisper_engine(cfg, params, snapshot_dir=str(d)),
+                       params, device=DEV)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, 32))
+    for _ in range(6):
+        eng.tick()
+    path = eng.save_snapshot()
+    warm = sum(1 for e in json.loads((Path(path) / "manifest.json")
+                                     .read_text())["extra"]["reqs"].values()
+               if e["state"] == "warm")
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng2 = DecodeEngine(cfg, whisper_engine(cfg, params,
+                                            snapshot_dir=str(d)),
+                        params, device=DEV)
+    rows = eng2.state["cross_k"].data_ptr()
+    reset_counts(fns)
+    step = eng2.restore_snapshot()
+    out = {k: list(v) for k, v in eng2.run(100_000).items()}
+    check_main_path("(a) restored run", cfg, [eng2], launch_counts(fns),
+                    launches, "families")
+    print(f"[families] {cfg.name} kill and restore: snapshot at tick {step},"
+          f" {warm} warm of {len(prompts)} requests ({nbytes / 1e6:.1f} MB "
+          f"with their cross rows), rstate restores {eng2.rstate_restores} "
+          f"| {smi}", flush=True)
+    if step is None or not warm or eng2.state["cross_k"].data_ptr() != rows \
+            or eng2.alloc.pages_in_use:
+        fail(f"{cfg.name}: the restore restored nothing, rebound the cross "
+             "rows or leaked pages")
+    compare_tokens(f"{cfg.name} kill and restore", cfg, params, prompts, ref,
+                   out, ("uninterrupted", "restored"))
+    shutil.rmtree(d, ignore_errors=True)
+    del eng2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a 1 prefill + 1 decode cluster: pages and cross rows handed over
+    reset_counts(fns)
+    cl = EngineCluster(cfg, whisper_engine(cfg, params), ClusterConfig(),
+                       params, device=DEV)
+    for i, p in enumerate(prompts):
+        cl.submit(Request(i, p, 32))
+    out = {k: list(v) for k, v in cl.run(100_000).items()}
+    check_main_path("(a) disagg 1p+1d", cfg, [cl], launch_counts(fns),
+                    launches, "families")
+    c = cl.counters
+    print(f"[families] {cfg.name} 1 prefill + 1 decode engine: "
+          f"{c['handoffs']} handoffs, {c['handoff_ok']} applied, "
+          f"{cl.transfer.applied_bytes / 1e6:.1f} MB | {smi}", flush=True)
+    if not c["handoffs"] or c["handoff_ok"] != c["handoffs"]:
+        fail(f"{cfg.name}: router counters {c}")
+    compare_tokens(f"{cfg.name} disagg 1p+1d", cfg, params, prompts, ref,
+                   out, ("colocated", "disagg"))
+    del cl, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _close_scaled(label, got, want, tol) -> float:
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    if not torch.isfinite(got).all() or err > tol * scale:
+        fail(f"{label}: max |kernel - plain| {err:.3e} over {tol} x "
+             f"{scale:.3f}")
+    return err
+
+
+def fam_qwen2vl(smi: str, launches: dict) -> None:
+    """(b) qwen2-vl-7b whole: batched h4 on graphs against the plain path
+    (tokens); at the model level 4 rows of 256 image positions (a 16 x 16
+    grid: t 0, h = i // 16, w = i % 16, ``extra_embeds`` over them) and 64
+    text positions at max + 1 on all three axes, then 8 decode steps: the
+    kernel path's logits against the plain path's (3e-4 prefill, 4e-3
+    decode, of max(1, |logits|), repro's model tolerances)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.paged_kv import PoolSpec
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.models import model as MDL
+    cfg = replace(get_config("qwen2-vl-7b"), dtype="float32")
+    params = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    n = MDL.param_count_actual(params)
+    print(f"[families] {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} mrope={cfg.mrope_sections} "
+          f"params={n} fp32 ({4 * n / 2**30:.2f} GiB)", flush=True)
+    fns = _kernel_fns()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n_tok))
+               for n_tok in rng.integers(128, 513, 8)]
+    kw = dict(WHISPER, max_context=1280, mode="batched")
+    serve(cfg, params, prompts=prompts, **dict(kw, n_req=2))
+    outs, ms = {}, {}
+    for way, wkw in (("graphs", dict()), ("plain", dict(use_kernels=False))):
+        reset_counts(fns)
+        outs[way], m = serve(cfg, params, prompts=prompts, **dict(kw, **wkw))
+        ms[way] = m
+        la = launch_counts(fns)
+        print(f"[families] {cfg.name} batched {way}: completed="
+              f"{m['completed']}/{m['n']} tokens={m['tokens']} wall="
+              f"{m['wall_s']:.3f} s {fam_metrics(m)} | {smi}", flush=True)
+        if way == "graphs":
+            fam_launches(f"{cfg.name} graphs", cfg, m, la, launches)
+        elif any(la.values()):
+            fail(f"{cfg.name} plain: a kernel launched {la}")
+        if m["completed"] != m["n"] or m["pages_in_use"]:
+            fail(f"{cfg.name} {way}: incomplete or leaked pages")
+    compare_tokens(f"{cfg.name} batched", cfg, params, prompts,
+                   outs["graphs"], outs["plain"], ("graphs", "plain"))
+
+    B, n_img, n_txt, steps, page = 4, 256, 64, 8, 16
+    S = n_img + n_txt
+    W = -(-(S + steps) // page)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=g,
+                         device=DEV, dtype=torch.int32)
+    ee = torch.randn(B, S, cfg.d_model, generator=g, device=DEV) * 0.02
+    ee[:, n_img:] = 0
+    i = torch.arange(n_img, device=DEV)
+    img = torch.stack([torch.zeros_like(i), i // 16, i % 16])   # [3, 256]
+    txt = (img.max() + 1 + torch.arange(n_txt + steps, device=DEV))
+    pos = torch.cat([img, txt[None].expand(3, -1)], 1)          # [3, S+8]
+    pos = pos[:, None].expand(3, B, S + steps).to(torch.int32)
+    bt = torch.arange(B * W, dtype=torch.int32, device=DEV).reshape(B, W)
+    spec = PoolSpec(cfg.n_layers, B * W, page, cfg.n_kv_heads, cfg.d_head,
+                    W, dtype="float32")
+    logits = {}
+    for way, kc in (("kernels", KernelConfig(n_splits=4)),
+                    ("plain", KernelConfig(use_kernels=False))):
+        rt = MDL.Runtime(kernels=kc)
+        state = MDL.init_decode_state(cfg, spec, B, device=DEV)
+        out = [MDL.prefill(cfg, params, state, toks[:, :S], bt,
+                           positions=pos[:, :, :S], extra_embeds=ee,
+                           rt=rt)[0]]
+        for t in range(S, S + steps):
+            ctx = torch.full((B,), t + 1, dtype=torch.int32, device=DEV)
+            out.append(MDL.decode_step(
+                cfg, params, state, toks[:, t], bt, ctx, bt[:, t // page],
+                torch.full((B,), t % page, dtype=torch.int32, device=DEV),
+                positions=pos[:, :, t:t + 1], rt=rt)[0])
+        logits[way] = out
+        del state
+    pre = _close_scaled(f"{cfg.name} M-RoPE prefill", logits["kernels"][0],
+                        logits["plain"][0], 3e-4)
+    dec = max(_close_scaled(f"{cfg.name} M-RoPE decode {t}", a, b, 4e-3)
+              for t, (a, b) in enumerate(zip(logits["kernels"][1:],
+                                             logits["plain"][1:])))
+    print(f"[families] {cfg.name} M-RoPE (16 x 16 grid + 64 text "
+          f"positions, {steps} decode steps, B {B}): kernel vs plain "
+          f"logits max_abs_err prefill {pre:.3e} decode {dec:.3e} | {smi}",
+          flush=True)
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fam_ring(smi: str, launches: dict) -> None:
+    """(c) mixtral-8x22b at full width, its first 2 of 56 layers (window
+    4096 on every layer): 4 slots, slot prefill, prompts of 4600-6000
+    tokens, 32 new, horizon 4, on ``Runtime(ring_width=258)`` against the
+    full pool (tokens); at the model level a request held to 258 ring pages
+    against the full pool's 376, its logits within 2e-4 of max(1, |logits|)
+    of the full pool's and of the ring's with plain decode steps
+    (``use_kernels=False``): K1's ring mode at mixtral's layout held to the
+    plain ring attention through the model. The prefill stays on K2 in
+    both: a plain prefill routes 1-2 of the 12000 top-2 expert choices
+    otherwise (near ties), ring or not, which moves the logits by ~6e-3;
+    phase 3 holds K2 at this prefill's shape instead."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.allocator import PageAllocator
+    from repro_torch.core.paged_kv import PoolSpec
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.models import model as MDL
+    from repro_torch.serving import DecodeEngine, EngineConfig, Request
+    cfg = replace(get_config("mixtral-8x22b"), dtype="float32", n_layers=2)
+    params = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    n = MDL.param_count_actual(params)
+    page = 16
+    W = (cfg.sliding_window + page) // page + 1
+    print(f"[families] {cfg.name}: 2 of 56 layers d={cfg.d_model} heads="
+          f"{cfg.n_heads}/{cfg.n_kv_heads} experts={cfg.n_experts} window="
+          f"{cfg.sliding_window} ring_width={W} params={n} fp32 "
+          f"({4 * n / 2**30:.2f} GiB)", flush=True)
+    fns = _kernel_fns()
+    kc = KernelConfig(n_splits=4)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n_tok))
+               for n_tok in rng.integers(4600, 6001, 4)]
+    outs = {}
+    for label, ring in (("full pool", 0), ("ring", W)):
+        eng = DecodeEngine(cfg, EngineConfig(
+            n_slots=4, page_size=page, n_pages=1600, max_context=6144,
+            eos_token=-1, prefill_mode="slot", decode_horizon=4,
+            kernel_splits=4), params, MDL.Runtime(ring_width=ring,
+                                                  kernels=kc), device=DEV)
+        reset_counts(fns)
+        outs[label], m = serve_kv(cfg, params, prompts, eng=eng, keep=True)
+        m["encoder_calls"] = 0
+        fam_launches(f"{cfg.name} {label}", cfg, m, launch_counts(fns),
+                     launches)
+        dec = eng.timing.decode_tokens
+        print(f"[families] {cfg.name} {label}: completed={m['completed']}/"
+              f"{m['n']} peak pages={m['peak_pages']} ttft mean="
+              f"{m['ttft_mean_ms']:.1f} ms decode tok/s="
+              f"{dec / max(m['decode_s'], 1e-9):.1f} prefill s="
+              f"{m['prefill_s']:.3f} prefiller={eng.prefiller.name} | {smi}",
+              flush=True)
+        if m["completed"] != m["n"] or m["pages_in_use"]:
+            fail(f"{cfg.name} {label}: incomplete or leaked pages")
+        if ring and m["peak_pages"] > 4 * W:
+            fail(f"{cfg.name} ring: {m['peak_pages']} pages in use, more "
+                 f"than 4 x {W}")
+        del eng, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    compare_tokens(f"{cfg.name} ring", cfg, params, prompts,
+                   outs["full pool"], outs["ring"], ("full pool", "ring"))
+
+    steps, S = 8, 6000
+    g = torch.Generator(device=DEV).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, S + steps), generator=g,
+                         device=DEV, dtype=torch.int32)
+    logits, held = {}, {}
+    for label, ring, kdec in (("full pool", 0, kc), ("ring", W, kc),
+                              ("ring plain decode", W,
+                               KernelConfig(use_kernels=False))):
+        width = W if ring else -(-(S + steps) // page)
+        alloc = PageAllocator(1600, 1, page, ring_pages=ring or None)
+        alloc.admit(0, S + steps)
+        held[label] = len(alloc.pages_of(0))
+        bt = torch.tensor(alloc.block_table(0, width)[None], device=DEV,
+                          dtype=torch.int32)
+        state = MDL.init_decode_state(cfg, PoolSpec(
+            cfg.n_layers, 1600, page, cfg.n_kv_heads, cfg.d_head, width,
+            dtype="float32", ring=bool(ring)), 1, device=DEV)
+        rt = MDL.Runtime(ring_width=ring, kernels=kc)
+        out = [MDL.prefill(cfg, params, state, toks[:, :S], bt, rt=rt)[0]]
+        rt = MDL.Runtime(ring_width=ring, kernels=kdec)
+        for t in range(S, S + steps):
+            vp = (t // page) % ring if ring else t // page
+            out.append(MDL.decode_step(
+                cfg, params, state, toks[:, t], bt,
+                torch.full((1,), t + 1, dtype=torch.int32, device=DEV),
+                bt[:, vp], torch.full((1,), t % page, dtype=torch.int32,
+                                      device=DEV), rt=rt)[0])
+        logits[label] = torch.stack(out)
+        del state
+    err = _close_scaled(f"{cfg.name} ring logits", logits["ring"],
+                        logits["full pool"], 2e-4)
+    err_plain = _close_scaled(f"{cfg.name} ring logits against plain decode"
+                              " steps", logits["ring"],
+                              logits["ring plain decode"], 2e-4)
+    print(f"[families] {cfg.name} ring at the model level: {S} + {steps} "
+          f"tokens held in {held['ring']} ring pages against "
+          f"{held['full pool']} (PageAllocator(ring_pages={W})); logits "
+          f"max_abs_err vs the full pool {err:.3e}, vs the ring's plain "
+          f"decode steps {err_plain:.3e} | {smi}", flush=True)
+    if held["ring"] != W or held["full pool"] <= W:
+        fail(f"{cfg.name}: the ring held {held['ring']} pages, the full "
+             f"pool {held['full pool']}")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_families(smi: str, launches: dict) -> None:
+    """Phase 13: (a) whisper-small, (b) qwen2-vl-7b, (c) the ring pool on
+    mixtral-8x22b, each model freed before the next loads."""
+    t0 = time.perf_counter()
+    for label, fn in (("a", fam_whisper), ("b", fam_qwen2vl),
+                      ("c", fam_ring)):
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        fn(smi, launches)
+        print(f"[families] ({label}) in {time.perf_counter() - t:.1f} s, "
+              f"peak device MB "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f}", flush=True)
+    print(f"[families] phase 13 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
     """``--kernel-times SRC``: K1, K2, K3 and K4 of the ``repro_torch``
     under ``SRC`` (this checkout's ``src`` or another's, e.g. an unpacked
@@ -3008,6 +3490,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--xlstm"]:
         phase_xlstm(smi, {}, None)
         return 0
+    if sys.argv[1:2] == ["--families"]:
+        phase_families(smi, {})
+        return 0
     main_cases = phase_kernels()
     bench_launches = phase_bench(smi)
     ref: dict = {}
@@ -3018,7 +3503,10 @@ def main() -> int:
     phase_lifecycle(smi, launches)
     phase_disagg(smi, launches)
     phase_xlstm(smi, launches, ref.get("zamba2-1.2b"))
-    launches["flash_decode"] = bench_launches["flash_decode"]
+    phase_families(smi, launches)
+    # K3 serves whisper's cross-attention decode (phase 13) beside the bench
+    serving_k3 = launches.get("flash_decode", 0)
+    launches["flash_decode"] = serving_k3 + bench_launches["flash_decode"]
     meta = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:130"),
@@ -3046,6 +3534,29 @@ def main() -> int:
                 "verify_ms": v["ms"], "verify_graph_ms": v["graph_ms"],
                 "verify_bound_ms": v["bound_ms"],
                 "verify_plain_ms": v["plain_ms"]})
+        if name == "flash_attention":    # non-causal: whisper's encoder
+            for key, tag in (("flash_attention encoder", "encoder"),
+                             ("flash_attention cross", "cross")):
+                c = main_cases[key]
+                kernels[-1].update({
+                    f"{tag}_max_abs_err": c["max_abs_err"],
+                    f"{tag}_ms": c["ms"], f"{tag}_plain_ms": c["plain_ms"],
+                    f"{tag}_bound_ms": c["bound_ms"],
+                    f"{tag}_bound_by": c["bound_by"],
+                    f"{tag}_library_ms": c.get("library_ms")})
+            kernels[-1]["launches_noncausal"] = \
+                launches["flash_attention noncausal"]
+        if name == "flash_decode":    # whisper's cross decode, the bench
+            c = main_cases["flash_decode serving"]
+            kernels[-1].update({
+                "launches_serving": serving_k3,
+                "launches_bench": bench_launches["flash_decode"],
+                "serving_max_abs_err": c["max_abs_err"],
+                "serving_ms": c["ms"], "serving_graph_ms": c["graph_ms"],
+                "serving_plain_ms": c["plain_ms"],
+                "serving_bound_ms": c["bound_ms"],
+                "serving_bound_by": c["bound_by"],
+                "serving_library_ms": c.get("library_ms")})
         if name == "ssm_scan":    # its decode route, the step kernel
             d = main_cases["ssm_scan_decode"]
             kernels[-1].update({

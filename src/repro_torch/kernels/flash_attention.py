@@ -4,15 +4,17 @@ Port of ``repro/kernels/flash_attention.py`` (the Pallas TPU kernel
 ``_kernel`` / ``flash_attention_fwd``): causal / windowed GQA forward
 attention with a normalised output, ``[B, Sq, H, D] x [B, Skv, KVH, D]``.
 It carries the model's prefill and chunked-prefill attention
-(``models/model.py``), where the JAX model calls the jnp
-``layers.flash_attention`` — the same function.
+(``models/model.py``: causal self-attention, and the enc-dec encoder and
+cross-attention prefill without the causal mask), where the JAX model
+calls the jnp ``layers.flash_attention`` — the same function.
 
 * CUDA tensors launch ``csrc/flash_attention.cu`` (one thread block per
   (batch row, kv head, query tile), all G query heads of the kv head
   together, K/V tiles streamed by TMA; bf16 inputs on ``wgmma``, fp32
   inputs as three TF32 tensor-core products, see ``tf32_split`` and the
   note in the source). Each launch is counted in
-  ``flash_attention_fwd.launches``.
+  ``flash_attention_fwd.launches``, a ``causal=False`` one (the enc-dec
+  encoder and cross prefill) also in ``.launches_noncausal``.
 * CPU tensors take the plain version, ``flash_attention_plain``
   (= ``models.layers.flash_attention``).
 
@@ -119,6 +121,8 @@ def _launch(q, k, v, *, causal: bool, window: int, q_offset):
         KVH, D, int(bool(causal)), int(window), build.stream_ptr(q.device))
     build.check(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    if not causal:
+        flash_attention_fwd.launches_noncausal += 1
     return out
 
 
@@ -137,3 +141,4 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_noncausal = 0

@@ -21,7 +21,10 @@ merges to 0, not NaN.
   split boundaries, written as dense PyTorch.
 
 It carries ``ops.itpp_partials``, which the kernel bench
-(``launch/kernel_bench.py``) times; no serving path of ``repro`` calls it.
+(``launch/kernel_bench.py``) times, and ``ops.cross_attention_decode``:
+the enc-dec decode step's cross-attention over the contiguous encoder rows
+(where the JAX model calls ``layers.decode_attention_ref``, the same
+function), inside the captured decode horizon.
 """
 from __future__ import annotations
 

@@ -11,6 +11,10 @@ Port of the parts of ``repro/kernels/ops.py`` this slice runs:
   ``KernelConfig`` asks for the plain path;
 * ``mamba_mixer`` — the Mamba2 scan: the chunk-scan kernel wrapper under
   the same rule, ``models.ssm.chunked_gla`` on the plain path;
+* ``cross_attention_decode`` — an enc-dec decode step's cross-attention
+  over the contiguous encoder rows (every position valid): the
+  flash-decode kernel's split-K partials (``itpp_partials``) and their
+  merge, or ``layers.decode_attention_ref`` on the plain path, as in JAX;
 * ``verify_attention`` — a speculative round's multi-query attention:
   the paged split-K kernel in its ``qpos > 1`` mode (one pass scores the
   pending token and every proposal), or ``ref.paged_attention_verify_ref``
@@ -34,7 +38,7 @@ from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_verify)
 from repro_torch.kernels.ssm_scan import ssm_chunk_scan
-from repro_torch.models.layers import flash_attention
+from repro_torch.models.layers import decode_attention_ref, flash_attention
 from repro_torch.models.ssm import chunked_gla, mask_log_gates_tail
 
 
@@ -155,3 +159,29 @@ def itpp_partials(q, k, v, ctx_lens, *, n_splits: int = 8,
 
 def merge_partials(o, l, m):
     return REF.merge_flash_partials(o, l, m)
+
+
+# the token splits of a cross-attention decode: whisper's 1500 encoder rows
+# cut into splits of 188 (the tail split 184, padded), 8 x B x KVH blocks
+CROSS_SPLITS = 8
+
+
+def cross_attention_decode(q, k, v, ctx, *,
+                           kernels: KernelConfig | None = None):
+    """One query token a row against contiguous cross K/V, every position
+    valid: q [B, H, D]; k/v [B, T, KVH, D]; ctx [B] int32, T on every row
+    (made once a step by the caller) -> [B, H, D] in q.dtype.
+
+    With kernels on: ``itpp_partials`` at ``CROSS_SPLITS`` splits (the
+    flash-decode kernel on a card, its plain version on CPU tensors) and
+    ``merge_partials``. ``kernels=None`` or ``use_kernels=False``:
+    ``layers.decode_attention_ref``, the call JAX's decode block makes.
+    Nothing here reads the host, so it runs inside a captured horizon."""
+    B, H, D = q.shape
+    KVH = k.shape[2]
+    if kernels is not None and kernels.enabled:
+        o, l, m = itpp_partials(q.reshape(B, KVH, H // KVH, D).contiguous(),
+                                k, v, ctx, n_splits=CROSS_SPLITS,
+                                kernels=kernels)
+        return merge_partials(o, l, m).reshape(B, H, D).to(q.dtype)
+    return decode_attention_ref(q, k, v, ctx)

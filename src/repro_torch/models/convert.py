@@ -10,6 +10,9 @@ its shared attention block ``attn_shared`` is one unstacked dict, in both
 packages; so do xLSTM's ``mlstm/*`` and ``slstm/*`` (``[n_cyc, ...]``,
 ``slstm/r`` ``[n_cyc, 4, H, dh, dh]``). Dense weights keep the JAX layout
 ``[d_in, d_out]`` — no transpose: both packages compute ``x @ w``. The
+enc-dec family's stacked ``enc/*`` and ``dec/*`` (with each decoder
+layer's ``lnx`` and ``xattn``) become per-layer lists as ``layers`` does;
+``enc_norm`` stays a leaf. The
 tied embedding stays ``[V, D]`` and is transposed by ``layers.lm_head``,
 as in JAX.
 """
@@ -45,10 +48,13 @@ def params_from_numpy(cfg, tree: dict, device=None,
         dt = torch.float32 if name in _FP32_LEAVES else dtype
         return _tensor(node if layer is None else node[layer], dev, dt)
 
-    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    if "layers" in tree:
-        out["layers"] = [conv(tree["layers"], i)
-                         for i in range(cfg.n_layers)]
+    # stacked attention stacks become lists of per-layer dicts
+    depth = {"layers": cfg.n_layers, "dec": cfg.n_layers,
+             "enc": cfg.enc_layers}
+    out = {k: conv(v) for k, v in tree.items() if k not in depth}
+    for k, n in depth.items():
+        if k in tree:
+            out[k] = [conv(tree[k], i) for i in range(n)]
     return out
 
 

@@ -63,6 +63,23 @@ def rope_cos_sin(positions: torch.Tensor, d_head: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_cos_sin(positions: torch.Tensor, d_head: int, theta: float,
+                  sections: tuple[int, ...]):
+    """M-RoPE: positions [3, B, S] (t/h/w ids); ``sections`` sum to
+    d_head/2. Frequency slot j takes its position from the axis whose
+    section owns j, the sections contiguous (t, then h, then w), as in
+    repro. Returns (cos, sin) [B, S, d_head/2]."""
+    if sum(sections) != d_head // 2:
+        raise ValueError(f"mrope sections {sections} do not sum to "
+                         f"d_head/2 = {d_head // 2}")
+    inv = _inv_freqs(d_head, float(theta), positions.device)
+    pos = positions.float()
+    bounds = np.cumsum((0,) + tuple(sections))
+    ang = torch.cat([pos[a][..., None] * inv[bounds[a]:bounds[a + 1]]
+                     for a in range(len(sections))], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     """x [B, S, H, D]; cos/sin [B, S, D/2]. The first and second halves of
     the head dimension form the rotated pairs (not interleaved pairs)."""
@@ -188,3 +205,23 @@ def lm_head(x: torch.Tensor, w: torch.Tensor, *, transpose: bool):
     embeddings ([V, D] table)."""
     wt = w.t() if transpose else w
     return torch.matmul(x.float(), wt.float())
+
+
+# ---------------------------------------------------------------------------
+# sinusoidal positions (the enc-dec family: no rope)
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=16)
+def _sin_div(d: int, device: torch.device):
+    # made once per device, as ``_inv_freqs``: a decode step inside a
+    # captured horizon computes its position on the card from ctx alone
+    return torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                  device=device) * (-math.log(10000.0) / d))
+
+
+def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """The sinusoidal embedding at device positions [...] -> [..., d]
+    float32: sin on even columns, cos on odd ones."""
+    ang = positions.float()[..., None] * _sin_div(d, positions.device)
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
+        *positions.shape, d)

@@ -1,7 +1,7 @@
 """The model: parameters, decode, fused multi-step decode, speculative
 decode (the draft's proposal scan and the one-pass multi-query verify),
-prefill and chunked prefill, for attention-only stacks, the zamba2
-hybrid and xLSTM.
+prefill and chunked prefill, for attention-only stacks (dense, MoE, the
+M-RoPE VLM backbone), the zamba2 hybrid, xLSTM and the enc-dec family.
 
 Port of ``repro/models/model.py``. Each ``lax.scan`` over layers or decode
 steps becomes a Python loop; the paged pool is updated in place (each layer
@@ -30,8 +30,28 @@ stacked rows ``mlstm`` = (C, n, m) and ``slstm`` = (c, n, m, h), each
 runs on this path: the mLSTM is the plain ``chunked_gla(normalize=True)``
 and the sLSTM a loop of cell steps (``models/ssm.py``), as in JAX.
 
-The enc-dec family (whisper) is ROADMAP A.6.3, multimodal rope (qwen2-vl)
-A.6.4 and ring pools A.6.5.
+The enc-dec family (whisper, ``family == "encdec"``): an encoder stack of
+non-causal attention blocks over stub frame embeddings (``encode``) and a
+decoder stack (``params["dec"]``) whose every block adds cross-attention
+to the encoder states after its self-attention. Positions are sinusoidal
+(added to the embeddings; no rope). The cross K/V rows are computed once
+a request (``make_cross_kv``) and kept in the decode state as stacked
+``cross_k`` / ``cross_v`` rows ``[L, B, enc_seq, KVH, D]``, written in
+place like the recurrent rows. Prefill attends to them through
+``ops.attention_fwd(causal=False)`` (the flash-attention kernel), a decode
+step through ``ops.cross_attention_decode`` (the flash-decode kernel's
+split-K partials and their merge), where JAX calls the jnp
+``flash_attention`` and ``decode_attention_ref``: the same functions.
+
+Multimodal rope (qwen2-vl, ``rope_kind == "mrope"``): positions are
+``[3, B, S]`` (t, h, w ids) where a caller gives them (``prefill``'s
+``positions=`` beside ``extra_embeds=``, the vision tower's stand-ins);
+by default one id on all three axes, which is plain rope.
+
+Ring pools (``Runtime(ring_width=W)``, sliding-window stacks): table slots
+recycle mod W, prefill writes only the prompt's last ``W * page`` tokens
+and decode attention maps slots back to virtual pages (the paged kernel's
+``ring_width``).
 """
 from __future__ import annotations
 
@@ -58,11 +78,6 @@ class Runtime:
     kernels: KernelConfig | None = None
     gla_chunk: int = 128                 # Mamba2 scan chunk at prefill
 
-    def __post_init__(self):
-        if self.ring_width:
-            raise NotImplementedError(
-                "ring pools (all-windowed stacks) are ROADMAP A.6.5")
-
     def itpp_apply(self, q, k, v, pk, pv, bt, ctx, npage, noff, window):
         return itpp_decode_attention_shard(
             q, k, v, pk, pv, bt, ctx, npage, noff, window,
@@ -84,19 +99,13 @@ def _is_xlstm(cfg) -> bool:
 
 
 def _check_family(cfg) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is ROADMAP A.6.3")
-    if cfg.rope_kind == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name}: multimodal rope is ROADMAP A.6.4")
     attn_only = all(k in ("attn", "local") for k in cfg.block_kinds())
     if (cfg.is_moe and not attn_only) \
             or not (attn_only or _is_hybrid(cfg) or _is_xlstm(cfg)):
         raise NotImplementedError(
             f"{cfg.name}: pattern {cfg.pattern!r} is not ported; the port "
-            "serves attention-only stacks (dense or MoE), the zamba2 hybrid "
-            "and xLSTM")
+            "serves attention-only stacks (dense, MoE, enc-dec), the zamba2 "
+            "hybrid and xLSTM")
     if (_is_hybrid(cfg) or _is_xlstm(cfg)) \
             and cfg.n_layers % len(cfg.pattern):
         raise ValueError(f"{cfg.name}: a recurrent stack runs whole pattern "
@@ -111,17 +120,25 @@ def _hybrid_cycles(cfg) -> tuple[int, int]:
             sum(1 for k in cfg.pattern if k == "mamba"))
 
 
-def _init_attn_layer(cfg, normal, zeros):
+def _init_attention(cfg, normal, zeros, *, cross: bool = False):
     d = cfg.d_model
     attn = {"wq": normal((d, cfg.q_dim), 1 / math.sqrt(d)),
             "wk": normal((d, cfg.kv_dim), 1 / math.sqrt(d)),
             "wv": normal((d, cfg.kv_dim), 1 / math.sqrt(d)),
             "wo": normal((cfg.q_dim, d),
                          1 / math.sqrt(cfg.q_dim * 2 * cfg.n_layers))}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         attn["qn"] = zeros(cfg.d_head)
         attn["kn"] = zeros(cfg.d_head)
-    lp = {"ln1": zeros(d), "attn": attn}
+    return attn
+
+
+def _init_attn_layer(cfg, normal, zeros, *, cross: bool = False):
+    d = cfg.d_model
+    lp = {"ln1": zeros(d), "attn": _init_attention(cfg, normal, zeros)}
+    if cross:
+        lp["lnx"] = zeros(d)
+        lp["xattn"] = _init_attention(cfg, normal, zeros, cross=True)
     if cfg.is_moe:
         lp["ln2"] = zeros(d)
         lp["moe"] = MOE.init_moe(cfg, normal)
@@ -141,7 +158,9 @@ def init_params(cfg, seed: int = 0, dtype=torch.float32, device=None):
     [D, V]), "layers": [per-layer dict]}`` for attention stacks; hybrids
     hold ``"mamba"`` (stacked ``[L_mamba, ...]`` leaves) and
     ``"attn_shared"`` (one attention layer) instead of ``"layers"``; xLSTM
-    holds ``"mlstm"`` and ``"slstm"`` (stacked ``[n_cyc, ...]`` leaves).
+    holds ``"mlstm"`` and ``"slstm"`` (stacked ``[n_cyc, ...]`` leaves);
+    the enc-dec family ``"enc"`` (per-layer dicts), ``"enc_norm"`` and
+    ``"dec"`` (per-layer dicts with ``lnx`` and ``xattn``).
     Dense weights are ``[d_in, d_out]``; the Mamba2 ``A_log``, ``D`` and
     ``dt_bias`` and the xLSTM gate biases stay fp32, as in JAX.
     """
@@ -181,6 +200,13 @@ def init_params(cfg, seed: int = 0, dtype=torch.float32, device=None):
         params["slstm"] = stack([SSM.init_slstm(cfg, normal, zeros, dtype, dev)
                                  for _ in range(n_cyc)])
         return params
+    if cfg.family == "encdec":
+        params["enc"] = [_init_attn_layer(cfg, normal, zeros)
+                         for _ in range(cfg.enc_layers)]
+        params["enc_norm"] = zeros(d)
+        params["dec"] = [_init_attn_layer(cfg, normal, zeros, cross=True)
+                         for _ in range(cfg.n_layers)]
+        return params
     params["layers"] = [_init_attn_layer(cfg, normal, zeros)
                         for _ in range(cfg.n_layers)]
     return params
@@ -202,10 +228,26 @@ def _window_array(cfg) -> list[int]:
 
 
 def _cos_sin(cfg, positions):
-    """positions [B, S] -> cos/sin [B, S, dh/2] (None without rope)."""
+    """positions [B, S] (rope), or [3, B, S] or [B, S] (M-RoPE; [B, S]
+    broadcast to all three axes) -> cos/sin [B, S, dh/2] (None without
+    rope)."""
     if cfg.rope_kind == "none":
         return None
+    if cfg.rope_kind == "mrope":
+        if positions.dim() == 2:
+            positions = positions[None].expand(3, *positions.shape)
+        return L.mrope_cos_sin(positions, cfg.d_head, cfg.rope_theta,
+                               cfg.mrope_sections)
     return L.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+
+
+def default_positions(cfg, B: int, S: int, device=None):
+    """Positions ``arange(S)`` a row: [B, S], or [3, B, S] (one id on all
+    three axes) for M-RoPE."""
+    pos = torch.arange(S, device=device)[None].expand(B, S)
+    if cfg.rope_kind == "mrope":
+        return pos[None].expand(3, B, S)
+    return pos
 
 
 # ---------------------------------------------------------------------------
@@ -213,10 +255,10 @@ def _cos_sin(cfg, positions):
 # ---------------------------------------------------------------------------
 
 # state entries with a per-slot batch row at axis 1 ([L, B, ...] leaves):
-# the recurrent carry the serving engine resets, gathers and scatters per
-# slot for state-carrying batched / chunked prefill. The paged ``pool`` is
-# not here (pages are per request via the block table). The cross-attention
-# rows come with the enc-dec family (A.6.3).
+# the recurrent carry and the enc-dec cross K/V the serving engine resets,
+# gathers and scatters per slot for state-carrying batched / chunked
+# prefill. The paged ``pool`` is not here (pages are per request via the
+# block table).
 RSTATE_KEYS = ("mamba", "mlstm", "slstm", "cross_k", "cross_v")
 
 
@@ -231,13 +273,15 @@ def tree_map(fn, *trees):
 
 
 def rstate_entries(state) -> dict[str, Any]:
-    """The per-slot recurrent entries present in a decode state."""
+    """The per-slot recurrent / cross entries present in a decode state."""
     return {k: state[k] for k in RSTATE_KEYS if k in state}
 
 
 def init_rstate(cfg, batch: int, *, device=None) -> dict[str, Any]:
-    """Fresh recurrent state for ``batch`` slots — every leaf [L, batch,
-    ...]: zeros, and the xLSTM stabilisers ``m`` at ``NEG_INF``."""
+    """Fresh recurrent / cross state for ``batch`` slots — every leaf [L,
+    batch, ...]: zeros (the enc-dec ``cross_k`` / ``cross_v`` rows [L,
+    batch, enc_seq, KVH, D] fp32), and the xLSTM stabilisers ``m`` at
+    ``NEG_INF``."""
     state: dict[str, Any] = {}
     dev = resolve_device(device)
     n_m = sum(1 for k in cfg.block_kinds() if k == "mamba")
@@ -250,6 +294,11 @@ def init_rstate(cfg, batch: int, *, device=None) -> dict[str, Any]:
                                               lead=(n,))
         state["slstm"] = SSM.slstm_init_state(cfg, batch, device=dev,
                                               lead=(n,))
+    if cfg.family == "encdec":
+        state["cross_k"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.enc_seq, cfg.n_kv_heads, cfg.d_head),
+            dtype=torch.float32, device=dev)
+        state["cross_v"] = torch.zeros_like(state["cross_k"])
     return state
 
 
@@ -289,16 +338,51 @@ def scatter_rstate(state, idx, rows) -> dict[str, Any]:
 
 def init_decode_state(cfg, pool_spec, batch: int, *, device=None):
     """Decode-side caches: the paged pools of the attention layers (none
-    for xLSTM) plus the recurrent rows of the Mamba2 / xLSTM layers
-    (``batch`` slots)."""
+    for xLSTM; the decoder's for enc-dec) plus the recurrent rows of the
+    Mamba2 / xLSTM layers and the enc-dec cross rows (``batch`` slots)."""
     from repro_torch.core.paged_kv import init_pool
     _check_family(cfg)
     dev = resolve_device(device)
     state: dict[str, Any] = {}
-    if any(k in ("attn", "local") for k in cfg.block_kinds()):
+    if any(k in ("attn", "local") for k in cfg.block_kinds()) \
+            or cfg.family == "encdec":
         state["pool"] = init_pool(pool_spec, dev)
     state.update(init_rstate(cfg, batch, device=dev))
     return state
+
+
+def encode(cfg, params, frames, rt: Runtime = DEFAULT_RT):
+    """The whisper encoder over stub frame embeddings [B, enc_seq, D]:
+    sinusoidal positions, non-causal attention blocks
+    (``ops.attention_fwd(causal=False)``), the final norm."""
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = frames + L.sinusoidal_at(pos, cfg.d_model).to(frames.dtype)[None]
+    for lp in params["enc"]:
+        B, S = x.shape[:2]
+        q, k, v = _qkv(lp, cfg, x, None)
+        a = ops.attention_fwd(q, k, v, causal=False, kernels=rt.kernels)
+        x = _block_tail(lp, cfg,
+                        x + L.dense(a.reshape(B, S, cfg.q_dim),
+                                    lp["attn"]["wo"]))
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def make_cross_kv(cfg, params, enc_out):
+    """The decoder's cross-attention K/V of encoder states [B, T, D]:
+    (cross_k, cross_v), each [L, B, T, KVH, D]."""
+    B = enc_out.shape[0]
+    shape = (B, -1, cfg.n_kv_heads, cfg.d_head)
+    ks = [L.dense(enc_out, lp["xattn"]["wk"]).reshape(shape)
+          for lp in params["dec"]]
+    vs = [L.dense(enc_out, lp["xattn"]["wv"]).reshape(shape)
+          for lp in params["dec"]]
+    return torch.stack(ks), torch.stack(vs)
+
+
+def stub_frames(cfg, batch: int, device) -> torch.Tensor:
+    """The serving path's stub audio frames: zeros [batch, enc_seq, D]."""
+    return torch.zeros((batch, cfg.enc_seq, cfg.d_model),
+                       dtype=torch.float32, device=device)
 
 
 def _keep_rows(new, old, run):
@@ -373,6 +457,27 @@ def _qkv(lp, cfg, x, cs):
     return q, k, v
 
 
+def _cross_attn(lp, cfg, h, cross, rt: Runtime):
+    """An enc-dec block's cross-attention over ``cross`` = (k, v, ctx):
+    rows [B, T, KVH, D] and T on every row [B], residual: h [B, S, D] at
+    prefill (non-causal flash attention), [B, D] at decode
+    (``ops.cross_attention_decode``)."""
+    hx = L.rms_norm(h, lp["lnx"], cfg.norm_eps)
+    qx = L.dense(hx, lp["xattn"]["wq"])
+    if h.dim() == 2:
+        B = h.shape[0]
+        ax = ops.cross_attention_decode(
+            qx.reshape(B, cfg.n_heads, cfg.d_head), *cross,
+            kernels=rt.kernels)
+    else:
+        B, S = h.shape[:2]
+        ax = ops.attention_fwd(qx.reshape(B, S, cfg.n_heads, cfg.d_head),
+                               cross[0], cross[1], causal=False,
+                               kernels=rt.kernels)
+    return h + L.dense(ax.reshape(*h.shape[:-1], cfg.q_dim),
+                       lp["xattn"]["wo"])
+
+
 def _block_tail(lp, cfg, h):
     """FFN epilogue of an attention block (prefill, decode and verify):
     the MLP, or the routed experts over every row of ``h`` [B, S, D]."""
@@ -388,18 +493,35 @@ def _block_tail(lp, cfg, h):
 # ---------------------------------------------------------------------------
 
 def _attn_block_decode(lp, cfg, x, cs, window, pool_k, pool_v, bt, ctx,
-                       npage, noff, rt: Runtime):
-    """x [B, D] one token; writes pool_k/pool_v in place."""
+                       npage, noff, rt: Runtime, cross=None):
+    """x [B, D] one token; writes pool_k/pool_v in place. ``cross``: the
+    layer's (k, v) cross rows (enc-dec) or None."""
     B = x.shape[0]
     q, k, v = _qkv(lp, cfg, x[:, None, :], cs)           # [B,1,H,dh]
     a, _, _ = rt.itpp_apply(q[:, 0], k[:, 0], v[:, 0], pool_k, pool_v, bt,
                             ctx, npage, noff, window)
     x = x + L.dense(a.reshape(B, cfg.q_dim), lp["attn"]["wo"])
+    if cross is not None:
+        x = _cross_attn(lp, cfg, x, cross, rt)
     return _block_tail(lp, cfg, x[:, None, :])[:, 0]
 
 
+def _decoder(cfg, params, state):
+    """The attention stack's layers, each with its window and (enc-dec)
+    its cross rows and their length, made once for every layer:
+    [(lp, window, (k, v, ctx) or None)]."""
+    if cfg.family == "encdec":
+        ck, cv = state["cross_k"], state["cross_v"]
+        full = torch.full((ck.shape[1],), ck.shape[2], dtype=torch.int32,
+                          device=ck.device)
+        return [(lp, 0, (ck[i], cv[i], full))
+                for i, lp in enumerate(params["dec"])]
+    return [(lp, w, None)
+            for lp, w in zip(params["layers"], _window_array(cfg))]
+
+
 def decode_step(cfg, params, state, tokens, bt, ctx, npage, noff, *,
-                run=None, rt: Runtime = DEFAULT_RT):
+                positions=None, run=None, rt: Runtime = DEFAULT_RT):
     """One decode step for the whole batch.
 
     tokens [B]; bt [B, maxp]; ctx [B] (INCLUDING the new token);
@@ -407,10 +529,15 @@ def decode_step(cfg, params, state, tokens, bt, ctx, npage, noff, *,
     the trash page, for slots not decoding). ``run`` [B] bool: slots
     decoding this step — recurrent rows of the others keep their carry
     (an idle, paused or mid-chunk-prefill slot must not absorb its stale
-    pending token); None advances every row. Returns (fp32 logits [B, V],
-    state) — the state's pool and rows are written in place.
+    pending token); None advances every row. ``positions``: rope ids [B, 1]
+    or M-RoPE ids [3, B, 1]; None = ctx - 1 (on all three axes), computed
+    on the device, as the enc-dec family's sinusoidal position is, so a
+    captured horizon reads only its static ``ctx``. Returns (fp32 logits
+    [B, V], state) — the state's pool and rows are written in place.
     """
     x = L.embed(params["embed"], tokens)                # [B, D]
+    if cfg.family == "encdec":
+        x = x + L.sinusoidal_at(ctx - 1, cfg.d_model).to(x.dtype)
     if "mlstm" in params:
         def mlstm(lp, h, rows):
             return SSM.mlstm_step(lp, cfg, h, rows)
@@ -419,7 +546,8 @@ def decode_step(cfg, params, state, tokens, bt, ctx, npage, noff, *,
             return SSM.slstm_step(lp, cfg, h, rows)
         x = _xlstm_stack(cfg, params, state, x, mlstm, slstm, run)
         return _logits(cfg, params, x), state
-    cs = _cos_sin(cfg, (ctx.long() - 1)[:, None])
+    cs = _cos_sin(cfg, (ctx.long() - 1)[:, None] if positions is None
+                  else positions)
     pool = state["pool"]
     if "mamba" in params:
         def mamba(lp, h, rows):
@@ -430,9 +558,9 @@ def decode_step(cfg, params, state, tokens, bt, ctx, npage, noff, *,
                                       pool["v"][c], bt, ctx, npage, noff, rt)
         x = _hybrid_stack(cfg, params, state, x, mamba, attn, run)
         return _logits(cfg, params, x), state
-    for i, (lp, w) in enumerate(zip(params["layers"], _window_array(cfg))):
+    for i, (lp, w, cross) in enumerate(_decoder(cfg, params, state)):
         x = _attn_block_decode(lp, cfg, x, cs, w, pool["k"][i], pool["v"][i],
-                               bt, ctx, npage, noff, rt)
+                               bt, ctx, npage, noff, rt, cross)
     return _logits(cfg, params, x), state
 
 
@@ -618,22 +746,32 @@ def _last_rows(x, last_idx):
 
 
 def _attn_block_prefill(lp, cfg, x, cs, w, pk, pv, bt, valid_len,
-                        rt: Runtime):
+                        rt: Runtime, cross=None):
     """A whole-prompt attention block: writes the prompt's K/V pages
-    (``valid_len`` keeps pad positions out) and attends causally."""
+    (``valid_len`` keeps pad positions out; a ring pool takes only the
+    last ``ring_width * page`` tokens, the ones it can hold, and ignores
+    ``valid_len``), attends causally, then (enc-dec) to ``cross``."""
     from repro_torch.core.paged_kv import write_prefill
     B, S = x.shape[:2]
     q, k, v = _qkv(lp, cfg, x, cs)
-    write_prefill(pk, pv, k, v, bt, valid_len=valid_len)
+    if rt.ring_width:
+        span = min(rt.ring_width * pk.shape[1], S)
+        write_prefill(pk, pv, k[:, S - span:], v[:, S - span:], bt,
+                      ctx_start=S - span, ring_width=rt.ring_width)
+    else:
+        write_prefill(pk, pv, k, v, bt, valid_len=valid_len)
     a = ops.attention_fwd(q, k, v, causal=True, window=w, kernels=rt.kernels)
     x = x + L.dense(a.reshape(B, S, cfg.q_dim), lp["attn"]["wo"])
+    if cross is not None:
+        x = _cross_attn(lp, cfg, x, cross, rt)
     return _block_tail(lp, cfg, x)
 
 
 def _attn_block_chunk(lp, cfg, x, cs, w, pk, pv, bt, start, valid_len,
-                      rt: Runtime):
+                      rt: Runtime, cross=None):
     """A chunk's attention block: writes the chunk's K/V at ``start``,
-    gathers the pages and attends with ``q_offset=start``."""
+    gathers the pages and attends with ``q_offset=start``, then (enc-dec)
+    to ``cross``."""
     from repro_torch.core.paged_kv import gather_kv, write_prefill
     B, C = x.shape[:2]
     q, k, v = _qkv(lp, cfg, x, cs)
@@ -643,6 +781,8 @@ def _attn_block_chunk(lp, cfg, x, cs, w, pk, pv, bt, start, valid_len,
     a = ops.attention_fwd(q, kf, vf, causal=True, window=w, q_offset=start,
                           kernels=rt.kernels)
     x = x + L.dense(a.reshape(B, C, cfg.q_dim), lp["attn"]["wo"])
+    if cross is not None:
+        x = _cross_attn(lp, cfg, x, cross, rt)
     return _block_tail(lp, cfg, x)
 
 
@@ -676,7 +816,8 @@ def _xlstm_prefill(cfg, params, state, x, rt: Runtime, mask):
     return _xlstm_stack(cfg, params, state, x, mlstm, slstm)
 
 
-def prefill(cfg, params, state, tokens, bt, *, last_idx=None, valid_len=None,
+def prefill(cfg, params, state, tokens, bt, *, positions=None,
+            extra_embeds=None, frames=None, last_idx=None, valid_len=None,
             rt: Runtime = DEFAULT_RT):
     """Run the prompt through the model, writing its KV pages and
     (recurrent families) the recurrent rows of ``state``, which hold the
@@ -684,16 +825,36 @@ def prefill(cfg, params, state, tokens, bt, *, last_idx=None, valid_len=None,
 
     tokens [B, S] (padded to a shared S); ``last_idx`` [B] picks each
     request's true last position for the logits and ``valid_len`` [B]
-    keeps pad positions out of the pool and the recurrent carry. Returns
-    (fp32 logits of the last position [B, V], state)."""
+    keeps pad positions out of the pool and the recurrent carry.
+    ``positions``: rope ids [B, S] or M-RoPE ids [3, B, S] (default
+    ``default_positions``); ``extra_embeds`` [B, S, D] are added to the
+    token embeddings (the VLM's stub vision tower); ``frames`` [B, enc_seq,
+    D] feed the enc-dec encoder, whose cross K/V rows are written into
+    ``state``'s ``cross_k`` / ``cross_v`` in place. Returns (fp32 logits of
+    the last position [B, V], state)."""
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens)
+    if extra_embeds is not None:
+        x = x + extra_embeds.to(x.dtype)
     if "mlstm" in params:
         x = _xlstm_prefill(cfg, params, state, x, rt,
                            _prefill_mask(valid_len, S, x.device))
         return _logits(cfg, params, _last_rows(x, last_idx)), state
-    pos = torch.arange(S, device=x.device)[None].expand(B, S)
-    cs = _cos_sin(cfg, pos)
+    if cfg.family == "encdec":
+        pos = torch.arange(S, device=x.device)
+        x = x + L.sinusoidal_at(pos, cfg.d_model).to(x.dtype)[None]
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an enc-dec prefill needs "
+                             "frames [B, enc_seq, D]")
+        ck, cv = make_cross_kv(cfg, params, encode(cfg, params, frames, rt))
+        if "cross_k" in state:          # the engine's rows, in place
+            state["cross_k"].copy_(ck)
+            state["cross_v"].copy_(cv)
+        else:
+            state["cross_k"], state["cross_v"] = ck, cv
+    if positions is None:
+        positions = default_positions(cfg, B, S, device=x.device)
+    cs = _cos_sin(cfg, positions)
     pool = state["pool"]
     if "mamba" in params:
         def attn(lp, h, c):
@@ -702,10 +863,9 @@ def prefill(cfg, params, state, tokens, bt, *, last_idx=None, valid_len=None,
         x = _hybrid_stack(cfg, params, state, x, _mamba_prefill(
             cfg, rt, _prefill_mask(valid_len, S, x.device)), attn)
     else:
-        for i, (lp, w) in enumerate(zip(params["layers"],
-                                        _window_array(cfg))):
+        for i, (lp, w, cross) in enumerate(_decoder(cfg, params, state)):
             x = _attn_block_prefill(lp, cfg, x, cs, w, pool["k"][i],
-                                    pool["v"][i], bt, valid_len, rt)
+                                    pool["v"][i], bt, valid_len, rt, cross)
     return _logits(cfg, params, _last_rows(x, last_idx)), state
 
 
@@ -718,7 +878,8 @@ def prefill_chunk(cfg, params, state, tokens, bt, ctx_start, *,
     the chunk's K/V (``write_prefill(ctx_start=...)``), gather their pages
     and attend with ``q_offset=ctx_start``; Mamba2 / mLSTM / sLSTM layers
     resume from the per-row carry in ``state`` (the previous chunk's
-    returned state).
+    returned state); enc-dec decoder chunks attend over the carried
+    ``cross_k`` / ``cross_v`` rows (computed once at admission).
     ``ctx_start`` is a scalar or a [B] vector (each request at its own
     depth); ``valid_len`` keeps end-padding out of the pool and the carry.
     Returns (fp32 logits at last_idx (default C-1) [B, V], state)."""
@@ -731,6 +892,8 @@ def prefill_chunk(cfg, params, state, tokens, bt, ctx_start, *,
     start = torch.as_tensor(ctx_start, dtype=torch.long, device=x.device)
     offset = start if start.ndim == 0 else start[:, None]
     pos = (torch.arange(C, device=x.device)[None] + offset).expand(B, C)
+    if cfg.family == "encdec":
+        x = x + L.sinusoidal_at(pos, cfg.d_model).to(x.dtype)
     cs = _cos_sin(cfg, pos)
     pool = state["pool"]
     if "mamba" in params:
@@ -740,8 +903,8 @@ def prefill_chunk(cfg, params, state, tokens, bt, ctx_start, *,
         x = _hybrid_stack(cfg, params, state, x, _mamba_prefill(
             cfg, rt, _prefill_mask(valid_len, C, x.device)), attn)
     else:
-        for i, (lp, w) in enumerate(zip(params["layers"],
-                                        _window_array(cfg))):
+        for i, (lp, w, cross) in enumerate(_decoder(cfg, params, state)):
             x = _attn_block_chunk(lp, cfg, x, cs, w, pool["k"][i],
-                                  pool["v"][i], bt, start, valid_len, rt)
+                                  pool["v"][i], bt, start, valid_len, rt,
+                                  cross)
     return _logits(cfg, params, _last_rows(x, last_idx)), state

@@ -1,7 +1,8 @@
 """Decode engine: tick = schedule -> prefill -> fused decode horizon.
 
 Port of the fused multi-step path of ``repro/serving/engine.py`` for
-attention-only stacks, the zamba2 hybrid and xLSTM. The host
+attention-only stacks, the zamba2 hybrid, xLSTM and the enc-dec family
+(whisper's cross K/V rows ride with the recurrent rows). The host
 loop mirrors the paper's Fig. 2(c): each tick the host updates the
 "configuration buffer" (block tables, context lengths) and dispatches
 decode work; finished requests release their pages and their slots refill
@@ -36,7 +37,12 @@ last tick's swap-out copies, applies the occupancy watermarks and peeks
 the queue's prefixes. The pool is never rebound: every captured horizon
 holds its address.
 
-Recurrent rows (zamba2's Mamba2 carry, xLSTM's mLSTM and sLSTM carries):
+A ``Runtime(ring_width=W)`` (a sliding-window ring pool) holds each
+request to W pages (``PageAllocator(ring_pages=W)``) and serves slot
+prefill only; speculative decoding and the prefix cache refuse it.
+
+Recurrent rows (zamba2's Mamba2 carry, xLSTM's mLSTM and sLSTM carries,
+whisper's cross K/V, computed once a request from stub zero frames):
 each slot's carry lives in the decode state as ``[L, n_slots, ...]`` rows
 (xLSTM's state has no pool at all). Admission resets a slot's rows to
 fresh ones (zeros; xLSTM's stabilisers at ``NEG_INF``), or restores them
@@ -246,6 +252,7 @@ class EngineTiming:
     decode_steps: int = 0             # decode steps dispatched (sum of K)
     prefill_calls: int = 0            # model prefill / prefill_chunk calls
     draft_catchups: int = 0           # the draft's catch-up prefill calls
+    encoder_calls: int = 0            # enc-dec encoder passes (cross rows)
     # speculative rounds dispatched, by K (K - 1 draft steps, one verify
     # pass over K query positions)
     spec_dispatches: dict = field(default_factory=dict)
@@ -309,6 +316,10 @@ class DecodeEngine:
         if rt is None:
             rt = MDL.Runtime(kernels=KernelConfig(
                 use_kernels=ecfg.use_kernels, n_splits=ecfg.kernel_splits))
+        if self.draft_cfg is not None and rt.ring_width:
+            raise ValueError(
+                "speculative decode rides the fused batchable path; "
+                "ring-buffer runtimes are per-slot")
         self.rt = rt
         if params is None:
             params = MDL.init_params(cfg, 0, torch.float32, self.device)
@@ -317,14 +328,19 @@ class DecodeEngine:
                              f"engine on {self.device}")
         self.params = params
         maxp = -(-ecfg.max_context // ecfg.page_size) + 1
-        n_attn = sum(k in ("attn", "local") for k in cfg.block_kinds())
+        n_attn = cfg.n_layers if cfg.family == "encdec" else \
+            sum(k in ("attn", "local") for k in cfg.block_kinds())
         self.pool_spec = PoolSpec(
             max(n_attn, 1), ecfg.n_pages, ecfg.page_size, cfg.n_kv_heads,
             cfg.d_head, maxp, dtype="float32")
         static_pages = maxp if ecfg.static_alloc else None
+        # a ring pool holds a request to ``ring_width`` pages, so no table
+        # slot past the ring is ever live (ROADMAP C.10: repro's engine
+        # leaves them in the table, where they alias ring slots)
         self.alloc = PageAllocator(
             ecfg.n_pages, ecfg.n_shards, ecfg.page_size, policy=ecfg.policy,
-            n_rows=ecfg.n_rows, static_max_pages=static_pages)
+            n_rows=ecfg.n_rows, static_max_pages=static_pages,
+            ring_pages=rt.ring_width or None)
         # behavioral time source (deadlines, SLO budgets, request stamps)
         self.clock = ecfg.clock if ecfg.clock is not None \
             else time.perf_counter
@@ -335,7 +351,12 @@ class DecodeEngine:
         self.batcher.clock = self.clock
         self.state = MDL.init_decode_state(cfg, self.pool_spec, ecfg.n_slots,
                                            device=self.device)
-        # recurrent per-slot rows ([L, n_slots, ...] leaves of self.state)
+        # batched / chunked prefill thread the group's rows through each
+        # call; a ring pool's prefill ignores ``valid_len`` (pad-write
+        # masking), so it stays on the slot path
+        self.batchable = self.chunkable = not rt.ring_width
+        # recurrent / cross per-slot rows ([L, n_slots, ...] leaves of
+        # self.state)
         self.has_rstate = bool(MDL.rstate_entries(self.state))
         self._zero_rows = (MDL.init_rstate(cfg, 1, device=self.device)
                            if self.has_rstate else None)
@@ -350,8 +371,10 @@ class DecodeEngine:
         # only (static reservations can't share pages, row-affine placement
         # would break borrowing across rows, and recurrent families can't
         # resume from shared pages without the matching dense carry: a
-        # hybrid's prefix_cache=True serves without a cache, as in repro)
-        self.cacheable = "layers" in self.params and cfg.family != "encdec"
+        # hybrid's prefix_cache=True serves without a cache, as in repro;
+        # nor can ring pools, whose slots recycle)
+        self.cacheable = self.chunkable and "layers" in self.params \
+            and cfg.family != "encdec"
         self.cache = None
         if ecfg.prefix_cache and self.cacheable and not ecfg.static_alloc \
                 and ecfg.policy == "striped":
@@ -667,6 +690,17 @@ class DecodeEngine:
         self.rstate_restores += len(restores)
         return starts, {s for s, _ in restores}
 
+    def _init_cross_rows(self, slots: list[int]) -> None:
+        """Encoder pass and cross K/V projection for fresh enc-dec slots of
+        chunked prefill (stub zero frames, as the slot path), written into
+        the slots' rows in place."""
+        self.timing.encoder_calls += 1
+        enc = MDL.encode(self.cfg, self.params,
+                         MDL.stub_frames(self.cfg, len(slots), self.device),
+                         self.rt)
+        ck, cv = MDL.make_cross_kv(self.cfg, self.params, enc)
+        MDL.scatter_rstate(self.state, slots, {"cross_k": ck, "cross_v": cv})
+
     def _group_prefill_state(self, slots: list[int]) -> dict:
         """State for a group prefill call: the shared pool plus the group's
         recurrent rows gathered from the engine state (zeroed by
@@ -874,7 +908,10 @@ class DecodeEngine:
             # host twin of the horizon's device-side write targets; idle
             # slots write to the trash page (n_pages)
             t = np.clip(ctx - 1, 0, None)
-            vp = np.minimum(t // E.page_size, W - 1)
+            vp = t // E.page_size
+            if self.rt.ring_width:
+                vp = vp % self.rt.ring_width
+            vp = np.minimum(vp, W - 1)
             npage = np.where(active_mask, bt[np.arange(E.n_slots), vp],
                              E.n_pages).astype(np.int32)
             noff = np.where(active_mask, t % E.page_size, 0).astype(np.int32)

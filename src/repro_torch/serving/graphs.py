@@ -21,9 +21,10 @@ the engine's life:
 * inputs: ``DeviceSlotState``'s ``bt``, ``ctx``, ``tokens`` and ``rem``
   (the host patches dirty rows in place) and this runner's ``allow``
   ``[n_slots]`` int32, written before each replay;
-* the decode state: the paged pool (written in place by the decode step)
-  and the recurrent rows (Mamba2, mLSTM and sLSTM carries: ``copy_`` into
-  the stacked leaves);
+* the decode state: the paged pool (written in place by the decode step),
+  the recurrent rows (Mamba2, mLSTM and sLSTM carries: ``copy_`` into the
+  stacked leaves) and whisper's cross K/V rows (read; written in place at
+  admission, outside the graph);
 * a speculative round's: the draft pool (written in place like the
   target's), the static proposals ``[n, K-1]`` and, for stochastic
   kinds, the draft's logits ``[K-1, n, V]`` that the verify reads;
@@ -73,6 +74,7 @@ from repro_torch.models import model as MDL
 # every launch counter of the kernel wrappers: (wrapper, attribute)
 LAUNCH_COUNTERS = ((paged_attention_partials, "launches"),
                    (flash_attention_fwd, "launches"),
+                   (flash_attention_fwd, "launches_noncausal"),
                    (flash_decode, "launches"),
                    (ssm_chunk_scan, "launches"),
                    (ssm_chunk_scan, "launches_chunk"),

@@ -1,7 +1,7 @@
 """Prefill strategies for the serving engine.
 
 Port of ``repro/serving/prefill.py`` for attention-only stacks, the
-zamba2 hybrid and xLSTM:
+zamba2 hybrid, xLSTM and the enc-dec family:
 
 * ``slot`` — one batch-1 ``prefill`` per admitted request (the recompute
   reference path); a recurrent family's prefill starts from fresh rows and
@@ -16,7 +16,12 @@ zamba2 hybrid and xLSTM:
 
 Batched and chunked prefill reset the admitted slots' recurrent rows
 (``engine._begin_prefill_group``) and thread the group's rows through each
-call as an explicit carry (gather -> prefill -> scatter).
+call as an explicit carry (gather -> prefill -> scatter). Enc-dec prompts
+bring stub zero audio frames: slot and batched prefill run the encoder
+inside the call, which writes the rows' cross K/V; chunked prefill runs it
+once for the tick's fresh slots (``engine._init_cross_rows``) and each
+chunk attends over the carried rows. A ring pool's prefill ignores
+``valid_len``, so under a ring every mode is ``slot``.
 
 ``max_horizon`` is the cap a prefiller puts on the fused decode horizon
 this tick: chunked prefill caps it to 1 while chunks stream.
@@ -53,6 +58,15 @@ def decode_table_bucket(live_pages: int, width: int) -> int:
     high-water mark: the prefill pow2 bucket with a 16-page floor, capped
     at the full table width."""
     return min(width, _suffix_bucket(max(16, live_pages), width))
+
+
+def _frames(eng, batch: int):
+    """Stub zero audio frames for an enc-dec prefill call (the call runs
+    the encoder: counted in ``encoder_calls``), else None."""
+    if eng.cfg.family != "encdec":
+        return None
+    eng.timing.encoder_calls += 1
+    return MDL.stub_frames(eng.cfg, batch, eng.device)
 
 
 def _group_tables(eng, slots, span: int) -> np.ndarray:
@@ -130,7 +144,8 @@ class SlotPrefiller:
             eng.timing.prefill_calls += 1
             logits, state1 = MDL.prefill(
                 eng.cfg, eng.params, state1, eng._tensor(prompt[None]),
-                eng._tensor(np.asarray(bt)[None]), rt=eng.rt)
+                eng._tensor(np.asarray(bt)[None]), frames=_frames(eng, 1),
+                rt=eng.rt)
             if eng.has_rstate:
                 MDL.scatter_rstate(eng.state, [slot],
                                    MDL.rstate_entries(state1))
@@ -196,6 +211,7 @@ class BatchedPrefiller:
             logits, gstate = MDL.prefill(
                 eng.cfg, eng.params, eng._group_prefill_state(slots),
                 eng._tensor(toks), eng._tensor(bts),
+                frames=_frames(eng, len(grp)),
                 last_idx=eng._tensor(lens - 1), valid_len=eng._tensor(lens),
                 rt=eng.rt)
             eng._merge_group_state(slots, gstate)
@@ -231,8 +247,15 @@ class ChunkedPrefiller:
         eng = self.eng
         # resumes (prefix-cache hit / preemption snapshot) start the chunk
         # cursor at the covered depth
-        starts, _ = eng._begin_prefill_group(admitted)
+        starts, restored = eng._begin_prefill_group(admitted)
         self._pos.update(starts)
+        fresh_cross = [s for s, _ in admitted
+                       if eng.cfg.family == "encdec" and s not in restored]
+        if fresh_cross:
+            # enc-dec decoder chunks attend over carried cross rows: ONE
+            # encoder pass a tick for the fresh slots (restored ones
+            # brought their rows back)
+            eng._init_cross_rows(fresh_cross)
         if not self._pos:
             return active
         C = max(1, eng.ecfg.prefill_chunk)
@@ -306,11 +329,13 @@ class ChunkedPrefiller:
 
 
 def make_prefiller(mode: str, engine):
-    """'slot' | 'batched' | 'chunked'."""
-    if mode == "batched":
-        return BatchedPrefiller(engine)
-    if mode == "chunked":
-        return ChunkedPrefiller(engine)
-    if mode != "slot":
+    """'slot' | 'batched' | 'chunked'. A runtime whose prefill ignores
+    ``valid_len`` (a ring pool: ``engine.batchable`` False) degrades to
+    'slot', as in repro."""
+    if mode not in ("slot", "batched", "chunked"):
         raise ValueError(f"unknown prefill mode {mode!r}")
+    if mode == "batched" and engine.batchable:
+        return BatchedPrefiller(engine)
+    if mode == "chunked" and engine.chunkable:
+        return ChunkedPrefiller(engine)
     return SlotPrefiller(engine)

@@ -41,6 +41,17 @@ from repro_torch.models import model as MDL
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving import DecodeEngine, EngineConfig, Request
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port runs tiny shapes here: one intra-op thread a worker keeps
+    the suite's parallel workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DENSE = ("qwen1.5-7b", "qwen1.5-14b", "qwen1.5-72b", "internlm2-1.8b",
          "yi-34b", "gemma3-27b")
 NEW = DENSE + ("mixtral-8x22b", "phi3.5-moe-42b-a6.6b")

@@ -182,6 +182,28 @@ def test_ops_itpp_partials_and_merge_match_jax():
         torch.testing.assert_close(g, p, atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("H,KVH", [(4, 4), (8, 2)])
+def test_cross_attention_decode_matches_jax(H, KVH):
+    """The enc-dec cross-attention decode route at T 1500, every position
+    valid: with kernels on, the flash-decode partials at ``CROSS_SPLITS``
+    (splits of 188, the tail split of 184 padded) and their merge; without,
+    ``decode_attention_ref``. Both against JAX's ``decode_attention_ref``,
+    the call repro's decode block makes."""
+    rng = np.random.default_rng(4)
+    B, T, D = 2, 1500, 16
+    q = rng.standard_normal((B, H, D), np.float32)
+    k = rng.standard_normal((B, T, KVH, D), np.float32)
+    v = rng.standard_normal((B, T, KVH, D), np.float32)
+    assert ops.CROSS_SPLITS == 8 and T % -(-T // ops.CROSS_SPLITS)
+    want = jax_decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          jnp.full((B,), T, jnp.int32))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    t.append(torch.full((B,), T, dtype=torch.int32))
+    for kc in (KernelConfig(), KernelConfig(use_kernels=False), None):
+        _close(ops.cross_attention_decode(*t, kernels=kc), want,
+               MERGED_TOL)
+
+
 def test_ops_decode_attention_matches_jax():
     B, KVH, G, D, page, maxp = 2, 2, 2, 32, 16, 4  # the bench's smoke row
     rng = np.random.default_rng(1)

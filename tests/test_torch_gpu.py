@@ -1312,3 +1312,145 @@ def test_xlstm_blocks_on_the_card_match_the_cpu(block):
         assert torch.isfinite(b).all()
         gap = float((a - b).abs().max())
         assert gap <= 1e-5 * max(1.0, float(a.abs().max())), gap
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec and M-RoPE families and the ring pool on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_families_cross_decode_kernel_matches_plain(dtype):
+    """K3 at whisper-small's cross-attention decode shape (8 slots, 12
+    heads, 1500 encoder rows, ``CROSS_SPLITS`` splits, the tail split
+    padded): the kernel route against the plain route, eagerly and
+    replayed from a CUDA graph."""
+    _card()
+    from repro_torch.kernels import flash_decode as K
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.backend import KernelConfig
+    g = torch.Generator(device="cuda").manual_seed(1500)
+    q = torch.randn(8, 12, 64, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(8, 1500, 12, 64, generator=g, device="cuda")
+            .to(dtype) for _ in range(2))
+    c = torch.full((8,), 1500, dtype=torch.int32, device="cuda")
+    want = ops.cross_attention_decode(q, k, v, c, kernels=KernelConfig(
+        use_kernels=False))
+    before = K.flash_decode.launches
+    got = ops.cross_attention_decode(q, k, v, c, kernels=KernelConfig())
+    assert K.flash_decode.launches == before + 1
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.cross_attention_decode(q, k, v, c, kernels=KernelConfig())
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        replayed = ops.cross_attention_decode(q, k, v, c,
+                                              kernels=KernelConfig())
+    graph.replay()
+    torch.cuda.synchronize()
+    for out in (got, replayed):
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq", [1500, 416], ids=["encoder", "cross"])
+def test_families_flash_noncausal_matches_plain(dtype, Sq):
+    """K2 without the causal mask at whisper-small's encoder (Sq = Skv =
+    1500, ragged against the 64-token tiles) and cross prefill (a
+    416-token prompt against the 1500 frames), counted as non-causal."""
+    _card()
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_plain)
+    g = torch.Generator(device="cuda").manual_seed(Sq)
+    q = torch.randn(2, Sq, 12, 64, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(2, 1500, 12, 64, generator=g, device="cuda")
+            .to(dtype) for _ in range(2))
+    before = flash_attention_fwd.launches_noncausal
+    got = flash_attention_fwd(q, k, v, causal=False)
+    want = flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches_noncausal == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,horizon", [("batched", 4), ("chunked", 1),
+                                          ("slot", 8)])
+def test_families_whisper_graph_engine_matches_eager_and_plain(mode,
+                                                                horizon):
+    """Reduced whisper-small: the graph engine (the cross rows static rows
+    of the captured horizon, K3 inside it; the encoder and the cross
+    prefill on K2 without the causal mask) against the eager and plain
+    engines: tokens and device syncs equal."""
+    _card()
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    graphs, eager, plain = _engines(
+        "whisper-small", ({}, dict(decode_graphs=False),
+                          dict(use_kernels=False)),
+        prefill_mode=mode, decode_horizon=horizon, prefill_chunk=8)
+    rows = graphs.state["cross_k"].data_ptr()
+    before = (FD.flash_decode.launches,
+              FA.flash_attention_fwd.launches_noncausal)
+    outs = [graphs.run(1000)]
+    assert FD.flash_decode.launches > before[0]
+    assert FA.flash_attention_fwd.launches_noncausal > before[1]
+    outs += [e.run(1000) for e in (eager, plain)]
+    assert outs[0] == outs[1] == outs[2]
+    assert graphs.horizons.graphs and graphs.timing.graph_captures >= 1
+    assert graphs.state["cross_k"].data_ptr() == rows
+    assert (graphs.timing.device_syncs == eager.timing.device_syncs
+            == plain.timing.device_syncs)
+
+
+@pytest.mark.gpu
+def test_families_qwen2vl_graph_engine_matches_plain():
+    """Reduced qwen2-vl-7b (M-RoPE, one id on all three axes in serving):
+    the graph engine against the plain engine."""
+    _card()
+    graphs, plain = _engines("qwen2-vl-7b", ({}, dict(use_kernels=False)),
+                             prefill_mode="batched", decode_horizon=4)
+    assert graphs.run(1000) == plain.run(1000)
+    assert graphs.horizons.graphs
+
+
+@pytest.mark.gpu
+def test_families_ring_engine_matches_full_pool():
+    """Reduced mixtral (window 16) on a ring of 5 pages of 4 tokens
+    against the full pool, on the graph path: prompts past the window,
+    tokens equal, each request held to the ring."""
+    _card()
+    from dataclasses import replace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.models import model as MDL
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DecodeEngine, EngineConfig, Request
+    cfg = replace(reduced(get_config("mixtral-8x22b")), dtype="float32")
+    params = init_params(cfg, 0, torch.float32, "cuda")
+    W = (cfg.sliding_window + 4) // 4 + 1
+    rng = np.random.default_rng(3)
+    reqs = [(r, rng.integers(0, 256, int(rng.integers(23, 42))), 12)
+            for r in range(4)]
+    outs = []
+    for ring in (0, W):
+        eng = DecodeEngine(cfg, EngineConfig(
+            n_slots=2, page_size=4, n_pages=128, max_context=64,
+            eos_token=-1, prefill_mode="slot", decode_horizon=4,
+            kernel_splits=2), params, MDL.Runtime(
+                ring_width=ring, kernels=KernelConfig(n_splits=2)),
+            device="cuda")
+        for r, prompt, n in reqs:
+            eng.submit(Request(r, prompt, n))
+        outs.append(eng.run(1000))
+        assert eng.horizons.graphs and eng.alloc.pages_in_use == 0
+        if ring:
+            assert eng.alloc.ring_pages == W
+    assert outs[0] == outs[1]

@@ -43,6 +43,17 @@ from repro_torch.models.convert import params_from_numpy, state_from_numpy
 from repro_torch.serving import DecodeEngine, EngineConfig, Request
 from repro_torch.serving.sampling import make_scan_sampler
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port runs tiny shapes here: one intra-op thread a worker keeps
+    the suite's parallel workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, S, PAGE, N_PAGES, MAXP = 2, 12, 4, 16, 6
 RT = MDL.Runtime(kernels=KernelConfig(n_splits=2))
 

@@ -179,6 +179,26 @@ def test_flash_matches_pallas_kernel(dtype, causal, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv,H,KVH", [
+    (64, 64, 4, 4),              # an encoder block: Sq = Skv, G 1
+    (32, 96, 4, 4),              # cross prefill: the prompt x the encoder
+    (48, 96, 8, 2),              # cross prefill, G 4
+])
+def test_flash_non_causal_matches_pallas_kernel(dtype, Sq, Skv, H, KVH):
+    """``causal=False`` (the enc-dec encoder and cross prefill) against the
+    Pallas TPU kernel in interpret mode, at shapes that divide its
+    blocks."""
+    q, k, v = _flash_case(5, 2, Sq, Skv, H, KVH, 16)
+    out = flash_attention_fwd(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                              causal=False)
+    want = pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=False, q_blk=16, kv_blk=16, interpret=True)
+    tol = 2e-5 if dtype == torch.float32 else TOL[dtype]
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(want),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Sq,Skv,offsets,window", [
     (24, 56, [0, 32], 0),        # [B] q_offset (chunked prefill)
     (24, 56, [10, 32], 8),       # q_offset + sliding window

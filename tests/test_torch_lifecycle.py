@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
@@ -31,6 +32,17 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime import faults as TF
 from repro_torch.serving import DecodeEngine, EngineConfig, Request
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port runs tiny shapes here: one intra-op thread a worker keeps
+    the suite's parallel workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PAGE = 4
 ENGINES = ("jax", "torch")

@@ -39,6 +39,17 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving import DecodeEngine, EngineConfig, Request
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port runs tiny shapes here: one intra-op thread a worker keeps
+    the suite's parallel workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MOES = ("mixtral-8x22b", "phi3.5-moe-42b-a6.6b")
 # 4 slots: a decode step routes 8 choices over 4 experts of capacity 3
 KW = dict(n_slots=4, page_size=4, n_pages=64, max_context=40, eos_token=-1,

@@ -41,6 +41,17 @@ from repro_torch.models.convert import oracle_draft_pair, params_from_numpy
 from repro_torch.serving import DecodeEngine, EngineConfig, Request
 from repro_torch.serving.sampling import make_scan_sampler, make_verifier
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port runs tiny shapes here: one intra-op thread a worker keeps
+    the suite's parallel workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BUDGETS = [3, 12, 5, 12, 2, 9]
 
 

@@ -21,8 +21,7 @@ snapshot / restore / sync counters; a refilled slot starts from fresh rows;
 a 1 prefill + 1 decode cluster hands each request's carry over (no KV
 pages) to repro's single-engine tokens, four handoffs and no other router
 counter.
-The enc-dec and multimodal-rope families still raise, and speculative
-decoding refuses an xLSTM target or draft, as repro does.
+Speculative decoding refuses an xLSTM target or draft, as repro does.
 """
 from dataclasses import asdict, fields, replace
 
@@ -41,7 +40,7 @@ from repro.serving import DecodeEngine as JaxEngine
 from repro.serving import EngineConfig as JaxEngineConfig
 from repro.serving import Request as JaxRequest
 from repro.serving.sampling import make_scan_sampler as jax_scan_sampler
-from repro_torch.configs import ModelConfig, get_config, reduced
+from repro_torch.configs import get_config, reduced
 from repro_torch.models import model as MDL
 from repro_torch.models import ssm as SSM
 from repro_torch.models.convert import params_from_numpy, state_from_numpy
@@ -447,19 +446,6 @@ def test_disagg_cluster_hands_the_carry_over(weights, jax_ref):
     assert got == jax_ref[mode, chunk, 1][0]
     assert cl.counters == {**dict.fromkeys(cl.counters, 0),
                            "handoffs": 4, "handoff_ok": 4}
-
-
-@pytest.mark.parametrize("arch,label", [("whisper-small", "A.6.3"),
-                                        ("qwen2-vl-7b", "A.6.4")])
-def test_unported_families_still_raise(arch, label):
-    """The enc-dec and multimodal-rope families are refused with their
-    ROADMAP labels (the port registers neither configuration)."""
-    jcfg = jax_reduced(jax_get_config(arch))
-    names = {f.name for f in fields(ModelConfig)}
-    cfg = ModelConfig(**{k: v for k, v in asdict(jcfg).items()
-                         if k in names})
-    with pytest.raises(NotImplementedError, match=label):
-        MDL.init_params(cfg, 0, torch.float32, "cpu")
 
 
 @pytest.mark.parametrize("side", ["target", "draft"])
