@@ -222,9 +222,40 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    qwen2-vl main-path launches join the totals; the ``kernels`` line's K3
    count is whisper's serving launches plus the bench's.
 
+14. train — training on the card (``models.model.train_loss``,
+   ``training/``, ``launch/train.py``), random fp32 weights from seed 0.
+   No kernel is on this path (none of the port's kernels has a backward;
+   repro's training path reaches no Pallas kernel): each run's K1-K4
+   launches must be 0. (a) llama3.2-1b whole (16 layers, d 2048, vocab
+   128256, tied), ``Runtime(remat=True)``, AdamW lr 1e-3 warmup 1, 8 steps
+   of B 8 x S 512 on ``TrainPipeline``'s batch 0 repeated: step ms (CUDA
+   events), tokens/s, peak device memory, loss and grad norm by step; all
+   finite, the last loss below the first. (b) reduced llama, zamba2,
+   mixtral and xlstm, the same seeded params on the card and the CPU: 3
+   steps' losses within 1e-5 relative, the first step's grads within 1e-4
+   of each leaf's largest magnitude, AdamW's update from the same grads
+   within 1e-6 (the free-running params' gap printed, ROADMAP C.11). (c) reduced llama, 2 microbatches against 1: params
+   within 5e-5. (d) reduced llama, 10 steps against 6 with a checkpoint
+   every 3, ``restore`` onto the card and 4 more, deterministic
+   algorithms on: losses rtol 1e-6, params atol 1e-6. (e) zamba2-1.2b
+   whole, remat, 3 steps of B 4 x S 512: finite, step ms and peak memory.
+   (f) ``launch.train`` in process at ``examples/train_100m.py``'s
+   settings (d 768, 12 layers, vocab 8192, S 256, B 8), 20 steps with
+   checkpoints every 10, then a restart from step 9 that resumes; the
+   loss lines printed. (g) full-width llama3.2-1b batched at horizon 4: an
+   engine with a host ``sample=`` greedy callable (the eager horizon) gives
+   the graph path's tokens (the near-tie rule of phase 5), its launches
+   checked and added to the totals; ``decode_graphs=True`` with
+   ``sample=`` raises; int8 weight-only params (``core/quant.py``): prefill
+   and 8 decode steps on K2 / K1, logits within ``tests/test_quant.py``'s
+   bound (0.12 of their spread, greedy agreement >= 0.75) of the fp32
+   ones. Phase 3 also times SDPA with an explicit boolean band mask (the
+   window) as K2's library call at its windowed shapes.
+
 ``python3 chip_smoke.py --lifecycle`` builds the kernels and runs phase 10
 alone; ``--disagg`` builds them and runs phase 11 alone; ``--xlstm``
-phase 12 alone; ``--families`` phase 13 alone.
+phase 12 alone; ``--families`` phase 13 alone; ``--train`` phase 14
+alone.
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
 and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
 bench and long-context shapes) and K4 (zamba2 prefill and decode, slot
@@ -602,10 +633,23 @@ def check_flash(dtype, *, B=2, Sq=1024, Skv=1024, H=32, KVH=8, D=64,
         if dtype == torch.float32:
             res["bound_ms_cuda_cores"] = 1e3 * max(
                 nbytes / HBM_BYTES_S, flops / PEAK[dtype])
-        if not any(offs) and not window and (Sq == Skv or not causal):
+        if not any(offs) and (Sq == Skv or not causal):
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            res["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True))
+            if window:
+                # a window has no SDPA flag: an explicit boolean band
+                # mask [Sq, Skv] (causal and the window) computes the same
+                # function in one call
+                i = torch.arange(Sq, device=dev)[:, None]
+                j = torch.arange(Skv, device=dev)[None]
+                band = (j <= i) & (j > i - window)
+                res["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=band, enable_gqa=True))
+                res["library"] = "sdpa band mask"
+            else:
+                res["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True))
     return res
 
 
@@ -963,7 +1007,8 @@ def phase_kernels() -> dict:
                      + (f"; at 67 TF/s {r['bound_ms_cuda_cores']:.4f}"
                         if "bound_ms_cuda_cores" in r else "")
                      + f") plain_ms={r['plain_ms']:.4f} "
-                     f"library_ms={r.get('library_ms', 'none')}")
+                     f"library_ms={r.get('library_ms', 'none')}"
+                     + (f" ({r['library']})" if "library" in r else ""))
             if "library_err" in r:
                 line += (" (library: scaled_dot_product_attention, merged "
                          f"output; its max_abs_err {r['library_err']:.3e})")
@@ -1030,7 +1075,8 @@ def phase_bench(smi: str) -> dict:
 
 def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
           prompts, max_prefill=64, decode_graphs=None, time_replay=True,
-          draft_params=None, n_pages=1024, max_context=1280, **ecfg_kw):
+          draft_params=None, n_pages=1024, max_context=1280, sample=None,
+          **ecfg_kw):
     from repro_torch.serving import DecodeEngine, EngineConfig, Request
     torch.cuda.reset_peak_memory_stats()
     ecfg = EngineConfig(n_slots=8, page_size=16, n_pages=n_pages,
@@ -1041,7 +1087,7 @@ def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
                         max_prefill=max_prefill, decode_graphs=decode_graphs,
                         **ecfg_kw)
     eng = DecodeEngine(cfg, ecfg, params, device=DEV,
-                       draft_params=draft_params)
+                       draft_params=draft_params, sample=sample)
     for i, p in enumerate(prompts[:n_req]):
         eng.submit(Request(i, p, 32))
     torch.cuda.synchronize()
@@ -1061,6 +1107,7 @@ def serve(cfg, params, *, mode, horizon, splits, n_req, use_kernels, chunk,
          "decode_steps": tm.decode_steps, "prefill_calls": tm.prefill_calls,
          "encoder_calls": tm.encoder_calls,
          "decode_tokens": tm.decode_tokens, "device_syncs": tm.device_syncs,
+         "sample_readbacks": tm.sample_readbacks,
          "decode_s": tm.decode_s, "prefill_s": tm.prefill_s,
          "graphs": eng.horizons.graphs, "graph_captures": tm.graph_captures,
          "capture_s": tm.capture_s, "keys": sorted(eng.horizons.captured),
@@ -3355,6 +3402,419 @@ def phase_families(smi: str, launches: dict) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 14. train: the training path on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_DIR = HERE / "build" / "train"
+# phase 14's reduced cases: llama (dense), zamba2 (Mamba2 + shared
+# attention), mixtral (MoE, its aux term) and xlstm (mLSTM + sLSTM)
+TRAIN_REDUCED = ("llama3.2-1b", "zamba2-1.2b", "mixtral-8x22b", "xlstm-350m")
+
+
+def to_dev(tree, device):
+    from repro_torch.models.model import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def train_steps(cfg, params, batches, *, rt=None, opt_cfg=None,
+                microbatches=1, device=DEV):
+    """``len(batches)`` train steps from ``params`` (not modified) on
+    ``device``: (params, opt state, losses, grad norms, step ms by CUDA
+    events on the card)."""
+    from repro_torch.models import model as MDL
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train import make_train_step, to_device
+    step = make_train_step(cfg, rt or MDL.DEFAULT_RT,
+                           opt_cfg or OPT.AdamWConfig(lr=1e-3,
+                                                      warmup_steps=1),
+                           microbatches=microbatches)
+    opt = OPT.init(params)
+    losses, gnorms, ms = [], [], []
+    for b in batches:
+        batch = to_device(b, device)
+        if device == DEV:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        params, opt, m = step(params, opt, batch)
+        if device == DEV:
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    return params, opt, losses, gnorms, ms
+
+
+def zero_launches(label, fns) -> None:
+    la = launch_counts(fns)
+    print(f"[train] {label} kernel launches: {la}", flush=True)
+    if any(la.values()):
+        fail(f"{label}: a train step launched a kernel: {la}")
+
+
+def train_whole(arch: str, smi: str, fns, *, B: int, S: int, steps: int,
+                repeat: bool) -> None:
+    """(a) / (e): ``arch`` whole, random fp32 weights from seed 0,
+    ``Runtime(remat=True)``, AdamW lr 1e-3 warmup 1, ``steps`` steps of
+    ``TrainPipeline`` batches B x S (``repeat``: batch 0 every step, so
+    the loss must fall)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TrainPipeline
+    from repro_torch.models import model as MDL
+    cfg = replace(get_config(arch), dtype="float32")
+    params = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    n = MDL.param_count_actual(params)
+    pipe = TrainPipeline(cfg.vocab_size, S, B)
+    batches = [pipe.batch(0 if repeat else i) for i in range(steps)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fns)
+    _, _, losses, gnorms, ms = train_steps(
+        cfg, params, batches, rt=MDL.Runtime(remat=True))
+    zero_launches(arch, fns)
+    peak = torch.cuda.max_memory_allocated()
+    warm = ms[1:] or ms
+    print(f"[train] {arch}: {cfg.n_layers} layers d={cfg.d_model} vocab="
+          f"{cfg.vocab_size} params={n} B={B} S={S} remat, "
+          f"{'batch 0 repeated' if repeat else 'batches 0..'}: step ms "
+          + " ".join(f"{x:.1f}" for x in ms)
+          + f"; tokens/s {B * S / (np.mean(warm) / 1e3):.0f} (steps 2..) "
+          f"peak device MB {peak / 2**20:.1f} | {smi}", flush=True)
+    print(f"[train] {arch} loss by step: "
+          + " ".join(f"{x:.4f}" for x in losses) + " | grad norm: "
+          + " ".join(f"{x:.4f}" for x in gnorms), flush=True)
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        fail(f"{arch}: a loss or grad norm is not finite")
+    if repeat and not losses[-1] < losses[0]:
+        fail(f"{arch}: the loss on a repeated batch did not fall: {losses}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _leaf_gap(a, b) -> float:
+    """max |a - b| over the largest |b| (each leaf its own scale)."""
+    from repro_torch.training.optimizer import tree_leaves
+    return max(float((x.cpu() - y.cpu()).abs().max())
+               / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _grads(cfg, params, batch):
+    """(loss, grads) of ``train_loss`` at ``params`` on their device."""
+    from repro_torch.models import model as MDL
+    from repro_torch.training import optimizer as OPT
+    leaves = [p.detach().requires_grad_(True)
+              for p in OPT.tree_leaves(params)]
+    loss, _ = MDL.train_loss(cfg, OPT.tree_unflatten(params, leaves), batch)
+    return float(loss.detach()), OPT.tree_unflatten(
+        params, list(torch.autograd.grad(loss, leaves)))
+
+
+def train_card_vs_cpu(smi: str, fns) -> None:
+    """(b): reduced llama, zamba2, mixtral and xlstm, the same seeded
+    params on both devices. Held: 3 train steps' losses within 1e-5
+    relative; the first step's grads within 1e-4 of each leaf's largest
+    magnitude (the CPU tests' bound against repro); AdamW's update on the
+    card from the CPU's grads within 1e-6 of each leaf's scale. The params
+    after 3 free-running steps are printed against 1e-5 of each leaf's
+    scale, not held: AdamW turns grads at rounding level into updates of
+    up to lr (ROADMAP C.11; repro and the port on one CPU differ by as
+    much). The CPU side is held to repro by the CPU tests."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import TrainPipeline
+    from repro_torch.models import model as MDL
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train import to_device
+    ocfg = OPT.AdamWConfig(lr=1e-3, warmup_steps=1)
+    for arch in TRAIN_REDUCED:
+        cfg = replace(reduced(get_config(arch)), dtype="float32")
+        p_cpu = MDL.init_params(cfg, seed=0, dtype=torch.float32,
+                                device="cpu")
+        pipe = TrainPipeline(cfg.vocab_size, 32, 4)
+        batches = [pipe.batch(i) for i in range(3)]
+        reset_counts(fns)
+        p_gpu, _, l_gpu, _, _ = train_steps(cfg, to_dev(p_cpu, DEV),
+                                            batches, opt_cfg=ocfg)
+        _, g_gpu = _grads(cfg, to_dev(p_cpu, DEV),
+                          to_device(batches[0], DEV))
+        zero_launches(f"{arch} reduced", fns)
+        _, g_cpu = _grads(cfg, p_cpu, to_device(batches[0], "cpu"))
+        p_ref, _, l_cpu, _, _ = train_steps(cfg, p_cpu, batches,
+                                            opt_cfg=ocfg, device="cpu")
+        up_gpu = OPT.apply(ocfg, to_dev(p_cpu, DEV), to_dev(g_cpu, DEV),
+                           OPT.init(to_dev(p_cpu, DEV)))[0]
+        up_cpu = OPT.apply(ocfg, p_cpu, g_cpu, OPT.init(p_cpu))[0]
+        lgap = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+        ggap, ugap = _leaf_gap(g_gpu, g_cpu), _leaf_gap(up_gpu, up_cpu)
+        pgap = _leaf_gap(p_gpu, p_ref)
+        print(f"[train] {arch} reduced, card vs CPU: losses of 3 steps "
+              + " ".join(f"{x:.6f}" for x in l_gpu)
+              + f" (max rel gap {lgap:.3e}, bound 1e-5); step 1 grads "
+              f"{ggap:.3e} of each leaf's scale (bound 1e-4); AdamW update "
+              f"from the same grads {ugap:.3e} (bound 1e-6); params after 3 "
+              f"steps {pgap:.3e} of each leaf's scale (printed against "
+              f"1e-5, not held: C.11)", flush=True)
+        if lgap > 1e-5 or ggap > 1e-4 or ugap > 1e-6:
+            fail(f"{arch}: the card's train steps disagree with the CPU's")
+
+
+def train_microbatches(smi: str, fns) -> None:
+    """(c): reduced llama on the card, 2 microbatches against 1: params
+    within 5e-5 (``tests/test_system.py``'s bound)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import TrainPipeline
+    from repro_torch.models import model as MDL
+    from repro_torch.training import optimizer as OPT
+    cfg = replace(reduced(get_config("llama3.2-1b")), dtype="float32")
+    params = MDL.init_params(cfg, seed=2, dtype=torch.float32, device=DEV)
+    ocfg = OPT.AdamWConfig(lr=1e-3, clip_norm=1e9, weight_decay=0.0)
+    batch = [TrainPipeline(cfg.vocab_size, 8, 4).batch(0)]
+    reset_counts(fns)
+    outs = [train_steps(cfg, params, batch, opt_cfg=ocfg,
+                        microbatches=mb)[0] for mb in (1, 2)]
+    zero_launches("microbatches", fns)
+    d = max(float((a - b).abs().max()) for a, b in
+            zip(OPT.tree_leaves(outs[0]), OPT.tree_leaves(outs[1])))
+    print(f"[train] microbatches 2 vs 1 on the card: params max gap "
+          f"{d:.3e} (bound 5e-5)", flush=True)
+    if d >= 5e-5:
+        fail("microbatch accumulation disagrees with the full batch")
+
+
+def train_restart(smi: str, fns) -> None:
+    """(d): reduced llama on the card, 10 uninterrupted steps against 6
+    with a checkpoint every 3, ``restore`` and 4 more, at
+    ``tests/test_fault_tolerance.py``'s bounds (losses rtol 1e-6, params
+    atol 1e-6). Deterministic algorithms make the embedding's backward
+    (an accumulating index) repeatable."""
+    import shutil
+    import warnings
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import TrainPipeline
+    from repro_torch.models import model as MDL
+    from repro_torch.runtime import checkpoint as CK
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train import make_train_step, to_device
+    cfg = replace(reduced(get_config("llama3.2-1b")), dtype="float32")
+    params0 = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    step_fn = make_train_step(cfg, MDL.DEFAULT_RT, OPT.AdamWConfig(
+        lr=1e-3, warmup_steps=2, total_steps=20))
+    pipe = TrainPipeline(cfg.vocab_size, 16, 4)
+    ck = TRAIN_DIR / "restart"
+    shutil.rmtree(ck, ignore_errors=True)
+
+    def run(params, opt, start, stop, every=None):
+        losses = []
+        for s in range(start, stop):
+            params, opt, m = step_fn(params, opt, to_device(pipe.batch(s),
+                                                            DEV))
+            losses.append(float(m["loss"]))
+            if every and (s + 1) % every == 0:
+                CK.save(ck, s, {"params": params, "opt": opt})
+        return params, opt, losses
+
+    reset_counts(fns)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            p_ref, _, l_ref = run(params0, OPT.init(params0), 0, 10)
+            run(params0, OPT.init(params0), 0, 6, every=3)
+            latest = CK.latest_step(ck)
+            state = CK.restore(ck, latest, {"params": params0,
+                                            "opt": OPT.init(params0)})
+            p_res, _, l_res = run(state["params"], state["opt"],
+                                  latest + 1, 10)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    zero_launches("restart", fns)
+    lgap = max(abs(a - b) / abs(b) for a, b in zip(l_res, l_ref[6:]))
+    pgap = max(float((a - b).abs().max()) for a, b in
+               zip(OPT.tree_leaves(p_res), OPT.tree_leaves(p_ref)))
+    dev_ok = all(t.device.type == "cuda"
+                 for t in OPT.tree_leaves(state["params"]))
+    print(f"[train] crash and restart on the card: restored step {latest} "
+          f"onto cuda={dev_ok}; losses 7-10 "
+          + " ".join(f"{x:.6f}" for x in l_res)
+          + f" max rel gap {lgap:.3e} (bound 1e-6), params max gap "
+          f"{pgap:.3e} (bound 1e-6)", flush=True)
+    if latest != 5 or not dev_ok or lgap > 1e-6 or pgap > 1e-6:
+        fail("the restarted run does not resume the uninterrupted one")
+
+
+def train_launch(smi: str, fns) -> None:
+    """(f): ``launch.train`` in process at ``examples/train_100m.py``'s
+    settings, 20 steps with checkpoints every 10, then a restart from step
+    9's checkpoint (step 19's removed) that resumes and finishes."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.launch import train as TRAIN
+    ck = TRAIN_DIR / "ckpt_100m"
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", "llama3.2-1b", "--steps", "20", "--seq", "256",
+            "--batch", "8", "--d-model", "768", "--layers", "12", "--vocab",
+            "8192", "--ckpt-dir", str(ck), "--ckpt-every", "10",
+            "--log-every", "5"]
+    reset_counts(fns)
+    t = time.perf_counter()
+    final = TRAIN.main(argv)
+    first_s = time.perf_counter() - t
+    shutil.rmtree(ck / "step_00000019")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        resumed = TRAIN.main(argv)
+    print(buf.getvalue(), end="", flush=True)
+    zero_launches("launch.train", fns)
+    print(f"[train] launch.train: 20 steps in {first_s:.1f} s, final loss "
+          f"{final:.4f}; the restart resumed at step 10, final loss "
+          f"{resumed:.4f} (gap {abs(final - resumed):.3e}) | {smi}",
+          flush=True)
+    if "[train] restored step 9" not in buf.getvalue():
+        fail("launch.train did not resume from its checkpoint")
+    if not (np.isfinite(final) and np.isfinite(resumed)):
+        fail("launch.train: a non-finite loss")
+
+
+def train_serving_legacy(smi: str, launches: dict, fns) -> None:
+    """(g): full-width llama3.2-1b, batched prefill at horizon 4: an
+    engine with a host ``sample=`` greedy callable (the eager horizon, one
+    logits readback a step) gives the graph path's greedy tokens;
+    ``decode_graphs=True`` with ``sample=`` raises; int8 weight-only
+    params (``core/quant.py``) keep the decode logits within
+    ``tests/test_quant.py``'s bound of the fp32 ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import quant as Q
+    from repro_torch.core.paged_kv import PoolSpec
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.models import model as MDL
+    from repro_torch.serving import DecodeEngine, EngineConfig
+    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    params = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n_tok))
+               for n_tok in rng.integers(256, 1025, 8)]
+    kw = dict(mode="batched", horizon=4, splits=4, n_req=8, chunk=32,
+              use_kernels=None, prompts=prompts)
+    calls = [0]
+
+    def greedy(row):
+        calls[0] += 1
+        return int(np.argmax(row))
+    runs = {}
+    for way, extra in (("graphs", {}), ("sample=", dict(sample=greedy))):
+        reset_counts(fns)
+        out, m = serve(cfg, params, **kw, **extra)
+        la = launch_counts(fns)
+        want = expected_launches(cfg, m)
+        if la != want or m["completed"] != 8:
+            fail(f"sample= {way}: launches {la}, expected {want}")
+        for k, v in la.items():
+            launches[k] = launches.get(k, 0) + v
+        runs[way] = (out, m)
+        print(f"[train] (g) llama3.2-1b batched h4 {way}: graphs="
+              f"{m['graphs']} decode steps {m['decode_steps']} device syncs "
+              f"{m['device_syncs']} sample readbacks {m['sample_readbacks']} "
+              f"decode tok/s {m['decode_tokens'] / m['decode_s']:.1f} TTFT "
+              f"ms {m['ttft_mean_ms']:.1f} launches "
+              f"{ {k: v for k, v in la.items() if v} } | {smi}", flush=True)
+    if runs["sample="][1]["graphs"] or runs["sample="][1][
+            "sample_readbacks"] != runs["sample="][1]["decode_steps"]:
+        fail("sample=: not on the eager horizon, or readbacks uncounted")
+    compare_tokens("llama3.2-1b sample= vs graphs", cfg, params, prompts,
+                   runs["graphs"][0], runs["sample="][0],
+                   ("graphs", "sample="))
+    print(f"[train] (g) the callable ran {calls[0]} times", flush=True)
+    try:
+        DecodeEngine(cfg, EngineConfig(n_slots=8, page_size=16,
+                                       n_pages=64, max_context=1280,
+                                       decode_graphs=True), params,
+                     device=DEV, sample=greedy)
+    except ValueError as e:
+        print(f"[train] (g) decode_graphs=True with sample= raises: {e}",
+              flush=True)
+    else:
+        fail("decode_graphs=True with sample= did not raise")
+    # int8 weight-only: the serving path's prefill and 8 decode steps on
+    # K1 / K2, fp32 against int8 weights
+    qparams = Q.quantize_params(params)
+    B, S, page, steps = 4, 512, 16, 8
+    maxp = (S + steps) // page + 2
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (B, S + steps)).astype(np.int32))
+    bt = torch.arange(B * maxp, dtype=torch.int32).reshape(B, maxp)
+    rt = MDL.Runtime(kernels=KernelConfig(n_splits=4))
+    spec = PoolSpec(cfg.n_layers, B * maxp, page, cfg.n_kv_heads,
+                    cfg.d_head, maxp, dtype="float32")
+    outs, step_ms = {}, {}
+    from repro_torch.kernels.ops import write_targets
+    for name, p in (("fp32", params), ("int8", qparams)):
+        st = MDL.init_decode_state(cfg, spec, B, device=DEV)
+        with torch.no_grad():
+            lg, st = MDL.prefill(cfg, p, st, toks[:, :S].to(DEV),
+                                 bt.to(DEV), rt=rt)
+            got = [lg]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            for t in range(S, S + steps):
+                ctx = torch.full((B,), t + 1, dtype=torch.int32, device=DEV)
+                npage, noff = write_targets(
+                    bt.to(DEV), ctx, torch.ones(B, dtype=torch.bool,
+                                                device=DEV),
+                    page_size=page, n_pages=B * maxp)
+                if t == S + steps - 1:
+                    ev[0].record()
+                lg, st = MDL.decode_step(cfg, p, st, toks[:, t].to(DEV),
+                                         bt.to(DEV), ctx, npage, noff, rt=rt)
+                got.append(lg)
+            ev[1].record()
+            torch.cuda.synchronize()
+        outs[name] = torch.stack(got).cpu().numpy()
+        step_ms[name] = ev[0].elapsed_time(ev[1])
+        del st
+    fp, qq = outs["fp32"], outs["int8"]
+    gap, spread = float(np.abs(qq - fp).max()), float(fp.max() - fp.min())
+    agree = float((fp.argmax(-1) == qq.argmax(-1)).mean())
+    print(f"[train] (g) int8 weight-only llama3.2-1b: "
+          f"{Q.quantized_bytes(qparams) / 2**30:.2f} GiB against "
+          f"{Q.quantized_bytes(params) / 2**30:.2f}; prefill + {steps} "
+          f"decode logits max gap {gap:.4f} = {gap / spread:.4f} of their "
+          f"spread (bound 0.12), greedy agreement {agree:.3f} (bound "
+          f"0.75); one decode step fp32 {step_ms['fp32']:.2f} ms, int8 "
+          f"{step_ms['int8']:.2f} ms (dequantized per use) | {smi}",
+          flush=True)
+    if gap >= 0.12 * spread or agree < 0.75:
+        fail("int8 decode logits are outside test_quant's bound")
+    del params, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train(smi: str, launches: dict) -> None:
+    """Phase 14: training on the card, (a)-(g)."""
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    fns = _kernel_fns()
+    t0 = time.perf_counter()
+    steps = (("a", lambda: train_whole("llama3.2-1b", smi, fns, B=8, S=512,
+                                       steps=8, repeat=True)),
+             ("b", lambda: train_card_vs_cpu(smi, fns)),
+             ("c", lambda: train_microbatches(smi, fns)),
+             ("d", lambda: train_restart(smi, fns)),
+             ("e", lambda: train_whole("zamba2-1.2b", smi, fns, B=4, S=512,
+                                       steps=3, repeat=False)),
+             ("f", lambda: train_launch(smi, fns)),
+             ("g", lambda: train_serving_legacy(smi, launches, fns)))
+    for label, fn in steps:
+        t = time.perf_counter()
+        fn()
+        print(f"[train] ({label}) in {time.perf_counter() - t:.1f} s",
+              flush=True)
+    print(f"[train] phase 14 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
     """``--kernel-times SRC``: K1, K2, K3 and K4 of the ``repro_torch``
     under ``SRC`` (this checkout's ``src`` or another's, e.g. an unpacked
@@ -3493,6 +3953,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--families"]:
         phase_families(smi, {})
         return 0
+    if sys.argv[1:2] == ["--train"]:
+        phase_train(smi, {})
+        return 0
     main_cases = phase_kernels()
     bench_launches = phase_bench(smi)
     ref: dict = {}
@@ -3504,6 +3967,7 @@ def main() -> int:
     phase_disagg(smi, launches)
     phase_xlstm(smi, launches, ref.get("zamba2-1.2b"))
     phase_families(smi, launches)
+    phase_train(smi, launches)
     # K3 serves whisper's cross-attention decode (phase 13) beside the bench
     serving_k3 = launches.get("flash_decode", 0)
     launches["flash_decode"] = serving_k3 + bench_launches["flash_decode"]

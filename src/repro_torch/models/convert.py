@@ -12,7 +12,8 @@ packages; so do xLSTM's ``mlstm/*`` and ``slstm/*`` (``[n_cyc, ...]``,
 ``[d_in, d_out]`` — no transpose: both packages compute ``x @ w``. The
 enc-dec family's stacked ``enc/*`` and ``dec/*`` (with each decoder
 layer's ``lnx`` and ``xattn``) become per-layer lists as ``layers`` does;
-``enc_norm`` stays a leaf. The
+``enc_norm`` stays a leaf. An int8 QTensor ``{"q", "s"}``
+(``core/quant.py``) comes across with ``q`` int8 and ``s`` fp32. The
 tied embedding stays ``[V, D]`` and is transposed by ``layers.lm_head``,
 as in JAX.
 """
@@ -43,6 +44,12 @@ def params_from_numpy(cfg, tree: dict, device=None,
     dev = resolve_device(device)
 
     def conv(node, layer=None, name=""):
+        if isinstance(node, dict) and set(node) == {"q", "s"}:
+            # an int8 QTensor (core/quant.py): q stays int8, s fp32
+            q, s = (node[k] if layer is None else node[k][layer]
+                    for k in ("q", "s"))
+            return {"q": torch.tensor(np.asarray(q, np.int8), device=dev),
+                    "s": _tensor(s, dev, torch.float32)}
         if isinstance(node, dict):
             return {k: conv(v, layer, k) for k, v in node.items()}
         dt = torch.float32 if name in _FP32_LEAVES else dtype

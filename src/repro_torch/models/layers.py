@@ -17,8 +17,14 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w in the compute dtype (w is [d_in, d_out])."""
+def dense(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w in the compute dtype (w is [d_in, d_out]). ``w`` may be an
+    int8 QTensor ``{"q", "s"}`` (``core/quant.py``): the int8 weight is
+    widened to x's dtype for the product and the per-column scale applied
+    to its output, as repro does."""
+    if isinstance(w, dict):                      # int8 weight-only quant
+        y = torch.matmul(x, w["q"].to(x.dtype))
+        return (y * w["s"][..., 0, :].to(x.dtype)).to(x.dtype)
     return torch.matmul(x, w).to(x.dtype)
 
 
@@ -200,9 +206,11 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
 
 
-def lm_head(x: torch.Tensor, w: torch.Tensor, *, transpose: bool):
+def lm_head(x: torch.Tensor, w, *, transpose: bool):
     """fp32 logits over the padded vocabulary. ``transpose`` for tied
-    embeddings ([V, D] table)."""
+    embeddings ([V, D] table). An untied head may be an int8 QTensor."""
+    if isinstance(w, dict):
+        return torch.matmul(x.float(), w["q"].float()) * w["s"][..., 0, :]
     wt = w.t() if transpose else w
     return torch.matmul(x.float(), wt.float())
 

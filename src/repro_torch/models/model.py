@@ -52,6 +52,15 @@ Ring pools (``Runtime(ring_width=W)``, sliding-window stacks): table slots
 recycle mod W, prefill writes only the prompt's last ``W * page`` tokens
 and decode attention maps slots back to virtual pages (the paged kernel's
 ``ring_width``).
+
+Training (``forward_hidden``, ``forward``, ``train_loss``): the
+full-sequence forward of every family with no pool, each layer optionally
+recomputed in backward (``Runtime.remat``), and a chunked cross-entropy.
+It runs on the plain paths only (``check_trainable``): no kernel of the
+port has a backward, and repro's training path reaches no Pallas kernel,
+so autograd differentiates the plain ``layers.flash_attention``,
+``ssm.chunked_gla`` and the sLSTM cell loop, as ``jax.grad`` does
+repro's.
 """
 from __future__ import annotations
 
@@ -73,10 +82,13 @@ from repro_torch.models import ssm as SSM
 class Runtime:
     """Execution hooks; single device. ``kernels=None`` keeps the plain
     reference paths (gather-then-dense decode, chunked online-softmax
-    prefill)."""
+    prefill). ``remat`` recomputes each layer of the full-sequence
+    forward in backward (``torch.utils.checkpoint``, JAX's
+    ``jax.checkpoint``)."""
     ring_width: int = 0
     kernels: KernelConfig | None = None
     gla_chunk: int = 128                 # Mamba2 scan chunk at prefill
+    remat: bool = False
 
     def itpp_apply(self, q, k, v, pk, pv, bt, ctx, npage, noff, window):
         return itpp_decode_attention_shard(
@@ -354,16 +366,22 @@ def init_decode_state(cfg, pool_spec, batch: int, *, device=None):
 def encode(cfg, params, frames, rt: Runtime = DEFAULT_RT):
     """The whisper encoder over stub frame embeddings [B, enc_seq, D]:
     sinusoidal positions, non-causal attention blocks
-    (``ops.attention_fwd(causal=False)``), the final norm."""
+    (``ops.attention_fwd(causal=False)``), the final norm; each layer
+    recomputed in backward under ``rt.remat``."""
     pos = torch.arange(frames.shape[1], device=frames.device)
     x = frames + L.sinusoidal_at(pos, cfg.d_model).to(frames.dtype)[None]
+
+    def layer(lp):
+        def fn(x):
+            B, S = x.shape[:2]
+            q, k, v = _qkv(lp, cfg, x, None)
+            a = ops.attention_fwd(q, k, v, causal=False, kernels=rt.kernels)
+            return _block_tail(lp, cfg,
+                               x + L.dense(a.reshape(B, S, cfg.q_dim),
+                                           lp["attn"]["wo"]))
+        return fn
     for lp in params["enc"]:
-        B, S = x.shape[:2]
-        q, k, v = _qkv(lp, cfg, x, None)
-        a = ops.attention_fwd(q, k, v, causal=False, kernels=rt.kernels)
-        x = _block_tail(lp, cfg,
-                        x + L.dense(a.reshape(B, S, cfg.q_dim),
-                                    lp["attn"]["wo"]))
+        x = _remat(rt.remat, layer(lp), x)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -394,10 +412,10 @@ def _keep_rows(new, old, run):
 
 
 def _stacked_layers(stack) -> list[dict]:
-    """Per-layer views of stacked ``[L, ...]`` weight leaves."""
-    cols = {k: v.unbind(0) for k, v in stack.items()}
-    n = len(next(iter(cols.values())))
-    return [{k: v[i] for k, v in cols.items()} for i in range(n)]
+    """Per-layer views of stacked ``[L, ...]`` weight leaves (an int8
+    QTensor's ``q`` and ``s`` alike)."""
+    n = _first_leaf(stack).shape[0]
+    return [tree_map(lambda a: a[i], stack) for i in range(n)]
 
 
 def _layer_rows(rows, i):
@@ -478,14 +496,22 @@ def _cross_attn(lp, cfg, h, cross, rt: Runtime):
                        lp["xattn"]["wo"])
 
 
-def _block_tail(lp, cfg, h):
-    """FFN epilogue of an attention block (prefill, decode and verify):
-    the MLP, or the routed experts over every row of ``h`` [B, S, D]."""
+def _block_tail(lp, cfg, h, *, with_aux: bool = False):
+    """FFN epilogue of an attention block (prefill, decode, verify and the
+    full-sequence forward): the MLP, or the routed experts over every row
+    of ``h`` [B, S, D]. ``with_aux`` returns ``(h, aux)``, the MoE's
+    load-balancing term (0 without experts)."""
+    aux = 0.0
     if "ln2" in lp:
         h2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + (MOE.moe_local(lp["moe"], cfg, h2) if "moe" in lp
-                 else L.mlp(lp["mlp"], h2, cfg.act))
-    return h
+        if "moe" in lp:
+            y = MOE.moe_local(lp["moe"], cfg, h2, with_aux=with_aux)
+            if with_aux:
+                y, aux = y
+        else:
+            y = L.mlp(lp["mlp"], h2, cfg.act)
+        h = h + y
+    return (h, aux) if with_aux else h
 
 
 # ---------------------------------------------------------------------------
@@ -579,7 +605,9 @@ def decode_multi(cfg, params, state, tokens, bt, ctx, rem, allow, gen=None,
     ``sample``: ``(gen, logits [B, V]) -> tokens [B]`` on device
     (``serving.sampling.make_scan_sampler``); ``gen`` is the sampler's
     ``torch.Generator`` (JAX's key chain; greedy ignores it), advanced in
-    place by every step's draw.
+    place by every step's draw. A sampler with ``takes_run`` (the legacy
+    host callable, ``serving.sampling.make_callback_sampler``) also gets
+    the step's ``run`` mask.
 
     A slot that samples EOS or spends its budget freezes (later steps write
     its KV to the trash page); one that only exhausts ``allow`` pauses with
@@ -599,7 +627,8 @@ def decode_multi(cfg, params, state, tokens, bt, ctx, rem, allow, gen=None,
                                     n_pages=n_pages, ring_width=rt.ring_width)
         logits, state = decode_step(cfg, params, state, tokens, bt_attn,
                                     ctx, npage, noff, run=run, rt=rt)
-        nxt = sample(gen, logits)
+        nxt = (sample(gen, logits, run) if getattr(sample, "takes_run", False)
+               else sample(gen, logits))
         tokens = torch.where(run, nxt, tokens)
         rem = torch.where(run, rem - 1, rem)
         fin = run & ((nxt == eos_token) | (rem <= 0))
@@ -908,3 +937,173 @@ def prefill_chunk(cfg, params, state, tokens, bt, ctx_start, *,
                                   pool["v"][i], bt, start, valid_len, rt,
                                   cross)
     return _logits(cfg, params, _last_rows(x, last_idx)), state
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward and the training loss
+# ---------------------------------------------------------------------------
+
+def check_trainable(rt: Runtime, what: str) -> None:
+    """Raise unless ``rt`` keeps the plain paths: no kernel of the port has
+    a backward (repro's training path reaches no Pallas kernel either: it
+    runs the jnp ``flash_attention`` and ``chunked_gla``, and autograd
+    takes their gradients), so a train step never silently takes the
+    plain route in place of a kernel."""
+    if rt.kernels is not None and rt.kernels.enabled:
+        raise ValueError(
+            f"{what}: the port's kernels (K1-K4) have no backward; train "
+            "with Runtime(kernels=None) or "
+            "KernelConfig(use_kernels=False), the plain paths repro "
+            "trains on")
+
+
+def _remat(on: bool, fn, x):
+    """``fn(x)``, recomputed in backward when ``on`` (JAX's
+    ``jax.checkpoint`` around a scan body)."""
+    if on and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
+
+
+def _attn_block_train(lp, cfg, x, cs, window, rt: Runtime, *,
+                      causal: bool = True, enc_out=None):
+    """A whole-sequence attention block (repro's ``_attn_mlp_block``):
+    self-attention, (enc-dec) cross-attention to ``enc_out`` [B, T, D],
+    the FFN. Builds no pool. Returns ``(x, aux)``, aux the MoE's
+    load-balancing term (0 without experts)."""
+    B, S = x.shape[:2]
+    q, k, v = _qkv(lp, cfg, x, cs)
+    a = ops.attention_fwd(q, k, v, causal=causal, window=window,
+                          kernels=rt.kernels)
+    x = x + L.dense(a.reshape(B, S, cfg.q_dim), lp["attn"]["wo"])
+    if enc_out is not None:
+        shape = (B, -1, cfg.n_kv_heads, cfg.d_head)
+        cross = (L.dense(enc_out, lp["xattn"]["wk"]).reshape(shape),
+                 L.dense(enc_out, lp["xattn"]["wv"]).reshape(shape))
+        x = _cross_attn(lp, cfg, x, cross, rt)
+    x, aux = _block_tail(lp, cfg, x, with_aux=True)
+    if not torch.is_tensor(aux):
+        aux = x.new_zeros((), dtype=torch.float32)
+    return x, aux
+
+
+def forward_hidden(cfg, params, tokens, *, positions=None, extra_embeds=None,
+                   frames=None, rt: Runtime = DEFAULT_RT):
+    """Full-sequence forward -> (final hidden [B, S, D], MoE aux).
+
+    The training path (repro's ``forward_hidden``): no pool, no recurrent
+    rows; each layer recomputed in backward under ``rt.remat`` (a whole
+    mLSTM + sLSTM cycle for xLSTM, each Mamba2 layer for the hybrid, whose
+    shared attention blocks are not recomputed, as in JAX). Windows come
+    per layer from ``_window_array``. ``positions``: rope ids [B, S] or
+    M-RoPE ids [3, B, S]; ``extra_embeds`` [B, S, D] add to the token
+    embeddings; ``frames`` [B, enc_seq, D] feed the enc-dec encoder.
+
+    Attention goes through ``ops.attention_fwd`` and the Mamba2 scan
+    through ``ops.mamba_mixer`` with ``rt.kernels``: the plain versions
+    on the training path (``check_trainable``), where no kernel launches.
+    """
+    _check_family(cfg)
+    if torch.is_grad_enabled() and params["embed"].requires_grad:
+        check_trainable(rt, "forward_hidden")
+    B, S = tokens.shape
+    x = L.embed(params["embed"], tokens)
+    if extra_embeds is not None:
+        x = x + extra_embeds.to(x.dtype)
+    dev = x.device
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if "mlstm" in params:
+        def cycle(lm, ls):
+            def fn(h):
+                h = h + SSM.mlstm_forward(lm, cfg, h, chunk=rt.gla_chunk)[0]
+                return h + SSM.slstm_forward(ls, cfg, h)[0]
+            return fn
+        for lm, ls in zip(_stacked_layers(params["mlstm"]),
+                          _stacked_layers(params["slstm"])):
+            x = _remat(rt.remat, cycle(lm, ls), x)
+        return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+    if cfg.family == "encdec":
+        x = x + L.sinusoidal_at(torch.arange(S, device=dev),
+                                cfg.d_model).to(x.dtype)[None]
+    if positions is None:
+        positions = default_positions(cfg, B, S, device=dev)
+    cs = _cos_sin(cfg, positions)
+
+    def attn(lp, w, enc_out=None):
+        return lambda h: _attn_block_train(lp, cfg, h, cs, w, rt,
+                                           enc_out=enc_out)
+    if cfg.family == "encdec":
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an enc-dec forward needs frames "
+                             "[B, enc_seq, D]")
+        enc_out = encode(cfg, params, frames, rt)
+        for lp in params["dec"]:
+            x, a = _remat(rt.remat, attn(lp, 0, enc_out), x)
+            aux = aux + a
+    elif "mamba" in params:
+        n_cyc, per_cyc = _hybrid_cycles(cfg)
+        layers = _stacked_layers(params["mamba"])
+
+        def mamba(lp):
+            return lambda h: h + SSM.mamba_forward(
+                lp, cfg, h, chunk=rt.gla_chunk, kernels=rt.kernels)[0]
+        for c in range(n_cyc):
+            for lp in layers[c * per_cyc:(c + 1) * per_cyc]:
+                x = _remat(rt.remat, mamba(lp), x)
+            x, a = attn(params["attn_shared"], 0)(x)
+            aux = aux + a
+    else:
+        for lp, w in zip(params["layers"], _window_array(cfg)):
+            x, a = _remat(rt.remat, attn(lp, w), x)
+            aux = aux + a
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def forward(cfg, params, tokens, *, positions=None, extra_embeds=None,
+            frames=None, rt: Runtime = DEFAULT_RT):
+    """Full-sequence forward -> (fp32 logits [B, S, padded_vocab], aux)."""
+    x, aux = forward_hidden(cfg, params, tokens, positions=positions,
+                            extra_embeds=extra_embeds, frames=frames, rt=rt)
+    w = params["embed"] if cfg.tie_embeddings else params["head"]
+    return L.lm_head(x, w, transpose=cfg.tie_embeddings), aux
+
+
+def train_loss(cfg, params, batch, rt: Runtime = DEFAULT_RT, *,
+               loss_chunk: int = 1024):
+    """batch: ``tokens`` / ``targets`` [B, S], ``mask`` [B, S] (and the
+    optional ``positions``, ``extra_embeds``, ``frames``); returns (loss,
+    metrics).
+
+    Cross-entropy in sequence chunks of ``loss_chunk`` (the whole sequence
+    when that does not divide S, as in repro), each chunk's logits
+    recomputed in backward, so the [B, S, V] logits never exist at once.
+    A MoE adds ``0.01 * aux / n_layers``. Raises on a ``Runtime`` with
+    kernels (``check_trainable``)."""
+    check_trainable(rt, "train_loss")
+    hidden, aux = forward_hidden(cfg, params, batch["tokens"],
+                                 positions=batch.get("positions"),
+                                 extra_embeds=batch.get("extra_embeds"),
+                                 frames=batch.get("frames"), rt=rt)
+    w = params["embed"] if cfg.tie_embeddings else params["head"]
+    tgt = batch["targets"].long()
+    mask = batch["mask"].float()
+    S = tgt.shape[1]
+    c = min(loss_chunk, S)
+    if S % c:
+        c = S
+
+    def chunk_nll(i):
+        def fn(h_c):
+            logits = L.lm_head(h_c, w, transpose=cfg.tie_embeddings)
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = logits.gather(-1, tgt[:, i:i + c, None])[..., 0]
+            return ((lse - picked) * mask[:, i:i + c]).sum()
+        return fn
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, c):
+        nll = nll + _remat(True, chunk_nll(i), hidden[:, i:i + c])
+    loss = nll / mask.sum().clamp_min(1.0)
+    if cfg.is_moe:
+        loss = loss + 0.01 * aux / max(1, cfg.n_layers)
+    return loss, {"nll": loss, "tokens": mask.sum()}

@@ -20,8 +20,14 @@ index, which ``torch.topk`` does not promise), and a dropped choice is
 scattered to a trash row past the ``[E, C, D]`` buffers (as ``mode="drop"``
 became a trash page in the paged pool).
 
+Expert weights may be int8 QTensors (``core/quant.py``). The training
+path takes the load-balancing term with the output (``with_aux``);
+``dispatch`` writes a fresh buffer, so autograd carries each kept
+choice's gradient back to its row and a dropped one's (the trash row,
+cut off) is zero, as ``mode="drop"`` gives in repro.
+
 Not ported: ``moe_ep`` (expert parallelism over an all-to-all, ROADMAP
-A.10) and int8 expert weights (``core/quant.py``, ROADMAP A.9).
+A.10).
 """
 from __future__ import annotations
 
@@ -53,23 +59,32 @@ def init_moe(cfg, normal, n_virtual: int | None = None) -> dict:
     return p
 
 
-def route(router_w, cfg, x):
-    """x [T, D] -> (probs [T, K], experts [T, K])."""
-    logits = dense(x, router_w).float()
-    probs = torch.softmax(logits, dim=-1)
+def _route(router_w, cfg, x):
+    """x [T, D] -> (probs [T, E] fp32, top_p [T, K], top_e [T, K])."""
+    probs = torch.softmax(dense(x, router_w).float(), dim=-1)
     srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_e = srt[:, :cfg.moe_top_k], idx[:, :cfg.moe_top_k]
-    return top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), top_e
+    return (probs, top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9),
+            top_e)
+
+
+def route(router_w, cfg, x):
+    """x [T, D] -> (probs [T, K], experts [T, K])."""
+    return _route(router_w, cfg, x)[1:]
+
+
+def _balance(probs, top_e, E: int):
+    """repro's load-balancing term: ``E * sum(mean probability * top-1
+    share)`` over the experts."""
+    top1 = F.one_hot(top_e[:, 0], E).float()
+    return E * (probs.mean(0) * top1.mean(0)).sum()
 
 
 def aux_loss(router_w, cfg, x):
-    """repro's load-balancing loss for x [T, D], ``E * sum(mean probability
-    * top-1 share)`` over the experts: a training term, which ``route`` and
-    ``moe_local`` (the serving path) leave out."""
-    probs = torch.softmax(dense(x, router_w).float(), dim=-1)
-    E = cfg.n_experts
-    top1 = F.one_hot(route(router_w, cfg, x)[1][:, 0], E).float()
-    return E * (probs.mean(0) * top1.mean(0)).sum()
+    """repro's load-balancing loss for x [T, D]: the training term
+    ``moe_local(..., with_aux=True)`` returns beside its output."""
+    probs, _, top_e = _route(router_w, cfg, x)
+    return _balance(probs, top_e, cfg.n_experts)
 
 
 def capacity(cfg, T: int) -> int:
@@ -106,27 +121,37 @@ def combine(buf, top_p, top_e, slot, keep):
     return (picked * w[:, None]).reshape(T, K, -1).sum(1)
 
 
+def _emm(x, w):
+    """Expert product ``bmm(x, w)``, fp32 out; ``w`` may be an int8
+    QTensor (``core/quant.py``; its scale [V, 1, out] broadcasts)."""
+    if isinstance(w, dict):
+        return torch.bmm(x, w["q"].to(x.dtype)).float() * w["s"].float()
+    return torch.bmm(x, w).float()
+
+
 def expert_mlp(p, cfg, buf):
     """buf [V, C, D] through each virtual expert's MLP slice (partial
     out). The products' outputs are fp32 before the activation, as the
     einsums' ``preferred_element_type`` in repro."""
-    h = activate(torch.bmm(buf, p["w1"]).float(), cfg.act).to(buf.dtype)
+    h = activate(_emm(buf, p["w1"]), cfg.act).to(buf.dtype)
     if "w3" in p:
-        h = h * torch.bmm(buf, p["w3"]).to(buf.dtype)
-    return torch.bmm(h, p["w2"]).to(buf.dtype)
+        h = h * _emm(buf, p["w3"]).to(buf.dtype)
+    return _emm(h, p["w2"]).to(buf.dtype)
 
 
-def moe_local(p, cfg, x):
-    """x [B, S, D] -> y [B, S, D] (repro's ``moe_local`` without its aux
-    loss: ``aux_loss``). The virtual-expert count is read from the
-    weights; at one virtual expert an expert (the serving layout) the
-    buffers go through unrepeated."""
+def moe_local(p, cfg, x, *, with_aux: bool = False):
+    """x [B, S, D] -> y [B, S, D], or ``(y, aux)`` with ``with_aux`` (the
+    training path: repro's ``moe_local`` and the load-balancing term of its
+    ``route``). The virtual-expert count is read from the weights; at one
+    virtual expert an expert (the serving layout) the buffers go through
+    unrepeated."""
     B, S, D = x.shape
     E = cfg.n_experts
-    V = p["w1"].shape[0]
+    w1 = p["w1"]["q"] if isinstance(p["w1"], dict) else p["w1"]
+    V = w1.shape[0]
     v = V // E
     xt = x.reshape(-1, D)
-    top_p, top_e = route(p["router"], cfg, xt)
+    probs, top_p, top_e = _route(p["router"], cfg, xt)
     C = capacity(cfg, xt.shape[0])
     slot, keep = _dispatch_indices(top_e, E, C)
     buf = dispatch(xt, top_e, slot, keep, E, C)            # [E, C, D]
@@ -135,5 +160,5 @@ def moe_local(p, cfg, x):
     else:
         out = expert_mlp(p, cfg, buf.repeat_interleave(v, dim=0))
         summed = out.reshape(E, v, C, D).sum(1)
-    y = combine(summed, top_p, top_e, slot, keep)
-    return y.reshape(B, S, D)
+    y = combine(summed, top_p, top_e, slot, keep).reshape(B, S, D)
+    return (y, _balance(probs, top_e, E)) if with_aux else y

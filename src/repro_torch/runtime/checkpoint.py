@@ -10,6 +10,10 @@ whose payload was damaged after the commit point fails ``verify_step``
 and callers walking ``valid_steps`` newest first fall back to an older
 step (or a cold start).
 
+``latest_step`` / ``restore`` / ``restore_latest`` bring a training run's
+params and optimizer tree back onto the device of the tree given as
+``like`` (``launch/train.py``'s restart).
+
 There is no ``jax.tree_util`` here: ``_flatten`` walks nested dicts, lists
 and tuples itself and takes torch tensors and numpy arrays as leaves.
 numpy has no bfloat16, so half-width float tensors are stored as float32,
@@ -99,6 +103,13 @@ def _gc(ckpt_dir: Path, keep: int) -> None:
         shutil.rmtree(d, ignore_errors=True)
 
 
+def latest_step(ckpt_dir) -> int | None:
+    ckpt_dir = Path(ckpt_dir)
+    steps = sorted(d for d in ckpt_dir.glob("step_*")
+                   if (d / "manifest.json").exists())
+    return int(steps[-1].name.split("_")[1]) if steps else None
+
+
 def valid_steps(ckpt_dir) -> list[int]:
     """Steps with a *parseable* manifest, oldest first. A truncated or
     garbled manifest.json (crash or corruption mid-write) disqualifies the
@@ -145,3 +156,33 @@ def load(ckpt_dir, step: int, *, host_id: int = 0) -> tuple[dict, dict]:
     with np.load(step_dir / f"shard_{host_id:05d}.npz") as data:
         flat = {k: data[k] for k in data.files}
     return manifest, unflatten(flat)
+
+
+def restore(ckpt_dir, step: int, like, *, host_id: int = 0):
+    """The tree saved at ``step``, in the structure of ``like`` (nested
+    dicts / lists / tuples of tensors): each leaf a tensor of the matching
+    ``like`` leaf's dtype on its device (a params and optimizer tree comes
+    back where training runs)."""
+    step_dir = Path(ckpt_dir) / f"step_{step:08d}"
+    with np.load(step_dir / f"shard_{host_id:05d}.npz") as data:
+        def build(node, prefix):
+            if isinstance(node, dict):
+                return {k: build(v, f"{prefix}/{k}" if prefix else str(k))
+                        for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return type(node)(build(v, f"{prefix}/{i}" if prefix
+                                        else str(i))
+                                  for i, v in enumerate(node))
+            arr = torch.from_numpy(np.array(data[prefix]))
+            if isinstance(node, torch.Tensor):
+                return arr.to(device=node.device, dtype=node.dtype)
+            return arr.numpy()
+        return build(like, "")
+
+
+def restore_latest(ckpt_dir, like, *, host_id: int = 0):
+    """(step, tree) of the newest complete step, or (None, None)."""
+    step = latest_step(ckpt_dir)
+    if step is None:
+        return None, None
+    return step, restore(ckpt_dir, step, like, host_id=host_id)

@@ -57,6 +57,15 @@ Sampling (``EngineConfig.sampler``): greedy, temperature or top-k, on
 the device inside the horizon. JAX's key chains become generators on the
 engine's device: the first-token sampler's (``sample_seed``), the
 decode horizon's (``sample_seed``) and the draft's (``sample_seed + 1``).
+A legacy per-row host callable (``DecodeEngine(sample=)``, repro's seed
+API) samples instead: prefill's first tokens and ``step()``'s over the
+host logits of the rows that emit, the horizon through
+``sampling.make_callback_sampler``, which reads each step's logits back
+for it. A host call cannot run inside a CUDA graph, so such an engine
+runs the eager horizon (``decode_graphs=True`` raises); those per-step
+readbacks are counted in ``EngineTiming.sample_readbacks``, and
+``device_syncs`` still counts the one readback of ``(toks, emit, fin)``
+a horizon. A draft refuses ``sample=``, as in repro.
 
 Speculative decoding (``draft_config``, ``draft_params``,
 ``spec_horizon``): a small attention-only draft with its own paged pool,
@@ -127,7 +136,8 @@ from repro_torch.serving.policies import make_policy
 from repro_torch.serving.prefill import (_suffix_bucket,
                                          decode_table_bucket, make_prefiller)
 from repro_torch.serving.request import Request as RequestSpec
-from repro_torch.serving.sampling import (make_generator, make_sampler,
+from repro_torch.serving.sampling import (make_callback_sampler,
+                                          make_generator, make_sampler,
                                           make_scan_sampler, make_verifier)
 from repro_torch.telemetry import make_telemetry
 
@@ -248,6 +258,9 @@ class EngineTiming:
     capture_s: float = 0.0            # one-time graph captures (not decode)
     graph_captures: int = 0           # (width, horizon, spec) graphs
     device_syncs: int = 0             # host<->device decode rendezvous
+    # per-step logits readbacks for a legacy ``sample=`` callable (the
+    # eager horizon's, apart from device_syncs)
+    sample_readbacks: int = 0
     decode_tokens: int = 0            # tokens emitted by decode dispatches
     decode_steps: int = 0             # decode steps dispatched (sum of K)
     prefill_calls: int = 0            # model prefill / prefill_chunk calls
@@ -300,7 +313,7 @@ class DeviceSlotState:
 
 class DecodeEngine:
     def __init__(self, cfg, ecfg: EngineConfig, params=None, rt=None, *,
-                 policy=None, device=None, draft_params=None):
+                 sample=None, policy=None, device=None, draft_params=None):
         self.cfg = cfg
         self.ecfg = ecfg
         # a draft that cannot pair with the target (another tokenizer, a
@@ -311,7 +324,20 @@ class DecodeEngine:
             if isinstance(dcfg, str):
                 dcfg = get_config(dcfg)
             validate_draft_pair(cfg, dcfg)
+            if sample is not None:
+                raise ValueError(
+                    "speculative decode needs the sampler kinds "
+                    "(greedy/temperature/top_k) so the draft's proposal "
+                    "distribution is known to the verifier; legacy per-row "
+                    "sample= callables cannot be verified against")
             self.draft_cfg = dcfg
+        if sample is not None and ecfg.decode_graphs:
+            raise ValueError("a sample= callable runs on the host every "
+                             "decode step, which a CUDA graph cannot; use "
+                             "decode_graphs=None or False with it")
+        # ``sample``: a legacy per-row host callable ``logits [V] ->
+        # token`` (repro's seed API), or None for the sampler kinds
+        self.sample = sample
         self.device = resolve_device(device)
         if rt is None:
             rt = MDL.Runtime(kernels=KernelConfig(
@@ -400,7 +426,9 @@ class DecodeEngine:
         sk = dict(temperature=ecfg.temperature, top_k=ecfg.top_k)
         self.sampler = make_sampler(ecfg.sampler, seed=ecfg.sample_seed,
                                     device=self.device, **sk)
-        self._scan_sample = make_scan_sampler(ecfg.sampler, **sk)
+        self._scan_sample = (
+            make_scan_sampler(ecfg.sampler, **sk) if sample is None
+            else make_callback_sampler(sample, count=self._count_readback))
         # the decode horizon's key chain (the verify pass's too)
         self.gen = make_generator(ecfg.sample_seed, self.device)
         self.need_q = ecfg.sampler != "greedy"
@@ -443,7 +471,7 @@ class DecodeEngine:
         self.dev = DeviceSlotState(ecfg.n_slots, maxp, self.device)
         graphs = ecfg.decode_graphs
         if graphs is None:
-            graphs = self.device.type == "cuda"
+            graphs = self.device.type == "cuda" and sample is None
         elif graphs and self.device.type != "cuda":
             raise ValueError("EngineConfig.decode_graphs=True needs a CUDA "
                              f"engine; this one runs on {self.device}")
@@ -719,13 +747,26 @@ class DecodeEngine:
         if self.has_rstate:
             MDL.scatter_rstate(self.state, slots, MDL.rstate_entries(gstate))
 
+    def _count_readback(self) -> None:
+        self.timing.sample_readbacks += 1
+
+    def _sample_rows(self, logits) -> np.ndarray:
+        """[B, V] -> [B] int32: the sampler kind in ONE batched call, or a
+        ``sample=`` callable row by row over one host copy."""
+        if self.sample is None:
+            return self.sampler(logits)
+        rows = (logits.float().cpu().numpy() if torch.is_tensor(logits)
+                else np.asarray(logits))
+        return np.fromiter((int(self.sample(r)) for r in rows), np.int32,
+                           len(rows))
+
     def _first_tokens(self, logits, emits) -> np.ndarray:
-        """Sample the first token for a prefill group in ONE batched call
-        (only rows that emit are sampled)."""
+        """Sample the first token for a prefill group (only rows that emit
+        are sampled)."""
         toks = np.zeros((len(emits),), np.int32)
         idx = [i for i, e in enumerate(emits) if e]
         if idx:
-            toks[idx] = self.sampler(logits[idx])
+            toks[idx] = self._sample_rows(logits[idx])
         return toks
 
     # ---- fault processing + terminal teardown (the tick safe point) ----
@@ -930,7 +971,11 @@ class DecodeEngine:
             logits = logits.float().cpu().numpy()
             self.timing.device_syncs += 1
             self.timing.decode_steps += 1
-            nxt = self.sampler(logits)
+            if self.sample is None:
+                nxt = self.sampler(logits)
+            else:            # a legacy callable sees the active rows only
+                nxt = np.zeros((E.n_slots,), np.int32)
+                nxt[active] = self._sample_rows(logits[active])
 
         with self._phase("host_s", "host", "bookkeep"):
             # quarantine: a non-finite row (when guarded) or an injected

@@ -17,8 +17,10 @@ two packages agree in distribution, not token for token (ROADMAP C.2).
 ``top_k`` keeps ``lax.top_k``'s exact winner set: on equal values the
 lowest index wins (``_topk_mask``), which ``torch.topk`` does not promise.
 
-``make_callback_sampler`` (legacy per-row host callables) is not ported
-(ROADMAP A.5).
+``make_callback_sampler`` adapts a legacy per-row host callable (the
+engine's ``sample=``) to the decode horizon's sampler signature; it reads
+each step's logits back to the host, so it runs on the eager horizon only
+(a host call cannot run inside a CUDA graph).
 """
 from __future__ import annotations
 
@@ -91,6 +93,32 @@ def stochastic_sample_step(gen, logits, temperature: float = 1.0,
     """``(gen, tokens)``: JAX's key-threading form; the generator advances
     in place."""
     return gen, stochastic_sample(gen, logits, temperature, top_k)
+
+
+def make_callback_sampler(fn, count=None):
+    """Adapt a legacy per-row host callable ``fn(logits [V] numpy) ->
+    token`` into the horizon's ``(gen, logits [B, V], run [B]) -> tokens
+    [B]`` signature (``takes_run``: ``models.model.decode_multi`` passes
+    the run mask).
+
+    Each call reads the step's logits and run mask back to the host in one
+    copy (``count()``, when given, is called once a readback) and invokes
+    ``fn`` for rows with ``run`` true only, in ascending slot order — the
+    order of repro's ordered ``io_callback``, so a stateful callable
+    consumes its state as it does there. ``gen`` is unused; rows not
+    running return 0 (the horizon masks them out). The tokens go back to
+    the logits' device."""
+    def sampler(gen, logits, run):
+        host = torch.cat([logits.float(), run.float()[:, None]],
+                         dim=1).cpu().numpy()
+        if count is not None:
+            count()
+        out = np.zeros((host.shape[0],), np.int32)
+        for i in np.flatnonzero(host[:, -1] > 0):
+            out[i] = int(fn(host[i, :-1]))
+        return torch.from_numpy(out).to(logits.device)
+    sampler.takes_run = True
+    return sampler
 
 
 def make_scan_sampler(kind: str = "greedy", *, temperature: float = 1.0,

@@ -156,6 +156,63 @@ def test_engine_options_match_repro(models, kw):
     assert eng.batcher.stats.avg_batch == jeng.batcher.stats.avg_batch
 
 
+class _Picker:
+    """A stateful, deterministic legacy ``sample=`` callable: even calls
+    take the row's argmax, odd calls the id after it. Logs (call, argmax)
+    so two engines' call sequences can be compared."""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+        self.log: list[tuple[int, int]] = []
+
+    def __call__(self, row) -> int:
+        n, a = len(self.log), int(np.argmax(row))
+        self.log.append((n, a))
+        return a if n % 2 == 0 else (a + 1) % self.vocab
+
+
+@pytest.mark.parametrize("horizon", [1, 4])
+@pytest.mark.parametrize("mode", ["slot", "batched", "chunked"])
+def test_engine_sample_callable_matches_repro(models, mode, horizon):
+    """``DecodeEngine(sample=)``: a host callable samples prefill's first
+    tokens and every decode step (the eager horizon, one logits readback a
+    step); tokens, the callable's call log and device syncs equal repro's
+    (whose horizon calls it through an ordered ``io_callback``)."""
+    jcfg, jparams, cfg, params = models
+    jpick, pick = _Picker(cfg.vocab_size), _Picker(cfg.vocab_size)
+    jeng = JaxEngine(jcfg, JaxEngineConfig(prefill_mode=mode,
+                                           decode_horizon=horizon,
+                                           use_pallas=False, **KW),
+                     jparams, sample=jpick)
+    eng = DecodeEngine(cfg, EngineConfig(prefill_mode=mode,
+                                         decode_horizon=horizon, **KW),
+                       params, sample=pick, device="cpu")
+    for e, R in ((jeng, JaxRequest), (eng, Request)):
+        for r, prompt, n in _requests():
+            e.submit(R(r, prompt, n))
+    want = {k: list(v) for k, v in jeng.run(500).items()}
+    got = {k: list(v) for k, v in eng.run(500).items()}
+    assert got == want
+    assert pick.log == jpick.log and len(pick.log) > 0
+    assert eng.timing.device_syncs == jeng.timing.device_syncs
+    assert eng.timing.sample_readbacks == eng.timing.decode_steps
+    assert not eng.horizons.graphs
+
+
+def test_engine_sample_callable_refusals(models):
+    """``sample=`` with a draft raises (the verifier needs the sampler's
+    distribution), and with ``decode_graphs=True`` (a host call cannot run
+    inside a CUDA graph), before any allocation."""
+    _, _, cfg, params = models
+    with pytest.raises(ValueError, match="sample= callables"):
+        DecodeEngine(cfg, EngineConfig(draft_config=cfg, spec_horizon=3,
+                                       **KW), params,
+                     sample=_Picker(cfg.vocab_size), device="cpu")
+    with pytest.raises(ValueError, match="sample= callable"):
+        DecodeEngine(cfg, EngineConfig(decode_graphs=True, **KW), params,
+                     sample=_Picker(cfg.vocab_size), device="cpu")
+
+
 def test_cuda_request_without_card_raises(models):
     """Entry points default to the card and never fall back to the CPU."""
     import torch
@@ -222,7 +279,8 @@ def test_port_imports_without_jax():
 
 
 @pytest.mark.parametrize("what", ["src/repro_torch", "chip_smoke.py",
-                                  "examples/serve_longbench_torch.py"])
+                                  "examples/serve_longbench_torch.py",
+                                  "examples/train_100m_torch.py"])
 def test_port_source_never_imports_jax_or_repro(what):
     """The port's package, its card script and its example: no import of
     jax or repro anywhere in their source."""

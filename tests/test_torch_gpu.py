@@ -534,22 +534,27 @@ ENGINE_KW = dict(n_slots=2, page_size=2, n_pages=64, max_context=80,
                  eos_token=-1)
 
 
-def _engines(arch, ways, **kw):
-    """One engine per entry of ``ways`` (EngineConfig overrides) on the
-    card, all serving the same reduced ``arch`` weights and requests."""
+def _engines(arch, ways, params=None, **kw):
+    """One engine per entry of ``ways`` (EngineConfig overrides; a
+    ``sample`` entry is the engine's ``sample=``) on the card, all serving
+    the same reduced ``arch`` weights (``params``, default seed 0) and
+    requests."""
     from dataclasses import replace
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.model import init_params
     from repro_torch.serving import DecodeEngine, EngineConfig, Request
     cfg = replace(reduced(get_config(arch)), dtype="float32")
-    params = init_params(cfg, 0, torch.float32, "cuda")
+    if params is None:
+        params = init_params(cfg, 0, torch.float32, "cuda")
     rng = np.random.default_rng(7)
     reqs = [(r, rng.integers(0, 256, int(rng.integers(3, 30))), 9)
             for r in range(5)]
     engs = []
     for way in ways:
+        way = dict(way)
+        sample = way.pop("sample", None)
         eng = DecodeEngine(cfg, EngineConfig(**{**ENGINE_KW, **kw, **way}),
-                           params, device="cuda")
+                           params, device="cuda", sample=sample)
         for r, prompt, n in reqs:
             eng.submit(Request(r, prompt, n))
         engs.append(eng)
@@ -1454,3 +1459,140 @@ def test_families_ring_engine_matches_full_pool():
         if ring:
             assert eng.alloc.ring_pages == W
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# training on the card; the legacy sample= callable; int8 weight-only quant
+# ---------------------------------------------------------------------------
+
+def _train_case(arch, device, seed=0):
+    from dataclasses import replace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import TrainPipeline
+    from repro_torch.models.model import init_params
+    cfg = replace(reduced(get_config(arch)), dtype="float32")
+    params = init_params(cfg, seed, torch.float32, "cpu")
+    pipe = TrainPipeline(cfg.vocab_size, 16, 4)
+    return cfg, params, [pipe.batch(i) for i in range(2)]
+
+
+def _run_steps(cfg, params, batches, device):
+    from repro_torch.models import model as MDL
+    from repro_torch.models.model import tree_map
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train import make_train_step, to_device
+    step = make_train_step(cfg, MDL.DEFAULT_RT, OPT.AdamWConfig(
+        lr=1e-3, warmup_steps=1))
+    params = tree_map(lambda t: t.to(device), params)
+    opt, losses = OPT.init(params), []
+    for b in batches:
+        params, opt, m = step(params, opt, to_device(b, device))
+        losses.append(float(m["loss"]))
+    return params, losses
+
+
+def _leaf_gap(a, b):
+    from repro_torch.training.optimizer import tree_leaves
+    return max(float((x.cpu() - y.cpu()).abs().max())
+               / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-1.2b",
+                                  "mixtral-8x22b"])
+def test_train_step_on_the_card_matches_the_cpu(arch):
+    """A reduced train step on the card against the port on the CPU (which
+    the CPU tests hold to repro): 2 steps' losses within 1e-5 relative;
+    the grads from the same weights within 1e-4 of each leaf's largest
+    magnitude; AdamW's update from the same grads within 1e-6; K1-K4
+    launch 0 times. (The free-running params are not compared: ROADMAP
+    C.11.)"""
+    _card()
+    from repro_torch.models import model as MDL
+    from repro_torch.models.model import tree_map
+    from repro_torch.serving.graphs import launch_counts
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train import to_device
+    cfg, params, batches = _train_case(arch, "cuda")
+    before = launch_counts()
+    _, lg = _run_steps(cfg, params, batches, "cuda")
+    _, lc = _run_steps(cfg, params, batches, "cpu")
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), params)
+        leaves = [t.detach().requires_grad_(True)
+                  for t in OPT.tree_leaves(p)]
+        loss, _ = MDL.train_loss(cfg, OPT.tree_unflatten(p, leaves),
+                                 to_device(batches[0], dev))
+        grads[dev] = OPT.tree_unflatten(
+            p, list(torch.autograd.grad(loss, leaves)))
+    assert launch_counts() == before
+    assert _leaf_gap(grads["cuda"], grads["cpu"]) <= 1e-4
+    ocfg = OPT.AdamWConfig(lr=1e-3, warmup_steps=1)
+    cuda_p = tree_map(lambda t: t.cuda(), params)
+    up = OPT.apply(ocfg, cuda_p, tree_map(lambda t: t.cuda(), grads["cpu"]),
+                   OPT.init(cuda_p))[0]
+    want = OPT.apply(ocfg, params, grads["cpu"], OPT.init(params))[0]
+    assert _leaf_gap(up, want) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_train_loss_with_kernels_raises_on_the_card():
+    _card()
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.models import model as MDL
+    from repro_torch.models.model import tree_map
+    from repro_torch.training.train import to_device
+    cfg, params, batches = _train_case("llama3.2-1b", "cuda")
+    params = tree_map(lambda t: t.cuda(), params)
+    with pytest.raises(ValueError, match="no backward"):
+        MDL.train_loss(cfg, params, to_device(batches[0], "cuda"),
+                       rt=MDL.Runtime(kernels=KernelConfig()))
+
+
+@pytest.mark.gpu
+def test_sample_callable_engine_on_the_card():
+    """A host ``sample=`` greedy callable on the card: the eager horizon
+    (one logits readback a step, counted apart from device syncs) gives
+    the graph engine's greedy tokens; ``decode_graphs=True`` raises."""
+    _card()
+    from repro_torch.serving import DecodeEngine, EngineConfig
+    graphs, eng = _engines("llama3.2-1b",
+                           ({}, dict(sample=lambda r: int(np.argmax(r)))),
+                           prefill_mode="batched", decode_horizon=4)
+    assert eng.run(1000) == graphs.run(1000)
+    assert not eng.horizons.graphs and graphs.horizons.graphs
+    assert eng.timing.sample_readbacks == eng.timing.decode_steps > 0
+    with pytest.raises(ValueError, match="sample= callable"):
+        DecodeEngine(graphs.cfg, EngineConfig(decode_graphs=True,
+                                              **ENGINE_KW),
+                     graphs.params, device="cuda", sample=int)
+
+
+@pytest.mark.gpu
+def test_quantized_decode_on_the_card():
+    """int8 weight-only params on the card: logits within repro's bound
+    of the fp32 model's, and a quantized engine's graph path (K1 decode,
+    K2 prefill) equal to its eager path."""
+    _card()
+    from dataclasses import replace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import quant as Q
+    from repro_torch.models import model as MDL
+    from repro_torch.models.model import init_params
+    cfg = replace(reduced(get_config("llama3.2-1b")), dtype="float32")
+    params = init_params(cfg, 0, torch.float32, "cuda")
+    qparams = Q.quantize_params(params, min_size=1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+    with torch.no_grad():
+        fp = MDL.forward(cfg, params, toks)[0].cpu().numpy()
+        qq = MDL.forward(cfg, qparams, toks)[0].cpu().numpy()
+    assert np.abs(qq - fp).max() < 0.12 * (fp.max() - fp.min())
+    assert (fp.argmax(-1) == qq.argmax(-1)).mean() >= 0.75
+    graphs, eager = _engines("llama3.2-1b", ({}, dict(decode_graphs=False)),
+                             params=qparams, prefill_mode="batched",
+                             decode_horizon=4)
+    assert graphs.run(1000) == eager.run(1000)
