@@ -55,7 +55,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    chunk at offsets 1024 / 512 against 2048 keys. K2 without the causal
    mask at whisper-small's encoder (B 8, Sq = Skv = 1500, ragged against
    its 64-token tiles) and cross prefill (Sq 416 against 1500 keys), with
-   SDPA without a mask as the library call.
+   SDPA without a mask as the library call. K1 also on the shard-local
+   tables phase 15 gives it (``SHARD_PAGED``): one shard's view of a
+   page-sharded pool with every other shard's entries -1, at long_500k's
+   global layer, its 6-slot ``windowed_slice``, and llama3.2-1b's batched
+   and pipeline rows; their bounds count the tokens the tables hold.
 4. bench   — ``python -m repro_torch.launch.kernel_bench`` at full size,
    in-process: its asserts must hold and each kernel's launch count must
    equal the calls the bench made of its wrapper (K3 launches here and on
@@ -251,11 +255,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    bound (0.12 of their spread, greedy agreement >= 0.75) of the fp32
    ones. Phase 3 also times SDPA with an explicit boolean band mask (the
    window) as K2's library call at its windowed shapes.
+15. sharded — the multi-device serving paths on a single-process 8-shard
+   ``LocalMesh`` (fp32, TF32 off, greedy), each case's launches checked
+   against what its steps and calls imply and added to the totals: (a)
+   long_500k: gemma3-27b's first 6 layers at full width, one request of
+   524288 tokens in pages of 256 striped over (data 2, model 4) and merged
+   over both, the 51.5 GB pool seeded and viewed by every shard (no copy),
+   4 decode steps through ``Plan.make_runtime(mode="decode")``: K1 on each
+   shard's local table, ``windowed_slice`` on the 5 local layers
+   (``cond_window`` 1024); held to the unsharded K1 (``n_splits`` 64) on
+   the same pool fed the same tokens (attention 2e-5 of scale a layer,
+   greedy tokens by C.3); the global layer's K1 over 8 shards and in one
+   launch against its byte bound. (b) llama3.2-1b whole, 8 rows of
+   256-1024 tokens over (data 2, model 4), ``row_affine`` +
+   ``blocked_chunk``: the prefill writes through ``make_prefill_writer``
+   (pools equal to ``write_prefill``'s bitwise), then 32 decode steps
+   merged over ``model`` against the unsharded K1 runtime. (c)
+   mixtral-8x22b's MoE layer at full width on ``moe_ep`` (8 virtual
+   experts on 8 shards, dropless, 8 x 64 tokens) against ``moe_local``
+   (2e-5 of scale; aux = the shards' plain mean). (d) GPipe decode of
+   llama3.2-1b whole on (pod 2, data 2, model 2), 2 stages, 2
+   microbatches, B 4, 256 prefilled tokens and 16 steps, against
+   ``forward`` (5e-3).
 
 ``python3 chip_smoke.py --lifecycle`` builds the kernels and runs phase 10
 alone; ``--disagg`` builds them and runs phase 11 alone; ``--xlstm``
 phase 12 alone; ``--families`` phase 13 alone; ``--train`` phase 14
-alone.
+alone; ``--sharded`` phase 15 alone.
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
 and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
 bench and long-context shapes) and K4 (zamba2 prefill and decode, slot
@@ -510,17 +536,75 @@ def _pool_case(rng, dev, dtype, B, KVH, G, D, page, W, *, ctx_max, qpos=1,
     return q, kp, vp, bt, torch.from_numpy(ctx.astype(np.int32)).to(dev)
 
 
+def _table_tokens(bt, ctx, page: int, window: int,
+                  windowed_slice: bool) -> float:
+    """The tokens a decode launch (qpos 1) must read from its table: of
+    each live slot's page (slot j is virtual page j, or lo + j under
+    ``windowed_slice``), those in the row's [ctx - window, ctx)."""
+    bt, ctx = bt.long().cpu(), ctx.long().cpu()[:, None]
+    lo_tok = (ctx - window).clamp_min(0) if window else torch.zeros_like(ctx)
+    vp = torch.arange(bt.shape[1])[None]
+    if windowed_slice:
+        vp = lo_tok // page + vp
+    a = torch.maximum(vp * page, lo_tok)
+    b = torch.minimum((vp + 1) * page, ctx)
+    return float(((b - a).clamp_min(0) * (bt >= 0)).sum())
+
+
+def _shard_case(dev, dtype, *, KVH, G, D, page, n_pages, n_shards, my,
+                admit, rows, ctx, maxp, policy, alloc_kw=None, row_of=None,
+                window=0, win_slots=0):
+    """One shard's K1 inputs on a page-sharded pool, as
+    ``core/itpp.py`` passes them: the rows ``rows`` of the global tables
+    of requests admitted with ``admit`` tokens (at context ``ctx``, one
+    entry a request), the shard's ``n_pages //
+    n_shards`` pages as a view of the whole pool (trash page last), its
+    pages renumbered locally and every other entry -1; with ``win_slots``
+    only that many slots from the window's first page (``windowed_slice``).
+    """
+    from repro_torch.core.allocator import PageAllocator
+    alloc = PageAllocator(n_pages, n_shards, page, policy=policy,
+                          **(alloc_kw or {}))
+    for b, n in enumerate(admit):
+        alloc.admit(b, int(n), **({} if row_of is None
+                                  else {"row": row_of(b)}))
+    bt = np.stack([alloc.block_table(b, maxp) for b in rows]).astype(np.int64)
+    P_loc = n_pages // n_shards
+    bt = np.where((bt >= 0) & (bt // P_loc == my), bt - my * P_loc, -1)
+    ctx = np.asarray(ctx, dtype=np.int64)[rows]
+    if win_slots:
+        sel = (np.maximum(ctx - window, 0) // page)[:, None] \
+            + np.arange(win_slots)[None]
+        bt = np.where(sel < maxp,
+                      np.take_along_axis(bt, np.minimum(sel, maxp - 1), 1),
+                      -1)
+    pool = [torch.randn(n_pages + 1, page, KVH, D, device=dev).to(dtype)
+            for _ in "kv"]
+    kp, vp = (t.narrow(0, my * P_loc, P_loc) for t in pool)
+    q = torch.randn(len(rows), KVH, G, D, device=dev).to(dtype)
+    return (q, kp, vp, torch.from_numpy(bt.astype(np.int32)).to(dev),
+            torch.from_numpy(ctx.astype(np.int32)).to(dev))
+
+
 def check_paged(rng, dtype, *, B=8, KVH=8, G=4, D=64, page=16, W=128,
                 ctx_max=2048, n_splits=1, window=0, ring_width=0,
                 windowed_slice=False, qpos=1, idle_row=False, time_it=False,
-                ctx_fixed=None):
+                ctx_fixed=None, shard=None):
+    """K1 against its plain version on a random pool, or, with ``shard``
+    (``_shard_case``'s arguments), on one shard's view of a page-sharded
+    pool; a shard case's bound counts the tokens its table holds."""
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels.ref import combine_partials
     from repro_torch.kernels.backend import decode_hbm_bytes
     dev = DEV
-    q, kp, vp, bt, ctx = _pool_case(rng, dev, dtype, B, KVH, G, D, page, W,
-                                    ctx_max=ctx_max, qpos=qpos,
-                                    ctx_fixed=ctx_fixed)
+    if shard is None:
+        q, kp, vp, bt, ctx = _pool_case(rng, dev, dtype, B, KVH, G, D, page,
+                                        W, ctx_max=ctx_max, qpos=qpos,
+                                        ctx_fixed=ctx_fixed)
+    else:
+        q, kp, vp, bt, ctx = _shard_case(dev, dtype, KVH=KVH, G=G, D=D,
+                                         page=page, window=window, **shard)
+        B, W = bt.shape
     if idle_row:                     # ctx 0, all -1 table: every split dead
         bt[-1] = -1
         ctx[-1] = 0
@@ -566,12 +650,15 @@ def check_paged(rng, dtype, *, B=8, KVH=8, G=4, D=64, page=16, W=128,
         c = ctx.long().cpu()[:, None] + torch.arange(qpos)[None]
         hi = c if ring_width else c.clamp(0, W * page)
         lo = (c - window).clamp_min(0) if window else torch.zeros_like(c)
-        seen = (hi - lo).clamp_min(0).float()
+        seen = float((hi - lo).clamp_min(0).sum())
         live = float((hi[:, -1] - lo[:, 0]).clamp_min(0).sum())
+        if shard is not None:        # sparse tables: the tokens they hold
+            live = seen = _table_tokens(bt, ctx, page, window,
+                                        windowed_slice)
         nbytes = (decode_hbm_bytes(live, KVH, D, esz) + q.numel() * esz
                   + S * B * KVH * G * qpos * (D + 2) * 4
                   + bt.numel() * 4 + ctx.numel() * 4)
-        flops = 4.0 * KVH * G * D * float(seen.sum())
+        flops = 4.0 * KVH * G * D * seen
         # fp32 products at the 3xTF32 rate, as K2's and K4's fp32 bounds
         peak = TF32X3 if dtype == torch.float32 else PEAK[dtype]
         res["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_S, flops / peak)
@@ -678,6 +765,47 @@ ZOO_PAGED = (
     ("mixtral-8x22b ring decode B=4 KVH=8 G=6 D=128 window=4096 "
      "ring_width=258 ctx<=6000", dict(B=4, KVH=8, G=6, W=258, ring_width=258,
                                       window=4096, ctx_max=6000)))
+# K1 on shard-local tables at the layouts phase 15 launches it: (a)
+# long_500k's gemma3-27b request striped over 8 shards (a shard's 256-page
+# view, its 256 of the 2048 slots live; the local layers' windowed_slice
+# over 6 slots, at the shard holding the window's 3-token first page and at
+# the one holding the current page), (b)'s llama3.2-1b rows (row_affine,
+# blocked_chunk 16; a shard with ragged tables and one whose tables are all
+# -1) and (d)'s pipeline stage (1 row, 24-page view, 18 slots)
+LONG_SHARD = dict(n_pages=2048, n_shards=8, admit=[524288], rows=[0],
+                  ctx=[524285], maxp=2048, policy="striped")
+_B_LENS = np.random.default_rng(15).integers(256, 1025, 8)
+B_SHARD = dict(n_pages=768, n_shards=8, admit=_B_LENS + 32, ctx=_B_LENS + 1,
+               maxp=67, policy="row_affine",
+               alloc_kw=dict(n_rows=2, blocked_chunk=16),
+               row_of=lambda b: b // 4)
+SHARD_PAGED = (
+    ("gemma3-27b long_500k global shard 3/8 view 256 pages of 256, table "
+     "2048 slots (256 live) ctx=524285 KVH=16 G=2 D=128 n_splits=16",
+     dict(KVH=16, G=2, D=128, page=256, n_splits=16,
+          shard=dict(LONG_SHARD, my=3))),
+    ("gemma3-27b long_500k local windowed_slice shard 3/8 (window's first "
+     "page, 3 tokens) 6 slots window=1024 ctx=524285 n_splits=16",
+     dict(KVH=16, G=2, D=128, page=256, n_splits=16, window=1024,
+          windowed_slice=True, shard=dict(LONG_SHARD, my=3, win_slots=6))),
+    ("gemma3-27b long_500k local windowed_slice shard 7/8 (current page) "
+     "6 slots window=1024 ctx=524285 n_splits=16",
+     dict(KVH=16, G=2, D=128, page=256, n_splits=16, window=1024,
+          windowed_slice=True, shard=dict(LONG_SHARD, my=7, win_slots=6))),
+    ("llama3.2-1b decode_32k rows 0-3 shard 3/8 view 96 pages of 16, "
+     "table 67 slots (ragged) KVH=8 G=4 D=64 n_splits=4",
+     dict(KVH=8, G=4, D=64, page=16, n_splits=4,
+          shard=dict(B_SHARD, my=3, rows=[0, 1, 2, 3]))),
+    ("llama3.2-1b decode_32k rows 4-7 shard 7/8 (every entry -1) "
+     "n_splits=4",
+     dict(KVH=8, G=4, D=64, page=16, n_splits=4,
+          shard=dict(B_SHARD, my=7, rows=[4, 5, 6, 7]))),
+    ("llama3.2-1b pipeline stage row 0 shard 1/4 view 24 pages of 16, "
+     "table 18 slots ctx=257 n_splits=1",
+     dict(KVH=8, G=4, D=64, page=16, n_splits=1,
+          shard=dict(n_pages=96, n_shards=4, admit=[272] * 4, rows=[0],
+                     ctx=[257], maxp=18, policy="row_affine",
+                     alloc_kw=dict(n_rows=2), row_of=lambda b: b % 2, my=1))))
 ZOO_FLASH = (
     ("qwen1.5-7b H=KVH=32 D=128 Sq=1024", dict(H=32, KVH=32)),
     ("gemma3-27b H=32 KVH=16 D=128 Sq=1024 window=1024",
@@ -963,6 +1091,10 @@ def phase_kernels() -> dict:
             r = check_paged(rng, dtype, D=128, n_splits=4, time_it=True,
                             **kw)
             cases.append(("paged_attention", tag, name, r))
+        for name, kw in SHARD_PAGED:
+            r = check_paged(rng, dtype, time_it=True, **kw)
+            cases.append(("paged_attention", tag, name, r))
+            _free()
         for name, kw in ZOO_FLASH:
             r = check_flash(dtype, D=128, time_it=True, **kw)
             cases.append(("flash_attention", tag, name, r))
@@ -1280,6 +1412,7 @@ def launch_counts(fns) -> dict:
 def reset_counts(fns) -> None:
     for fn in fns.values():
         fn.launches = 0
+    fns["paged_attention"].launches_windowed = 0
     fns["flash_attention"].launches_noncausal = 0
     fns["ssm_scan"].launches_chunk = fns["ssm_scan"].launches_step = 0
 
@@ -3815,6 +3948,483 @@ def phase_train(smi: str, launches: dict) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 15. the multi-device serving paths on a single-process mesh
+# ---------------------------------------------------------------------------
+
+LONG_CTX = 524288               # (a): long_500k's context
+LONG_SPLITS = 16                # (a): K1 splits a shard's table into
+SHARD_SPLITS = 4                # (b): the same in the batched case
+
+
+def _sharded_params(arch: str, layers: int | None = None):
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MDL
+    cfg = replace(get_config(arch), dtype="float32")
+    if layers is not None:
+        cfg = replace(cfg, n_layers=layers)
+    return cfg, MDL.init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+
+
+def _recording(fn, into: list):
+    """``fn`` (a Runtime's itpp) that also keeps each call's output."""
+    def f(*args):
+        out = fn(*args)
+        into.append(out[0].clone())
+        return out
+    return f
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _greedy_check(label, cfg, lg_a, lg_b, tok_a) -> float:
+    """The greedy token of logits ``lg_b`` (the reference, fed ``tok_a``'s
+    history) must be ``tok_a`` unless its top-2 gap is under ``TIE_GAP``
+    (ROADMAP C.3). Returns max |lg_a - lg_b|."""
+    V = cfg.vocab_size
+    b = lg_b[..., :V]
+    tb = b.argmax(-1)
+    diff = tb != tok_a
+    if bool(diff.any()):
+        top = b.topk(2, dim=-1).values
+        gaps = (top[..., 0] - top[..., 1])[diff]
+        print(f"[sharded] {label}: greedy tokens differ in "
+              f"{int(diff.sum())} rows, reference top-2 gaps "
+              f"{gaps.tolist()}", flush=True)
+        if bool((gaps >= TIE_GAP).any()):
+            fail(f"{label}: greedy tokens differ from the reference")
+    return float((lg_a[..., :V] - b).abs().max())
+
+
+def _check_path(label, la, want, launches) -> None:
+    print(f"[sharded] {label} launches: " + " ".join(
+        f"{k}={la[k]} (expected {want.get(k, 0)})" for k in la
+        if want.get(k, 0) or la[k]), flush=True)
+    if any(la[k] != want.get(k, 0) for k in la):
+        fail(f"{label}: kernel launches {la} do not match {want}")
+    for k, v in la.items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def sharded_long(smi: str, launches: dict, fns) -> None:
+    """(a) long_500k: one request over all 8 shards of a (data 2, model 4)
+    mesh, gemma3-27b at full width, its first 6 layers (5 local with the
+    1024-token window, 1 global), a context of ``LONG_CTX`` tokens in
+    pages of 256 striped over the mesh and merged over both axes. The pool
+    is seeded K/V (its ``LONG_CTX - 4`` tokens), then 4 greedy decode
+    steps through ``Plan.make_runtime(mode="decode")``: K1 on each
+    shard's local table, ``windowed_slice`` on the local layers
+    (``cond_window`` 1024). Held to the unsharded K1 path (``n_splits``
+    64) on the same pool, fed the same tokens: each layer's attention
+    output within 2e-5 of its scale, greedy tokens identical (C.3)."""
+    from repro_torch.configs import SHAPES, ParallelConfig
+    from repro_torch.core import itpp as IT
+    from repro_torch.core.allocator import PageAllocator
+    from repro_torch.core.paged_kv import PoolSpec
+    from repro_torch.distributed.mesh import LocalMesh
+    from repro_torch.distributed.sharding import make_plan
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.models import model as MDL
+    cfg, params = _sharded_params("gemma3-27b", layers=6)
+    page, steps, n_shards = 256, 4, 8
+    n_pages = LONG_CTX // page
+    P_loc = n_pages // n_shards
+    mesh = LocalMesh((2, 4), ("data", "model"))
+    parallel = ParallelConfig(page_size=page, kernel_splits=LONG_SPLITS)
+    plan = make_plan(mesh, parallel, SHAPES["long_500k"])
+    spec = PoolSpec(cfg.n_layers, n_pages, page, cfg.n_kv_heads, cfg.d_head,
+                    n_pages, dtype="float32")
+    state = MDL.init_decode_state(cfg, spec, 1, device=DEV)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(15)
+    for name in ("k", "v"):
+        for i in range(cfg.n_layers):
+            state["pool"][name][i].normal_(generator=g)
+    alloc = PageAllocator(n_pages, n_shards, page, policy="striped")
+    alloc.admit(0, LONG_CTX)
+    bt = torch.tensor(alloc.block_table(0, n_pages)[None], dtype=torch.int32,
+                      device=DEV)
+    rt = plan.make_runtime(cfg, parallel, pool_spec=spec, mode="decode")
+    if rt.cond_window != cfg.sliding_window or \
+            plan.itpp_spec(page).merge_axes != ("data", "model"):
+        fail("long_500k: the plan did not set cond_window / the pod merge")
+    att_s: list = []
+    rt.itpp = _recording(rt.itpp, att_s)
+    start = LONG_CTX - steps
+    tok = torch.tensor([7], dtype=torch.int32, device=DEV)
+    toks, lgs, ms = [], [], []
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fns)
+
+    def step_args(j):
+        pos = start + j
+        return (torch.tensor([pos + 1], dtype=torch.int32, device=DEV),
+                bt[:, pos // page].contiguous(),
+                torch.tensor([pos % page], dtype=torch.int32, device=DEV))
+    for j in range(steps):
+        ctx, npage, noff = step_args(j)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, state = MDL.decode_step(cfg, params, state, tok, bt, ctx, npage,
+                                    noff, rt=rt)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        lgs.append(lg)
+        toks.append(tok)
+        tok = lg[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    la = launch_counts(fns)
+    windowed = fns["paged_attention"].launches_windowed
+    n_local = sum(1 for k in cfg.block_kinds() if k == "local")
+    want = {"paged_attention": cfg.n_layers * n_shards * steps}
+    _check_path("(a) long_500k", la, want, launches)
+    if windowed != n_local * n_shards * steps:
+        fail(f"(a): {windowed} windowed_slice launches, expected "
+             f"{n_local * n_shards * steps}")
+    launches["paged_attention windowed"] = \
+        launches.get("paged_attention windowed", 0) + windowed
+    peak = torch.cuda.max_memory_allocated()
+    # the reference: one shard, K1 over the whole table, fed the same tokens
+    kc = KernelConfig(n_splits=64)
+    att_r: list = []
+    rt_ref = MDL.Runtime(kernels=kc)
+    rt_ref.itpp = _recording(lambda *a: IT.itpp_decode_attention_shard(
+        *a, max_pages_per_req=n_pages, kernels=kc), att_r)
+    gap, ms_ref = 0.0, []
+    for j in range(steps):
+        ctx, npage, noff = step_args(j)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, state = MDL.decode_step(cfg, params, state, toks[j], bt, ctx,
+                                    npage, noff, rt=rt_ref)
+        torch.cuda.synchronize()
+        ms_ref.append(1e3 * (time.perf_counter() - t))
+        nxt = toks[j + 1] if j + 1 < steps else \
+            lgs[j][:, :cfg.vocab_size].argmax(-1)
+        gap = max(gap, _greedy_check("(a)", cfg, lgs[j], lg, nxt))
+    err = max(float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(att_s, att_r))
+    if len(att_s) != len(att_r) or not err <= 2e-5:
+        fail(f"(a): attention outputs differ from the unsharded K1 path by "
+             f"{err:.3e} of scale (bound 2e-5)")
+    # K1 on the global layer: the 8 shards' launches against one launch
+    # over the whole table, and the byte bound of the layer's K/V
+    from repro_torch.kernels.paged_attention import paged_attention_partials
+    gl = cfg.block_kinds().index("attn")
+    pk, pv = state["pool"]["k"][gl], state["pool"]["v"][gl]
+    q = torch.randn((1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                     cfg.d_head), generator=g, device=DEV)
+    ctx = torch.tensor([LONG_CTX], dtype=torch.int32, device=DEV)
+    locs = [torch.where((bt >= s * P_loc) & (bt < (s + 1) * P_loc),
+                        bt - s * P_loc, -1).to(torch.int32)
+            for s in range(n_shards)]
+    views = [(pk.narrow(0, s * P_loc, P_loc), pv.narrow(0, s * P_loc, P_loc))
+             for s in range(n_shards)]
+
+    def sharded_k1():
+        for (k, v), b in zip(views, locs):
+            paged_attention_partials(q, k, v, b, ctx, n_splits=LONG_SPLITS)
+    k1_ms = cuda_ms(sharded_k1, iters=5, warmup=1)
+    one_ms = cuda_ms(lambda: paged_attention_partials(
+        q, pk, pv, bt, ctx, n_splits=64), iters=5, warmup=1)
+    kv_bytes = 2 * LONG_CTX * cfg.n_kv_heads * cfg.d_head * 4
+    bound = kv_bytes / HBM_BYTES_S * 1e3
+    print(f"[sharded] (a) long_500k gemma3-27b {cfg.n_layers} layers "
+          f"(5 local w{cfg.sliding_window} + 1 global) ctx {LONG_CTX} page "
+          f"{page} mesh (data 2, model 4) striped, merge over both: step ms "
+          + " ".join(f"{x:.2f}" for x in ms) + " (unsharded K1 n_splits 64: "
+          + " ".join(f"{x:.2f}" for x in ms_ref) + f"); attention err "
+          f"{err:.3e} of scale, max logit gap {gap:.3e}; K1 launches "
+          f"{la['paged_attention']} ({windowed} windowed_slice); global "
+          f"layer K1 8 shards x n_splits {LONG_SPLITS} {k1_ms:.3f} ms, one "
+          f"launch n_splits 64 {one_ms:.3f} ms, bound {bound:.3f} ms "
+          f"({kv_bytes / 1e9:.2f} GB at 3.35 TB/s); peak device GB "
+          f"{peak / 1e9:.2f} | {smi}", flush=True)
+    del params, state, views, pk, pv
+    _free()
+
+
+def sharded_batched(smi: str, launches: dict, fns, params) -> None:
+    """(b) decode_32k's layout at smoke scale: llama3.2-1b whole, 8 rows
+    over a (data 2, model 4) mesh, ``row_affine`` (2 rows) with
+    ``blocked_chunk``, prompts of 256-1024 tokens. The prefill writes the
+    pool through ``make_prefill_writer`` (the sequence cut over ``model``),
+    equal to the unsharded ``write_prefill``'s pool exactly; then 32
+    greedy decode steps through the sharded ITPP merged over ``model``,
+    tokens equal to the unsharded K1 runtime fed the same tokens (C.3)."""
+    from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
+    from repro_torch.core.allocator import PageAllocator
+    from repro_torch.core.paged_kv import PoolSpec
+    from repro_torch.distributed.mesh import LocalMesh
+    from repro_torch.distributed.sharding import make_plan
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.models import model as MDL
+    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    B, S, page, steps, n_shards = 8, 1024, 16, 32, 8
+    rng = np.random.default_rng(15)
+    lens = rng.integers(256, S + 1, B)
+    maxp = (S + steps) // page + 1
+    n_pages = n_shards * 96
+    mesh = LocalMesh((2, 4), ("data", "model"))
+    parallel = ParallelConfig(page_size=page, kernel_splits=SHARD_SPLITS,
+                              remat=False)
+    alloc = PageAllocator(n_pages, n_shards, page, policy="row_affine",
+                          n_rows=2, blocked_chunk=S // 4 // page)
+    for b in range(B):
+        alloc.admit(b, int(lens[b]) + steps, row=b // 4)
+    bt = torch.tensor(np.stack([alloc.block_table(b, maxp)
+                                for b in range(B)]), dtype=torch.int32,
+                      device=DEV)
+    spec = PoolSpec(cfg.n_layers, n_pages, page, cfg.n_kv_heads, cfg.d_head,
+                    maxp, dtype="float32")
+    rt_pre = make_plan(mesh, parallel, ShapeConfig("p", "prefill", S, B),
+                       train_layout="sp").make_runtime(
+        cfg, parallel, pool_spec=spec, mode="prefill")
+    plan = make_plan(mesh, parallel, ShapeConfig("d", "decode", S + steps, B))
+    rt = plan.make_runtime(cfg, parallel, pool_spec=spec, mode="decode")
+    if rt_pre.write_pool is None or plan.itpp_spec(page).merge_axes != \
+            ("model",):
+        fail("(b): the plans did not set the writer / the row merge")
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                          device=DEV)
+    valid = torch.tensor(lens, device=DEV)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    rows = torch.arange(B, device=DEV)
+    V = cfg.vocab_size
+
+    def step_args(j):
+        pos = lens_t + j
+        return (pos + 1, bt[rows, (pos // page).long()].contiguous(),
+                (pos % page).to(torch.int32))
+    # the unsharded runtime's prefill (write_prefill's pool) comes first:
+    # the sharded pool is held to it before its decode steps write
+    rt_u = MDL.Runtime(kernels=KernelConfig(n_splits=SHARD_SPLITS))
+    state_u = MDL.init_decode_state(cfg, spec, B, device=DEV)
+    lg0_u, _ = MDL.prefill(cfg, params, state_u, tokens, bt,
+                           last_idx=valid - 1, valid_len=valid, rt=rt_u)
+    state = MDL.init_decode_state(cfg, spec, B, device=DEV)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fns)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lg0, _ = MDL.prefill(cfg, params, state, tokens, bt, last_idx=valid - 1,
+                         valid_len=valid, rt=rt_pre)
+    torch.cuda.synchronize()
+    pre_ms = 1e3 * (time.perf_counter() - t)
+    if not all(torch.equal(state_u["pool"][n][:, :n_pages],
+                           state["pool"][n][:, :n_pages])
+               for n in ("k", "v")):
+        fail("(b): the sharded prefill writer's pool differs from "
+             "write_prefill's")
+    tok = lg0[:, :V].argmax(-1).to(torch.int32)
+    toks, lgs, ms = [tok], [], []
+    for j in range(steps):
+        ctx, npage, noff = step_args(j)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, _ = MDL.decode_step(cfg, params, state, tok, bt, ctx, npage,
+                                noff, rt=rt)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        lgs.append(lg)
+        tok = lg[:, :V].argmax(-1).to(torch.int32)
+        toks.append(tok)
+    la = launch_counts(fns)
+    want = {"flash_attention": cfg.n_layers,
+            "paged_attention": cfg.n_layers * n_shards * steps}
+    _check_path("(b) batched", la, want, launches)
+    peak = torch.cuda.max_memory_allocated()
+    # the unsharded runtime's decode, K1 over whole tables, fed the tokens
+    gap = _greedy_check("(b) prefill", cfg, lg0, lg0_u, toks[0])
+    ms_u = []
+    for j in range(steps):
+        ctx, npage, noff = step_args(j)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, _ = MDL.decode_step(cfg, params, state_u, toks[j], bt, ctx,
+                                npage, noff, rt=rt_u)
+        torch.cuda.synchronize()
+        ms_u.append(1e3 * (time.perf_counter() - t))
+        gap = max(gap, _greedy_check("(b)", cfg, lgs[j], lg, toks[j + 1]))
+    warm = np.median(ms[1:])
+    print(f"[sharded] (b) batched llama3.2-1b {cfg.n_layers} layers, 8 rows "
+          f"(prompts {int(lens.min())}-{int(lens.max())}) over (data 2, "
+          f"model 4) row_affine + blocked_chunk {S // 4 // page}: prefill ms "
+          f"{pre_ms:.1f} (sharded writer, pools equal), decode step ms "
+          f"median {warm:.2f} (unsharded K1 {np.median(ms_u[1:]):.2f}); "
+          f"tokens identical over {steps} steps, max logit gap {gap:.3e}; "
+          f"K1 launches {la['paged_attention']}, K2 "
+          f"{la['flash_attention']}; peak device GB {peak / 1e9:.2f} | {smi}",
+          flush=True)
+    del state, state_u
+    _free()
+
+
+def sharded_moe(smi: str, launches: dict, fns) -> None:
+    """(c) ``moe_ep``: one mixtral-8x22b MoE layer at full width (8
+    experts, d 6144, ff 16384) as 8 virtual experts on 8 shards (mesh
+    (data 1, model 8), the plan's expert-parallel runtime), capacity
+    factor 8 (dropless), 8 x 64 tokens: within 2e-5 of scale of
+    ``moe_local``; its aux (the shards' mean balance term) within 1e-6 of
+    the mean of each shard's balance term computed here from the router
+    logits."""
+    from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
+    from repro_torch.distributed.mesh import LocalMesh
+    from repro_torch.distributed.sharding import make_plan
+    from repro_torch.models import moe as MOE
+    cfg = replace(get_config("mixtral-8x22b"), dtype="float32",
+                  capacity_factor=8.0)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(15)
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=g, device=DEV) * scale
+    p = MOE.init_moe(cfg, normal, n_virtual=8)
+    x = torch.randn((8, 64, cfg.d_model), generator=g, device=DEV)
+    parallel = ParallelConfig(remat=False)
+    plan = make_plan(LocalMesh((1, 8), ("data", "model")), parallel,
+                     ShapeConfig("m", "prefill", 64, 8), train_layout="sp")
+    rt = plan.make_runtime(cfg, parallel, mode="prefill")
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fns)
+    y, aux = rt.moe_apply(p, cfg, x, with_aux=True)
+    torch.cuda.synchronize()
+    _check_path("(c) moe_ep", launch_counts(fns), {}, launches)
+    peak = torch.cuda.max_memory_allocated()
+    y_ref, aux_all = MOE.moe_local(p, cfg, x, with_aux=True)
+    err = float((y - y_ref).abs().max()) / float(y_ref.abs().max())
+    # each shard's balance term from its tokens' router logits, apart from
+    # models/moe.py: E * sum_e (mean probability of e) * (top-1 share of e)
+    E = cfg.n_experts
+    terms = []
+    for s in range(8):
+        xs = x[:, s * 8:(s + 1) * 8].reshape(-1, cfg.d_model)
+        probs = torch.softmax(xs @ p["router"], dim=-1)
+        share = torch.bincount(probs.argmax(-1), minlength=E) / xs.shape[0]
+        terms.append(E * (probs.mean(0) * share).sum())
+    aux_plain = torch.stack(terms).sum(0) / 8
+    if not err <= 2e-5 or abs(float(aux) - float(aux_plain)) > \
+            1e-6 * abs(float(aux_plain)):
+        fail(f"(c): moe_ep err {err:.3e} of scale (bound 2e-5), aux "
+             f"{float(aux)} vs {float(aux_plain)}")
+    ep_ms = cuda_ms(lambda: rt.moe_apply(p, cfg, x), iters=3, warmup=1)
+    local_ms = cuda_ms(lambda: MOE.moe_local(p, cfg, x), iters=3, warmup=1)
+    print(f"[sharded] (c) moe_ep mixtral-8x22b layer (8 experts d "
+          f"{cfg.d_model} ff {cfg.d_ff}, 8 virtual on 8 shards, dropless) "
+          f"8 x 64 tokens: err {err:.3e} of scale, aux {float(aux):.6f} "
+          f"(plain shard mean {float(aux_plain):.6f}; moe_local's over all "
+          f"tokens {float(aux_all):.6f}); ms {ep_ms:.2f} (moe_local "
+          f"{local_ms:.2f}); peak device GB {peak / 1e9:.2f} | {smi}",
+          flush=True)
+    del p, x, y, y_ref
+    _free()
+
+
+def sharded_pipeline(smi: str, launches: dict, fns, params) -> None:
+    """(d) pipeline decode: llama3.2-1b whole on a (pod 2, data 2, model 2)
+    mesh, 2 stages, 2 microbatches, B 4, 256 prefilled tokens (K2), 16
+    decode steps teacher-forced: logits within 5e-3 (the bound of
+    ``tests/test_distributed.py``) of the port's full-sequence forward."""
+    from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
+    from repro_torch.core.allocator import PageAllocator
+    from repro_torch.core.paged_kv import PoolSpec
+    from repro_torch.distributed.mesh import LocalMesh
+    from repro_torch.distributed.pipeline import make_pp_decode_step
+    from repro_torch.distributed.sharding import make_plan
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.models import model as MDL
+    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    B, S_pre, steps, page, mbs = 4, 256, 16, 16, 2
+    S = S_pre + steps
+    maxp = S // page + 1
+    n_pages = 4 * 24
+    mesh = LocalMesh((2, 2, 2), ("pod", "data", "model"))
+    parallel = ParallelConfig(page_size=page, remat=False)
+    plan = make_plan(mesh, parallel, ShapeConfig("d", "decode", S, B),
+                     pod_mode="pp")
+    spec = PoolSpec(cfg.n_layers, n_pages, page, cfg.n_kv_heads, cfg.d_head,
+                    maxp, dtype="float32")
+    alloc = PageAllocator(n_pages, 4, page, policy="row_affine", n_rows=2)
+    for b in range(B):
+        alloc.admit(b, S, row=b % 2)
+    bt = torch.tensor(np.stack([alloc.block_table(b, maxp)
+                                for b in range(B)]), dtype=torch.int32,
+                      device=DEV)
+    rng = np.random.default_rng(16)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)), device=DEV)
+    state = MDL.init_decode_state(cfg, spec, B, device=DEV)
+    step = make_pp_decode_step(cfg, plan, parallel, spec, n_stages=2,
+                               microbatches=mbs)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fns)
+    MDL.prefill(cfg, params, state, toks[:, :S_pre], bt,
+                rt=MDL.Runtime(kernels=KernelConfig()))
+    lgs, ms = [], []
+    for t_ in range(S_pre, S):
+        batch = {"tokens": toks[:, t_], "bt": bt,
+                 "ctx": torch.full((B,), t_ + 1, dtype=torch.int32,
+                                   device=DEV),
+                 "npage": bt[:, t_ // page].contiguous(),
+                 "noff": torch.full((B,), t_ % page, dtype=torch.int32,
+                                    device=DEV)}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, state = step(params, state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        lgs.append(lg)
+    la = launch_counts(fns)
+    want = {"flash_attention": cfg.n_layers,
+            "paged_attention": steps * mbs * cfg.n_layers * 4}
+    _check_path("(d) pipeline", la, want, launches)
+    peak = torch.cuda.max_memory_allocated()
+    ref, _ = MDL.forward(cfg, params, toks)
+    gap = max(float((lg - ref[:, S_pre + j]).abs().max())
+              for j, lg in enumerate(lgs))
+    if not gap < 5e-3:
+        fail(f"(d): pipeline logits differ from forward by {gap:.3e}")
+    print(f"[sharded] (d) pipeline llama3.2-1b {cfg.n_layers} layers, mesh "
+          f"(pod 2, data 2, model 2), 2 stages x {cfg.n_layers // 2} layers, "
+          f"{mbs} microbatches, B {B}, {S_pre} prefilled + {steps} decode "
+          f"steps: max |logits - forward| {gap:.3e} (bound 5e-3); step ms "
+          f"median {np.median(ms[1:]):.2f}; K1 launches "
+          f"{la['paged_attention']}, K2 {la['flash_attention']}; peak device "
+          f"GB {peak / 1e9:.2f} | {smi}", flush=True)
+    del state, ref
+    _free()
+
+
+def phase_sharded(smi: str, launches: dict) -> None:
+    """Phase 15: the multi-device serving paths on a single-process
+    8-shard mesh, (a)-(d)."""
+    fns = _kernel_fns()
+    fns["paged_attention"].launches_windowed = 0
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    sharded_long(smi, launches, fns)
+    print(f"[sharded] (a) in {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    _, params = _sharded_params("llama3.2-1b")
+    sharded_batched(smi, launches, fns, params)
+    print(f"[sharded] (b) in {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    sharded_pipeline(smi, launches, fns, params)
+    print(f"[sharded] (d) in {time.perf_counter() - t:.1f} s", flush=True)
+    del params
+    _free()
+    t = time.perf_counter()
+    sharded_moe(smi, launches, fns)
+    print(f"[sharded] (c) in {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"[sharded] phase 15 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
     """``--kernel-times SRC``: K1, K2, K3 and K4 of the ``repro_torch``
     under ``SRC`` (this checkout's ``src`` or another's, e.g. an unpacked
@@ -3956,6 +4566,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--train"]:
         phase_train(smi, {})
         return 0
+    if sys.argv[1:2] == ["--sharded"]:
+        phase_sharded(smi, {})
+        return 0
     main_cases = phase_kernels()
     bench_launches = phase_bench(smi)
     ref: dict = {}
@@ -3968,6 +4581,7 @@ def main() -> int:
     phase_xlstm(smi, launches, ref.get("zamba2-1.2b"))
     phase_families(smi, launches)
     phase_train(smi, launches)
+    phase_sharded(smi, launches)
     # K3 serves whisper's cross-attention decode (phase 13) beside the bench
     serving_k3 = launches.get("flash_decode", 0)
     launches["flash_decode"] = serving_k3 + bench_launches["flash_decode"]
@@ -3994,6 +4608,8 @@ def main() -> int:
         if name == "paged_attention":    # its verify mode, 64 rows
             v = main_cases["paged_attention_verify"]
             kernels[-1].update({
+                "launches_windowed": launches.get(
+                    "paged_attention windowed", 0),
                 "verify_max_abs_err": v["max_abs_err"],
                 "verify_ms": v["ms"], "verify_graph_ms": v["graph_ms"],
                 "verify_bound_ms": v["bound_ms"],

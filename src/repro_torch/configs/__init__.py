@@ -8,7 +8,8 @@ Mamba2 + shared-attention hybrid ``zamba2-1.2b``, the attention-free
 xLSTM ``xlstm-350m``, the encoder-decoder ``whisper-small`` and the M-RoPE
 VLM backbone ``qwen2-vl-7b``."""
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, get_config, list_configs, reduced, validate_draft_pair,
+    SHAPES, ModelConfig, ParallelConfig, ShapeConfig, applicable_shapes,
+    get_config, list_configs, reduced, validate_draft_pair,
 )
 
 from repro_torch.configs import (  # noqa: F401

@@ -2,8 +2,12 @@
 
 A framework-free copy of the architecture description the JAX package keeps
 in ``repro/configs/base.py`` (the port imports nothing from that package).
-Only what the port's serving path reads is carried over: ``ModelConfig``
-with its derived widths, the name registry and ``reduced``.
+Carried over: ``ModelConfig`` with its derived widths, the name registry,
+``reduced``, the four cell shapes (``ShapeConfig``, ``SHAPES``) with each
+architecture's skips (``set_skips`` / ``applicable_shapes``), and the
+knobs of a cell's plan (``ParallelConfig``: the fields of repro's that the
+port reads; its Pallas knobs ``use_pallas`` / ``kernel_interpret`` are the
+port's ``use_kernels``).
 """
 from __future__ import annotations
 
@@ -140,6 +144,45 @@ class ModelConfig:
         return attn_layers * 2 * self.kv_dim * bytes_per_el
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k":  ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k":   ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The knobs of a cell that the plan, its runtime and the pipeline read
+    (``distributed/sharding.py``, ``distributed/pipeline.py``); the mesh
+    sizes come from the mesh itself.
+
+    ``use_kernels`` (None or True: the kernel wrappers; False: the plain
+    paths) and ``kernel_splits`` (split-K partitions of the decode page
+    axis in one kernel call) become the plan runtime's ``KernelConfig``.
+    ``serve_quant="int8"`` quantizes the weights of a decode plan
+    (``core/quant.py``, ``Plan.serve_params``).
+    """
+    page_size: int = 256         # tokens per KV page
+    remat: bool = True
+    use_kernels: bool | None = None
+    kernel_splits: int = 1
+    serve_quant: str = ""        # "int8" = weight-only quant on serve paths
+
+
 def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
     """A tiny same-family config for CPU smoke tests."""
     n_layers = layers if layers is not None else max(2, 2 * len(cfg.pattern))
@@ -212,3 +255,15 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
+
+# Which shapes apply per arch (each config module registers its skips).
+_SKIP: dict[str, set[str]] = {}
+
+
+def set_skips(name: str, skips: set[str]) -> None:
+    _SKIP[name] = skips
+
+
+def applicable_shapes(name: str) -> list[str]:
+    skips = _SKIP.get(name, set())
+    return [s for s in SHAPES if s not in skips]

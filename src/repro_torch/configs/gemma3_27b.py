@@ -6,7 +6,7 @@ is global. 62 layers is not a multiple of the 6-layer pattern: the stack
 ends two local layers into its eleventh cycle (``block_kinds``). qk-norm,
 geglu and a tied embedding head.
 """
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import ModelConfig, register, set_skips
 
 CONFIG = register(ModelConfig(
     name="gemma3-27b",
@@ -26,3 +26,4 @@ CONFIG = register(ModelConfig(
     tie_embeddings=True,
     source="hf:google/gemma-3-27b-pt",
 ))
+set_skips(CONFIG.name, set())

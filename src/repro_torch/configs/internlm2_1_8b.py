@@ -1,5 +1,5 @@
 """internlm2-1.8b — dense GQA [arXiv:2403.17297; hf]."""
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import ModelConfig, register, set_skips
 
 CONFIG = register(ModelConfig(
     name="internlm2-1.8b",
@@ -15,3 +15,4 @@ CONFIG = register(ModelConfig(
     rope_theta=1_000_000.0,
     source="arXiv:2403.17297",
 ))
+set_skips(CONFIG.name, {"long_500k"})

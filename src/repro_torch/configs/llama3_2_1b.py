@@ -1,5 +1,5 @@
 """llama3.2-1b — dense GQA llama3 [hf:meta-llama/Llama-3.2-1B; unverified]."""
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import ModelConfig, register, set_skips
 
 CONFIG = register(ModelConfig(
     name="llama3.2-1b",
@@ -16,3 +16,4 @@ CONFIG = register(ModelConfig(
     tie_embeddings=True,
     source="hf:meta-llama/Llama-3.2-1B",
 ))
+set_skips(CONFIG.name, {"long_500k"})

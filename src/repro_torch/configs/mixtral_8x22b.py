@@ -4,7 +4,7 @@
 Every layer is a 4096-token sliding-window (``local``) block whose FFN is
 the routed expert MLP (``models/moe.py``).
 """
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import ModelConfig, register, set_skips
 
 CONFIG = register(ModelConfig(
     name="mixtral-8x22b",
@@ -24,3 +24,4 @@ CONFIG = register(ModelConfig(
     rope_theta=1_000_000.0,
     source="arXiv:2401.04088",
 ))
+set_skips(CONFIG.name, set())

@@ -4,7 +4,7 @@
 Full attention in every layer; its FFN is the routed expert MLP
 (``models/moe.py``), 2 of 16 experts a token.
 """
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import ModelConfig, register, set_skips
 
 CONFIG = register(ModelConfig(
     name="phi3.5-moe-42b-a6.6b",
@@ -22,3 +22,4 @@ CONFIG = register(ModelConfig(
     rope_theta=10_000.0,
     source="hf:microsoft/Phi-3.5-MoE-instruct",
 ))
+set_skips(CONFIG.name, {"long_500k"})

@@ -1,6 +1,6 @@
 """qwen1.5-7b — the paper's own primary evaluation model (Table 1 LLM-7B:
 32L, 32H, d_h=128, SwiGLU, no GQA, 32K context) [arXiv:2309.16609]."""
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import ModelConfig, register, set_skips
 
 CONFIG = register(ModelConfig(
     name="qwen1.5-7b",
@@ -16,3 +16,4 @@ CONFIG = register(ModelConfig(
     rope_theta=1_000_000.0,
     source="paper Table 1 (Qwen1.5-7B)",
 ))
+set_skips(CONFIG.name, {"long_500k"})

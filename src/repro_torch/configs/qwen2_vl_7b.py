@@ -4,7 +4,7 @@ hf].
 Backbone only: the vision tower is a stub. A caller passes patch-embedding
 stand-ins (``extra_embeds``) and the 3-axis (temporal, height, width)
 M-RoPE position ids; text positions are the same id on all three axes."""
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import ModelConfig, register, set_skips
 
 CONFIG = register(ModelConfig(
     name="qwen2-vl-7b",
@@ -22,3 +22,4 @@ CONFIG = register(ModelConfig(
     rope_theta=1_000_000.0,
     source="arXiv:2409.12191",
 ))
+set_skips(CONFIG.name, {"long_500k"})

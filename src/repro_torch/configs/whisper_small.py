@@ -6,7 +6,7 @@ embeddings ``[B, 1500, d_model]`` (zeros in the serving engine). The
 decoder is the LM backbone with cross-attention to the 1500 encoder
 states; positions are sinusoidal (no rope). vocab 51865 is padded to
 52224."""
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import ModelConfig, register, set_skips
 
 CONFIG = register(ModelConfig(
     name="whisper-small",
@@ -25,3 +25,4 @@ CONFIG = register(ModelConfig(
     cross_attn=True,
     source="arXiv:2212.04356",
 ))
+set_skips(CONFIG.name, {"long_500k"})

@@ -6,7 +6,7 @@ pattern cycles one mLSTM block (matrix memory, gated linear attention with
 an exponential input gate) and one sLSTM block (scalar memory with
 recurrent memory mixing). ``d_ff`` 0: each block carries its own up/down
 projections (``ssm_expand``)."""
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import ModelConfig, register, set_skips
 
 CONFIG = register(ModelConfig(
     name="xlstm-350m",
@@ -23,3 +23,4 @@ CONFIG = register(ModelConfig(
     rope_kind="none",
     source="arXiv:2405.04517",
 ))
+set_skips(CONFIG.name, set())

@@ -3,7 +3,7 @@
 56 query heads on 8 kv heads: a group of 7 query rows per kv head, the
 odd group size of the decode and prefill attention kernels.
 """
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import ModelConfig, register, set_skips
 
 CONFIG = register(ModelConfig(
     name="yi-34b",
@@ -19,3 +19,4 @@ CONFIG = register(ModelConfig(
     rope_theta=5_000_000.0,
     source="arXiv:2403.04652",
 ))
+set_skips(CONFIG.name, {"long_500k"})

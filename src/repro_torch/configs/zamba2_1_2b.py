@@ -3,7 +3,7 @@
 Pattern: 18 Mamba2 blocks then one shared-weight full-attention block,
 cycled twice (38 layers; the attention block's weights are shared by both
 invocations, each with its own pool layer)."""
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import ModelConfig, register, set_skips
 
 CONFIG = register(ModelConfig(
     name="zamba2-1.2b",
@@ -23,3 +23,4 @@ CONFIG = register(ModelConfig(
     rope_theta=10_000.0,
     source="arXiv:2411.15242",
 ))
+set_skips(CONFIG.name, set())

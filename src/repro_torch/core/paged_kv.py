@@ -198,12 +198,31 @@ def partial_decode_attention(q, k_pages, v_pages, token_valid):
     return o.reshape(B, H, D), l.reshape(B, H), m.reshape(B, H)
 
 
-def merge_partials(o, l, m):
-    """Stable softmax merge of a leading stacked dim of partials
-    (o [N, B, H, D] etc.) — the single-device form of the ITPP/EPU
-    aggregation."""
-    mg = m.amax(dim=0)
-    corr = torch.exp(m - mg[None])
-    lg = (l * corr).sum(dim=0)
-    og = (o * corr[..., None]).sum(dim=0)
+def merge_partials(o, l, m, *, axis=None):
+    """Stable softmax merge of partials (the ITPP/EPU aggregation).
+
+    With ``axis`` (a mesh axis name or tuple) it merges across the shards
+    of that axis from inside a shard body (``distributed/mesh.py``: pmax,
+    then psum of the rescaled l and o, from one all-gather). With
+    ``axis=None`` it merges a leading stacked dim (o [N, B, H, D] etc.),
+    the single-device form."""
+    if axis is None:
+        mg = m.amax(dim=0)
+        corr = torch.exp(m - mg[None])
+        lg = (l * corr).sum(dim=0)
+        og = (o * corr[..., None]).sum(dim=0)
+    else:
+        from repro_torch.distributed import mesh as M
+        # one all-gather of the packed partials, then the pmax and the
+        # psums of the rescaled l and o over the members, in group order
+        n = M.axis_size(axis)
+        parts = M.all_gather(torch.cat([o.flatten(), l.flatten(),
+                                        m.flatten()]), axis)
+        og_, lg_, mg_ = parts.split([o.numel(), l.numel(), m.numel()], 1)
+        o_all = og_.reshape(n, *o.shape)
+        l_all = lg_.reshape(n, *l.shape)
+        m_all = mg_.reshape(n, *m.shape)
+        corr = torch.exp(m_all - m_all.amax(0)[None])
+        lg = (l_all * corr).sum(0)
+        og = (o_all * corr[..., None]).sum(0)
     return og / lg.clamp_min(1e-30)[..., None]

@@ -17,7 +17,8 @@ slot.
   16-byte aligned. A block holds at most ``MAX_ROWS`` q rows; a call with
   more (``G * qpos``: a speculative verify pass) launches once a row tile
   (``row_tiles``, ``partials_by_row_tiles``), each tile at its row offset.
-  The wrapper counts each launch in ``paged_attention_partials.launches``.
+  The wrapper counts each launch in ``paged_attention_partials.launches``
+  (and a ``windowed_slice`` launch also in ``.launches_windowed``).
 * CPU tensors take ``paged_attention_partials_plain``: the same function
   with the same split boundaries, tail padding and liveness rules, written
   as dense PyTorch, so the CPU tests exercise the kernel path's
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -43,6 +45,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 128
 MAX_ROWS = 32
 MAX_SMEM = 232448          # dynamic shared memory a block may use (bytes)
+_COUNT_LOCK = threading.Lock()
 
 
 def _window_rows(window, B: int, device) -> torch.Tensor:
@@ -192,7 +195,10 @@ def _launch(q, k_pages, v_pages, bt, ctx, win, *, ring_width, windowed_slice,
             p(win), p(o), p(l), p(m), B, KVH, n, R, row0, D, page, W, S, K,
             int(ring_width), int(bool(windowed_slice)), int(qpos), stream)
         build.check(err, "paged_attention_partials")
-        paged_attention_partials.launches += 1
+        with _COUNT_LOCK:       # shard threads of a LocalMesh launch too
+            paged_attention_partials.launches += 1
+            if windowed_slice:
+                paged_attention_partials.launches_windowed += 1
 
     return partials_by_row_tiles(launch, R, o, l, m)
 
@@ -231,6 +237,7 @@ def paged_attention_partials(q, k_pages, v_pages, block_tables, ctx_lens, *,
 
 
 paged_attention_partials.launches = 0
+paged_attention_partials.launches_windowed = 0   # of them, windowed_slice
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,

@@ -13,8 +13,16 @@ the Mamba2 scan through ``kernels/ops.mamba_mixer`` (the chunk-scan
 kernel).
 
 MoE stacks (``family == "moe"``): every attention block's FFN is the routed
-expert MLP of ``models/moe.py`` (``moe_local``), applied in ``_block_tail``
-on every path, with repro's capacity over every row the path passes.
+expert MLP of ``models/moe.py``, applied in ``_block_tail`` on every path
+through ``Runtime.moe_apply`` (``moe_local`` on one device, the plan's
+``moe_ep`` on a mesh), with repro's capacity over every row the path
+passes.
+
+A sharding plan (``distributed/sharding.py``) fills the ``Runtime``'s
+distribution hooks as repro's does: decode attention through
+``Runtime.itpp`` (ITPP over a page-sharded mesh), the prefill pool writes
+through ``Runtime.write_pool``, the MoE through ``Runtime.moe``; their
+defaults are the single-device paths.
 
 The zamba2 hybrid: ``pattern`` = n Mamba2 blocks then one attention block
 whose weights (``attn_shared``) are shared by every cycle; each invocation
@@ -66,7 +74,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -80,21 +88,42 @@ from repro_torch.models import ssm as SSM
 
 @dataclass
 class Runtime:
-    """Execution hooks; single device. ``kernels=None`` keeps the plain
-    reference paths (gather-then-dense decode, chunked online-softmax
-    prefill). ``remat`` recomputes each layer of the full-sequence
-    forward in backward (``torch.utils.checkpoint``, JAX's
-    ``jax.checkpoint``)."""
+    """Execution hooks; the defaults are the single-device paths.
+    ``kernels=None`` keeps the plain reference paths (gather-then-dense
+    decode, chunked online-softmax prefill). ``remat`` recomputes each
+    layer of the full-sequence forward in backward
+    (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``).
+
+    The distribution layer (``distributed/sharding.py``) fills the rest,
+    as repro's: ``itpp`` the sharded decode attention
+    (``core/itpp.make_itpp_attention``), ``moe`` the expert-parallel MoE
+    (``(p, cfg, x) -> (y, aux)``), ``write_pool`` the shard-local prefill
+    writer and ``cond_window`` the windowed bound of mixed local:global
+    stacks."""
     ring_width: int = 0
     kernels: KernelConfig | None = None
     gla_chunk: int = 128                 # Mamba2 scan chunk at prefill
     remat: bool = False
+    itpp: Callable | None = None
+    moe: Callable | None = None
+    write_pool: Callable | None = None
+    cond_window: int = 0
 
     def itpp_apply(self, q, k, v, pk, pv, bt, ctx, npage, noff, window):
+        if self.itpp is not None:
+            return self.itpp(q, k, v, pk, pv, bt, ctx, npage, noff, window)
         return itpp_decode_attention_shard(
             q, k, v, pk, pv, bt, ctx, npage, noff, window,
             max_pages_per_req=bt.shape[1], ring_width=self.ring_width,
-            kernels=self.kernels)
+            cond_window=self.cond_window, kernels=self.kernels)
+
+    def moe_apply(self, p, cfg, x, *, with_aux: bool = False):
+        """The MoE FFN over x [B, S, D]: y, or ``(y, aux)`` with
+        ``with_aux``."""
+        if self.moe is not None:
+            y, aux = self.moe(p, cfg, x)
+            return (y, aux) if with_aux else y
+        return MOE.moe_local(p, cfg, x, with_aux=with_aux)
 
 
 DEFAULT_RT = Runtime()
@@ -145,7 +174,8 @@ def _init_attention(cfg, normal, zeros, *, cross: bool = False):
     return attn
 
 
-def _init_attn_layer(cfg, normal, zeros, *, cross: bool = False):
+def _init_attn_layer(cfg, normal, zeros, *, cross: bool = False,
+                     moe_virtual: int = 0):
     d = cfg.d_model
     lp = {"ln1": zeros(d), "attn": _init_attention(cfg, normal, zeros)}
     if cross:
@@ -153,7 +183,7 @@ def _init_attn_layer(cfg, normal, zeros, *, cross: bool = False):
         lp["xattn"] = _init_attention(cfg, normal, zeros, cross=True)
     if cfg.is_moe:
         lp["ln2"] = zeros(d)
-        lp["moe"] = MOE.init_moe(cfg, normal)
+        lp["moe"] = MOE.init_moe(cfg, normal, n_virtual=moe_virtual or None)
     elif cfg.d_ff:
         lp["ln2"] = zeros(d)
         lp["mlp"] = {"w1": normal((d, cfg.d_ff), 1 / math.sqrt(d)),
@@ -163,7 +193,8 @@ def _init_attn_layer(cfg, normal, zeros, *, cross: bool = False):
     return lp
 
 
-def init_params(cfg, seed: int = 0, dtype=torch.float32, device=None):
+def init_params(cfg, seed: int = 0, dtype=torch.float32, device=None, *,
+                moe_virtual: int = 0):
     """Random weights from a seeded ``torch.Generator`` with the
     distributions of ``repro.models.model.init_params`` (the numbers differ
     from JAX's). Layout: ``{"embed" [V, D], "final_norm" [D], ("head"
@@ -174,14 +205,20 @@ def init_params(cfg, seed: int = 0, dtype=torch.float32, device=None):
     the enc-dec family ``"enc"`` (per-layer dicts), ``"enc_norm"`` and
     ``"dec"`` (per-layer dicts with ``lnx`` and ``xattn``).
     Dense weights are ``[d_in, d_out]``; the Mamba2 ``A_log``, ``D`` and
-    ``dt_bias`` and the xLSTM gate biases stay fp32, as in JAX.
+    ``dt_bias`` and the xLSTM gate biases stay fp32, as in JAX. A MoE's
+    experts come as ``moe_virtual`` virtual experts (default one per
+    expert; a plan's ``tp`` for expert parallelism). ``device="meta"``
+    gives the shapes alone (a plan's specs at full size).
     """
     _check_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev)
+    if gen is not None:
+        gen.manual_seed(seed)
 
     def normal(shape, scale):
+        if gen is None:
+            return torch.empty(shape, dtype=dtype, device=dev)
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         return (w * scale).to(dtype)
 
@@ -219,7 +256,8 @@ def init_params(cfg, seed: int = 0, dtype=torch.float32, device=None):
         params["dec"] = [_init_attn_layer(cfg, normal, zeros, cross=True)
                          for _ in range(cfg.n_layers)]
         return params
-    params["layers"] = [_init_attn_layer(cfg, normal, zeros)
+    params["layers"] = [_init_attn_layer(cfg, normal, zeros,
+                                         moe_virtual=moe_virtual)
                         for _ in range(cfg.n_layers)]
     return params
 
@@ -378,7 +416,7 @@ def encode(cfg, params, frames, rt: Runtime = DEFAULT_RT):
             a = ops.attention_fwd(q, k, v, causal=False, kernels=rt.kernels)
             return _block_tail(lp, cfg,
                                x + L.dense(a.reshape(B, S, cfg.q_dim),
-                                           lp["attn"]["wo"]))
+                                           lp["attn"]["wo"]), rt)
         return fn
     for lp in params["enc"]:
         x = _remat(rt.remat, layer(lp), x)
@@ -496,7 +534,8 @@ def _cross_attn(lp, cfg, h, cross, rt: Runtime):
                        lp["xattn"]["wo"])
 
 
-def _block_tail(lp, cfg, h, *, with_aux: bool = False):
+def _block_tail(lp, cfg, h, rt: Runtime = DEFAULT_RT, *,
+                with_aux: bool = False):
     """FFN epilogue of an attention block (prefill, decode, verify and the
     full-sequence forward): the MLP, or the routed experts over every row
     of ``h`` [B, S, D]. ``with_aux`` returns ``(h, aux)``, the MoE's
@@ -505,7 +544,7 @@ def _block_tail(lp, cfg, h, *, with_aux: bool = False):
     if "ln2" in lp:
         h2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
         if "moe" in lp:
-            y = MOE.moe_local(lp["moe"], cfg, h2, with_aux=with_aux)
+            y = rt.moe_apply(lp["moe"], cfg, h2, with_aux=with_aux)
             if with_aux:
                 y, aux = y
         else:
@@ -529,7 +568,7 @@ def _attn_block_decode(lp, cfg, x, cs, window, pool_k, pool_v, bt, ctx,
     x = x + L.dense(a.reshape(B, cfg.q_dim), lp["attn"]["wo"])
     if cross is not None:
         x = _cross_attn(lp, cfg, x, cross, rt)
-    return _block_tail(lp, cfg, x[:, None, :])[:, 0]
+    return _block_tail(lp, cfg, x[:, None, :], rt)[:, 0]
 
 
 def _decoder(cfg, params, state):
@@ -739,7 +778,7 @@ def decode_verify(cfg, params, state, tokens, proposals, qlogits, bt, ctx,
                                  pool["v"][i], bt_attn, ctx, window=w,
                                  kernels=rt.kernels)
         a = a.permute(0, 3, 1, 2, 4).reshape(B, C, cfg.q_dim)
-        x = _block_tail(lp, cfg, x + L.dense(a, lp["attn"]["wo"]))
+        x = _block_tail(lp, cfg, x + L.dense(a, lp["attn"]["wo"]), rt)
     logits = _logits(cfg, params, x)                       # [B, C, V]
 
     cand, acc = verifier(gen, logits, qlogits, proposals, nprop, run)
@@ -783,7 +822,9 @@ def _attn_block_prefill(lp, cfg, x, cs, w, pk, pv, bt, valid_len,
     from repro_torch.core.paged_kv import write_prefill
     B, S = x.shape[:2]
     q, k, v = _qkv(lp, cfg, x, cs)
-    if rt.ring_width:
+    if rt.write_pool is not None:
+        rt.write_pool(pk, pv, k, v, bt, valid_len)
+    elif rt.ring_width:
         span = min(rt.ring_width * pk.shape[1], S)
         write_prefill(pk, pv, k[:, S - span:], v[:, S - span:], bt,
                       ctx_start=S - span, ring_width=rt.ring_width)
@@ -793,7 +834,7 @@ def _attn_block_prefill(lp, cfg, x, cs, w, pk, pv, bt, valid_len,
     x = x + L.dense(a.reshape(B, S, cfg.q_dim), lp["attn"]["wo"])
     if cross is not None:
         x = _cross_attn(lp, cfg, x, cross, rt)
-    return _block_tail(lp, cfg, x)
+    return _block_tail(lp, cfg, x, rt)
 
 
 def _attn_block_chunk(lp, cfg, x, cs, w, pk, pv, bt, start, valid_len,
@@ -812,7 +853,7 @@ def _attn_block_chunk(lp, cfg, x, cs, w, pk, pv, bt, start, valid_len,
     x = x + L.dense(a.reshape(B, C, cfg.q_dim), lp["attn"]["wo"])
     if cross is not None:
         x = _cross_attn(lp, cfg, x, cross, rt)
-    return _block_tail(lp, cfg, x)
+    return _block_tail(lp, cfg, x, rt)
 
 
 def _prefill_mask(valid_len, S: int, device):
@@ -982,7 +1023,7 @@ def _attn_block_train(lp, cfg, x, cs, window, rt: Runtime, *,
         cross = (L.dense(enc_out, lp["xattn"]["wk"]).reshape(shape),
                  L.dense(enc_out, lp["xattn"]["wv"]).reshape(shape))
         x = _cross_attn(lp, cfg, x, cross, rt)
-    x, aux = _block_tail(lp, cfg, x, with_aux=True)
+    x, aux = _block_tail(lp, cfg, x, rt, with_aux=True)
     if not torch.is_tensor(aux):
         aux = x.new_zeros((), dtype=torch.float32)
     return x, aux

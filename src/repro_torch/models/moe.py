@@ -26,8 +26,15 @@ path takes the load-balancing term with the output (``with_aux``);
 choice's gradient back to its row and a dropped one's (the trash row,
 cut off) is zero, as ``mode="drop"`` gives in repro.
 
-Not ported: ``moe_ep`` (expert parallelism over an all-to-all, ROADMAP
-A.10).
+Two execution paths share the routing math, as in repro:
+
+* ``moe_local`` — every expert on one device;
+* ``moe_ep`` — for a shard body (``distributed/mesh.py``): each shard owns
+  one virtual expert; the token buffers travel by ``all_to_all`` over the
+  model axis and the v partial outputs of each chosen expert are summed
+  at the combine (d_ff row-split). Its ``aux`` is the shard's own
+  load-balancing term (the plan takes their mean), not ``moe_local``'s
+  term over every token.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import mesh as M
 from repro_torch.models.layers import activate, dense
 
 
@@ -162,3 +170,26 @@ def moe_local(p, cfg, x, *, with_aux: bool = False):
         summed = out.reshape(E, v, C, D).sum(1)
     y = combine(summed, top_p, top_e, slot, keep).reshape(B, S, D)
     return (y, _balance(probs, top_e, E)) if with_aux else y
+
+
+def moe_ep(p_local, cfg, x_loc, axis: str, n_shards: int):
+    """Expert-parallel path for shard bodies.
+
+    ``x_loc`` [T_loc, D] — this shard's tokens; ``p_local["w*"]`` [1, D,
+    ffv] — this shard's virtual expert (its slice of the ``[V, ...]``
+    leaves); the router replicated. Requires n_virtual == n_shards.
+    Returns (y_loc [T_loc, D], aux_local)."""
+    E, D = cfg.n_experts, cfg.d_model
+    v = n_shards // E
+    probs, top_p, top_e = _route(p_local["router"], cfg, x_loc)
+    C = capacity(cfg, x_loc.shape[0])
+    slot, keep = _dispatch_indices(top_e, E, C)
+    buf = dispatch(x_loc, top_e, slot, keep, E, C)          # [E, C, D]
+    send = buf.repeat_interleave(v, dim=0)                  # [V=n_shards, C, D]
+    recv = M.all_to_all(send, axis)
+    flat = recv.reshape(1, n_shards * C, D)                 # my virtual expert
+    out = expert_mlp(p_local, cfg, flat)[0]
+    back = M.all_to_all(out.reshape(n_shards, C, D), axis)
+    summed = back.reshape(E, v, C, D).sum(1)
+    y = combine(summed, top_p, top_e, slot, keep)
+    return y, _balance(probs, top_e, E)

@@ -1596,3 +1596,136 @@ def test_quantized_decode_on_the_card():
                              params=qparams, prefill_mode="batched",
                              decode_horizon=4)
     assert graphs.run(1000) == eager.run(1000)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device serving paths on a single-process mesh
+# ---------------------------------------------------------------------------
+
+def _itpp_case(dev, *, B, H, KVH, D, page, maxp, n_pages, ctx_prev, policy,
+               n_rows=1):
+    from repro_torch.core.allocator import PageAllocator
+    alloc = PageAllocator(n_pages, 8, page, policy=policy, n_rows=n_rows)
+    bts = []
+    for b in range(B):
+        alloc.admit(b, int(ctx_prev[b]) + 1,
+                    row=b * n_rows // B if policy == "row_affine" else None)
+        bts.append(alloc.block_table(b, maxp))
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=dev)
+    bt = torch.tensor(np.stack(bts), device=dev)
+    return dict(q=r(B, H, D), kn=r(B, KVH, D), vn=r(B, KVH, D),
+                pk=r(n_pages + 1, page, KVH, D),
+                pv=r(n_pages + 1, page, KVH, D), bt=bt,
+                ctx=torch.tensor(ctx_prev + 1, dtype=torch.int32,
+                                 device=dev),
+                npage=bt[torch.arange(B, device=dev),
+                         torch.tensor(ctx_prev // page, device=dev)],
+                noff=torch.tensor(ctx_prev % page, dtype=torch.int32,
+                                  device=dev))
+
+
+def _itpp_run(c, f):
+    pk, pv = c["pk"].clone(), c["pv"].clone()
+    out, pk, pv = f(c["q"], c["kn"], c["vn"], pk, pv, c["bt"], c["ctx"],
+                    c["npage"], c["noff"])
+    return out, pk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["striped8", "rows2x4"])
+def test_sharded_itpp_on_k1_matches_single_shard_and_plain(layout):
+    """The sharded ITPP on a LocalMesh, K1 on each shard's local table,
+    against the single-shard K1 and the plain gather path: outputs within
+    2e-5, the pools bitwise; K1 launches one a shard."""
+    _card()
+    from repro_torch.core import itpp as IT
+    from repro_torch.distributed.mesh import LocalMesh
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.kernels.paged_attention import paged_attention_partials
+    page, maxp = 16, 32
+    if layout == "striped8":
+        mesh = LocalMesh((8,), ("model",))
+        spec = IT.ItppSpec(("model",), ("model",), None, 8, 8, page)
+        c = _itpp_case("cuda", B=4, H=32, KVH=8, D=64, page=page, maxp=maxp,
+                       n_pages=256, ctx_prev=np.array([300, 17, 500, 0]),
+                       policy="striped")
+    else:
+        mesh = LocalMesh((2, 4), ("data", "model"))
+        spec = IT.ItppSpec(("data", "model"), ("model",), "data", 8, 4,
+                           page)
+        c = _itpp_case("cuda", B=8, H=32, KVH=8, D=64, page=page, maxp=maxp,
+                       n_pages=256,
+                       ctx_prev=np.array([300, 17, 500, 60, 1, 99, 256, 33]),
+                       policy="row_affine", n_rows=2)
+    kc = KernelConfig(n_splits=4)
+    f = IT.make_itpp_attention(mesh, spec, max_pages_per_req=maxp,
+                               kernels=kc)
+    n0 = paged_attention_partials.launches
+    out, pk = _itpp_run(c, lambda *a: f(*a, 0))
+    assert paged_attention_partials.launches - n0 == 8
+    one, pk1 = _itpp_run(c, lambda *a: IT.itpp_decode_attention_shard(
+        *a, 0, max_pages_per_req=maxp, kernels=kc))
+    plain, _ = _itpp_run(c, lambda *a: IT.itpp_decode_attention_shard(
+        *a, 0, max_pages_per_req=maxp))
+    torch.testing.assert_close(out, one, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(out, plain, atol=2e-5, rtol=2e-5)
+    assert torch.equal(pk[:256], pk1[:256])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 40])
+def test_windowed_slice_through_itpp_shard(window):
+    """``cond_window`` on the card: a windowed layer launches K1 in
+    ``windowed_slice`` mode over ``cond_window // page + 2`` table slots,
+    a global layer over the whole table; both equal the plain path."""
+    _card()
+    from repro_torch.core import itpp as IT
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.kernels.paged_attention import paged_attention_partials
+    page, maxp = 16, 40
+    c = _itpp_case("cuda", B=4, H=16, KVH=4, D=128, page=page, maxp=maxp,
+                   n_pages=256, ctx_prev=np.array([600, 17, 333, 0]),
+                   policy="striped")
+    n0 = paged_attention_partials.launches_windowed
+    out, _ = _itpp_run(c, lambda *a: IT.itpp_decode_attention_shard(
+        *a, window, max_pages_per_req=maxp, cond_window=64,
+        kernels=KernelConfig(n_splits=2)))
+    plain, _ = _itpp_run(c, lambda *a: IT.itpp_decode_attention_shard(
+        *a, window, max_pages_per_req=maxp))
+    assert paged_attention_partials.launches_windowed - n0 == \
+        (1 if window else 0)
+    torch.testing.assert_close(out, plain, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_moe_ep_on_the_card_matches_local():
+    """``moe_ep`` over 8 shards of a LocalMesh on the card (reduced
+    mixtral, 4 experts x 2 ff slices, dropless) against ``moe_local``."""
+    _card()
+    from dataclasses import replace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import mesh as M
+    from repro_torch.models import moe as MOE
+    cfg = replace(reduced(get_config("mixtral-8x22b")), dtype="float32",
+                  capacity_factor=8.0)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    p = MOE.init_moe(cfg, lambda s, sc: torch.randn(
+        s, generator=g, device="cuda") * sc, n_virtual=8)
+    x = torch.randn((2, 16, cfg.d_model), generator=g, device="cuda")
+
+    def body(pw, x_loc):
+        B, S, D = x_loc.shape
+        y, aux = MOE.moe_ep(pw, cfg, x_loc.reshape(-1, D), "model", 8)
+        return y.reshape(B, S, D), M.pmean(aux, "model")
+    spec = {"router": None, "w1": M.P("model"), "w2": M.P("model"),
+            "w3": M.P("model")}
+    y, _ = M.shard_map(body, M.LocalMesh((8,), ("model",)),
+                       in_specs=(spec, M.P(None, "model")),
+                       out_specs=(M.P(None, "model"), None))(p, x)
+    ref = MOE.moe_local(p, cfg, x)
+    assert float((y - ref).abs().max()) < 2e-5 * float(ref.abs().max())
