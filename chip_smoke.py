@@ -59,7 +59,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    tables phase 15 gives it (``SHARD_PAGED``): one shard's view of a
    page-sharded pool with every other shard's entries -1, at long_500k's
    global layer, its 6-slot ``windowed_slice``, and llama3.2-1b's batched
-   and pipeline rows; their bounds count the tokens the tables hold.
+   and pipeline rows; their bounds count the tokens the tables hold. K2
+   also at phase 15 (b)'s sharded prefill: a shard's 4 rows of 256
+   queries at q_offset 0 / 256 / 512 / 768 against 1024 gathered keys.
 4. bench   — ``python -m repro_torch.launch.kernel_bench`` at full size,
    in-process: its asserts must hold and each kernel's launch count must
    equal the calls the bench made of its wrapper (K3 launches here and on
@@ -268,20 +270,37 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    greedy tokens by C.3); the global layer's K1 over 8 shards and in one
    launch against its byte bound. (b) llama3.2-1b whole, 8 rows of
    256-1024 tokens over (data 2, model 4), ``row_affine`` +
-   ``blocked_chunk``: the prefill writes through ``make_prefill_writer``
-   (pools equal to ``write_prefill``'s bitwise), then 32 decode steps
-   merged over ``model`` against the unsharded K1 runtime. (c)
-   mixtral-8x22b's MoE layer at full width on ``moe_ep`` (8 virtual
-   experts on 8 shards, dropless, 8 x 64 tokens) against ``moe_local``
+   ``blocked_chunk``: repro's prefill cell (``sharding.make_prefill_step``,
+   ``sp``, FSDP weights; K2 at each shard's ``q_offset`` against its rows'
+   gathered K/V, 16 layers x 8 shards; each shard writes the pages it
+   owns) against the unsharded kernel prefill (logits and pool pages
+   within 1e-4 of scale), then 32 decode steps merged over ``model``
+   against the unsharded K1 runtime. (c) mixtral-8x22b's MoE layer at
+   full width on ``moe_ep`` (8 virtual experts on 8 shards, dropless, 8 x
+   64 tokens; the prefill shard runtime's MoE) against ``moe_local``
    (2e-5 of scale; aux = the shards' plain mean). (d) GPipe decode of
    llama3.2-1b whole on (pod 2, data 2, model 2), 2 stages, 2
    microbatches, B 4, 256 prefilled tokens and 16 steps, against
    ``forward`` (5e-3).
 
+16. train-sharded — ``make_train_step`` on a single-process mesh
+   (``Plan.make_runtime(mode="train")``, fp32, remat, AdamW lr 1e-3),
+   each case's first step held to the unsharded step on the same batch
+   (loss and grad norm within 1e-5 relative, AdamW's first moments, the
+   clipped grads, within 1e-4 of each leaf's scale), no kernel launched:
+   (a) llama3.2-1b whole, B 8 x S 512, ``fsdp`` on (data 2, model 4); (b)
+   the same in ``sp`` at B 2 x S 512 (K/V gathered over ``model`` inside
+   backward); (c) phi3.5-moe's first layer at full width on ``moe_ep``
+   (16 experts on (data 1, model 16), ``all_to_all`` inside backward),
+   against the single-device step whose aux is the shards' mean; step ms,
+   tokens/s and peak memory. Then one dry-run
+   cell per shape kind on this machine's CPU (meta tensors) with its
+   roofline terms at the card's datasheet figures.
+
 ``python3 chip_smoke.py --lifecycle`` builds the kernels and runs phase 10
 alone; ``--disagg`` builds them and runs phase 11 alone; ``--xlstm``
 phase 12 alone; ``--families`` phase 13 alone; ``--train`` phase 14
-alone; ``--sharded`` phase 15 alone.
+alone; ``--sharded`` phase 15 alone; ``--train-sharded`` phase 16 alone.
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
 and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
 bench and long-context shapes) and K4 (zamba2 prefill and decode, slot
@@ -1062,6 +1081,11 @@ def phase_kernels() -> dict:
                 ("zamba2 H=KVH=32 Sq=1024", dict(KVH=32, time_it=True)),
                 ("q_offset=[0,512] Skv=1536", dict(offs=(0, 512), Skv=1536,
                                                    time_it=True)),
+                # the sharded prefill (phase 15 (b)): a shard's 256
+                # queries at its q_offset against its rows' 1024 keys
+                ("sharded prefill B=4 Sq=256 Skv=1024 "
+                 "q_offset=[0,256,512,768]",
+                 dict(B=4, Sq=256, offs=(0, 256, 512, 768), time_it=True)),
                 ("window=256", dict(window=256)),
                 ("ragged Sq=1000", dict(Sq=1000, Skv=1000)),
                 ("G=8 D=128 Sq=300", dict(Sq=300, Skv=300, H=16, KVH=2,
@@ -4150,16 +4174,19 @@ def sharded_long(smi: str, launches: dict, fns) -> None:
 def sharded_batched(smi: str, launches: dict, fns, params) -> None:
     """(b) decode_32k's layout at smoke scale: llama3.2-1b whole, 8 rows
     over a (data 2, model 4) mesh, ``row_affine`` (2 rows) with
-    ``blocked_chunk``, prompts of 256-1024 tokens. The prefill writes the
-    pool through ``make_prefill_writer`` (the sequence cut over ``model``),
-    equal to the unsharded ``write_prefill``'s pool exactly; then 32
-    greedy decode steps through the sharded ITPP merged over ``model``,
-    tokens equal to the unsharded K1 runtime fed the same tokens (C.3)."""
+    ``blocked_chunk``, prompts of 256-1024 tokens padded to 1024. The
+    prefill is repro's prefill cell (``sharding.make_prefill_step``:
+    ``sp``, FSDP weights; a shard's 4 rows x 256 tokens, K2 at its
+    ``q_offset`` against the rows' gathered 1024 keys, the pages it owns
+    written), its logits and pool pages within 1e-4 of scale of the
+    unsharded kernel prefill's; then 32 greedy decode steps through the
+    sharded ITPP merged over ``model``, tokens equal to the unsharded K1
+    runtime fed the same tokens (C.3)."""
     from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
     from repro_torch.core.allocator import PageAllocator
     from repro_torch.core.paged_kv import PoolSpec
     from repro_torch.distributed.mesh import LocalMesh
-    from repro_torch.distributed.sharding import make_plan
+    from repro_torch.distributed.sharding import make_plan, make_prefill_step
     from repro_torch.kernels.backend import KernelConfig
     from repro_torch.models import model as MDL
     cfg = replace(get_config("llama3.2-1b"), dtype="float32")
@@ -4180,14 +4207,15 @@ def sharded_batched(smi: str, launches: dict, fns, params) -> None:
                       device=DEV)
     spec = PoolSpec(cfg.n_layers, n_pages, page, cfg.n_kv_heads, cfg.d_head,
                     maxp, dtype="float32")
-    rt_pre = make_plan(mesh, parallel, ShapeConfig("p", "prefill", S, B),
-                       train_layout="sp").make_runtime(
-        cfg, parallel, pool_spec=spec, mode="prefill")
+    pre_plan = make_plan(mesh, parallel, ShapeConfig("p", "prefill", S, B),
+                         train_layout="sp")
+    pre_step = make_prefill_step(cfg, pre_plan, parallel, spec)
     plan = make_plan(mesh, parallel, ShapeConfig("d", "decode", S + steps, B))
     rt = plan.make_runtime(cfg, parallel, pool_spec=spec, mode="decode")
-    if rt_pre.write_pool is None or plan.itpp_spec(page).merge_axes != \
-            ("model",):
-        fail("(b): the plans did not set the writer / the row merge")
+    if pre_plan.itpp_spec(page) != plan.itpp_spec(page) or \
+            plan.itpp_spec(page).merge_axes != ("model",):
+        fail("(b): the prefill and decode plans do not share the pool's "
+             "layout / the row merge")
     tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                           device=DEV)
     valid = torch.tensor(lens, device=DEV)
@@ -4203,23 +4231,32 @@ def sharded_batched(smi: str, launches: dict, fns, params) -> None:
     # the sharded pool is held to it before its decode steps write
     rt_u = MDL.Runtime(kernels=KernelConfig(n_splits=SHARD_SPLITS))
     state_u = MDL.init_decode_state(cfg, spec, B, device=DEV)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     lg0_u, _ = MDL.prefill(cfg, params, state_u, tokens, bt,
                            last_idx=valid - 1, valid_len=valid, rt=rt_u)
+    torch.cuda.synchronize()
+    pre_ms_u = 1e3 * (time.perf_counter() - t)
     state = MDL.init_decode_state(cfg, spec, B, device=DEV)
     _free()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fns)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    lg0, _ = MDL.prefill(cfg, params, state, tokens, bt, last_idx=valid - 1,
-                         valid_len=valid, rt=rt_pre)
+    lg0, state = pre_step(params, state, {"tokens": tokens, "bt": bt,
+                                          "valid_len": valid,
+                                          "last_idx": valid - 1})
     torch.cuda.synchronize()
     pre_ms = 1e3 * (time.perf_counter() - t)
-    if not all(torch.equal(state_u["pool"][n][:, :n_pages],
-                           state["pool"][n][:, :n_pages])
-               for n in ("k", "v")):
-        fail("(b): the sharded prefill writer's pool differs from "
-             "write_prefill's")
+    pgap = max(float((state["pool"][n][:, :n_pages]
+                      - state_u["pool"][n][:, :n_pages]).abs().max())
+               / float(state_u["pool"][n].abs().max()) for n in ("k", "v"))
+    lgap = float((lg0[:, :V] - lg0_u[:, :V]).abs().max()) \
+        / float(lg0_u[:, :V].abs().max())
+    if pgap > 1e-4 or lgap > 1e-4:
+        fail(f"(b): the sharded prefill's logits ({lgap:.3e} of scale) or "
+             f"pool pages ({pgap:.3e}) differ from the unsharded prefill's "
+             "by more than 1e-4")
     tok = lg0[:, :V].argmax(-1).to(torch.int32)
     toks, lgs, ms = [tok], [], []
     for j in range(steps):
@@ -4234,7 +4271,7 @@ def sharded_batched(smi: str, launches: dict, fns, params) -> None:
         tok = lg[:, :V].argmax(-1).to(torch.int32)
         toks.append(tok)
     la = launch_counts(fns)
-    want = {"flash_attention": cfg.n_layers,
+    want = {"flash_attention": cfg.n_layers * n_shards,
             "paged_attention": cfg.n_layers * n_shards * steps}
     _check_path("(b) batched", la, want, launches)
     peak = torch.cuda.max_memory_allocated()
@@ -4254,7 +4291,9 @@ def sharded_batched(smi: str, launches: dict, fns, params) -> None:
     print(f"[sharded] (b) batched llama3.2-1b {cfg.n_layers} layers, 8 rows "
           f"(prompts {int(lens.min())}-{int(lens.max())}) over (data 2, "
           f"model 4) row_affine + blocked_chunk {S // 4 // page}: prefill ms "
-          f"{pre_ms:.1f} (sharded writer, pools equal), decode step ms "
+          f"{pre_ms:.1f} (make_prefill_step, sp: logits {lgap:.3e}, pool "
+          f"pages {pgap:.3e} of scale from the unsharded prefill's, bound "
+          f"1e-4; unsharded {pre_ms_u:.1f}), decode step ms "
           f"median {warm:.2f} (unsharded K1 {np.median(ms_u[1:]):.2f}); "
           f"tokens identical over {steps} steps, max logit gap {gap:.3e}; "
           f"K1 launches {la['paged_attention']}, K2 "
@@ -4273,7 +4312,7 @@ def sharded_moe(smi: str, launches: dict, fns) -> None:
     the mean of each shard's balance term computed here from the router
     logits."""
     from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
-    from repro_torch.distributed.mesh import LocalMesh
+    from repro_torch.distributed import mesh as M
     from repro_torch.distributed.sharding import make_plan
     from repro_torch.models import moe as MOE
     cfg = replace(get_config("mixtral-8x22b"), dtype="float32",
@@ -4286,13 +4325,21 @@ def sharded_moe(smi: str, launches: dict, fns) -> None:
     p = MOE.init_moe(cfg, normal, n_virtual=8)
     x = torch.randn((8, 64, cfg.d_model), generator=g, device=DEV)
     parallel = ParallelConfig(remat=False)
-    plan = make_plan(LocalMesh((1, 8), ("data", "model")), parallel,
+    plan = make_plan(M.LocalMesh((1, 8), ("data", "model")), parallel,
                      ShapeConfig("m", "prefill", 64, 8), train_layout="sp")
     rt = plan.make_runtime(cfg, parallel, mode="prefill")
+
+    def body(pw, x_loc):            # a prefill shard's MoE (its 8 tokens)
+        y, aux = rt.moe_apply(pw, cfg, x_loc, with_aux=True)
+        return y, M.pmean(aux, ("data", "model"))
+    act = M.P("data", "model")
+    moe = M.shard_map(body, plan.mesh, in_specs=(
+        {k: None if k == "router" else M.P("model") for k in p}, act),
+        out_specs=(act, None))
     _free()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fns)
-    y, aux = rt.moe_apply(p, cfg, x, with_aux=True)
+    y, aux = moe(p, x)
     torch.cuda.synchronize()
     _check_path("(c) moe_ep", launch_counts(fns), {}, launches)
     peak = torch.cuda.max_memory_allocated()
@@ -4312,7 +4359,7 @@ def sharded_moe(smi: str, launches: dict, fns) -> None:
             1e-6 * abs(float(aux_plain)):
         fail(f"(c): moe_ep err {err:.3e} of scale (bound 2e-5), aux "
              f"{float(aux)} vs {float(aux_plain)}")
-    ep_ms = cuda_ms(lambda: rt.moe_apply(p, cfg, x), iters=3, warmup=1)
+    ep_ms = cuda_ms(lambda: moe(p, x), iters=3, warmup=1)
     local_ms = cuda_ms(lambda: MOE.moe_local(p, cfg, x), iters=3, warmup=1)
     print(f"[sharded] (c) moe_ep mixtral-8x22b layer (8 experts d "
           f"{cfg.d_model} ff {cfg.d_ff}, 8 virtual on 8 shards, dropless) "
@@ -4422,6 +4469,211 @@ def phase_sharded(smi: str, launches: dict) -> None:
     sharded_moe(smi, launches, fns)
     print(f"[sharded] (c) in {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[sharded] phase 15 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 16. the sharded train step on a single-process mesh, and the dry-run
+# ---------------------------------------------------------------------------
+
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)
+
+
+def _first_moments(opt) -> list:
+    """AdamW's first moments after one step, on the host: (1 - b1) times
+    the clipped grads."""
+    from repro_torch.training.optimizer import tree_leaves
+    return [m.detach().cpu() for m in tree_leaves(opt["m"])]
+
+
+def _moment_gap(a: list, b: list) -> float:
+    """max |a - b| over the largest |b|, each leaf its own scale."""
+    return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(a, b))
+
+
+def mesh_train(label: str, cfg, make_params, batches, mesh, smi: str,
+               fns, *, ref_rt, want_layout: str, aux_ref=None) -> None:
+    """One of (a)-(c): ``batches[0]`` through the unsharded step
+    (``ref_rt``: phase 14's, or for a MoE the single-device step whose
+    aux is the shards' mean, ``aux_ref(params)``) for the reference, then
+    ``len(batches)`` steps of ``make_train_step`` on ``mesh`` in the
+    plan's layout, from ``make_params()`` (freed once step 1 has made
+    new ones). Held: the first step's loss and grad norm within 1e-5
+    relative, its first moments (the clipped grads) within 1e-4 of each
+    leaf's scale (phase 14's card-vs-CPU bounds); the sharded steps
+    launch no kernel."""
+    from repro_torch.configs import ParallelConfig, ShapeConfig
+    from repro_torch.distributed.sharding import make_plan
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train import make_train_step, to_device
+    ocfg = OPT.AdamWConfig(**TRAIN_OPT)
+    B, S = batches[0]["tokens"].shape
+    p = make_params()
+    out = train_steps(cfg, p, batches[:1], rt=ref_rt, opt_cfg=ocfg)
+    m_ref, l_ref, g_ref, ms_ref = _first_moments(out[1]), *out[2:]
+    del out
+    _free()
+    want_aux = aux_ref(p) if aux_ref is not None else None
+    plan = make_plan(mesh, ParallelConfig(), ShapeConfig("t", "train", S, B))
+    if plan.train_layout != want_layout:
+        fail(f"{label}: the plan chose {plan.train_layout}, not "
+             f"{want_layout}")
+    rt = plan.make_runtime(cfg, ParallelConfig(), mode="train")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fns)
+    step = make_train_step(cfg, rt, ocfg)
+    opt = OPT.init(p)
+    losses, gnorms, ms, aux = [], [], [], []
+    for i, b in enumerate(batches):
+        batch = to_device(b, DEV)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        p, opt, m = step(p, opt, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if "aux" in m:
+            aux.append(float(m["aux"]))
+        if i == 0:
+            m_mesh = _first_moments(opt)
+    peak = torch.cuda.max_memory_allocated()
+    zero_launches(label, fns)
+    lgap = abs(losses[0] - l_ref[0]) / abs(l_ref[0])
+    ggap = abs(gnorms[0] - g_ref[0]) / abs(g_ref[0])
+    mgap = _moment_gap(m_mesh, m_ref)
+    warm = ms[1:] or ms
+    tag = f"{label} {cfg.name} {cfg.n_layers} layers d={cfg.d_model}"
+    print(f"[train-sharded] {tag}: {plan.train_layout} on {mesh!r}, B={B} "
+          f"S={S} remat; unsharded step ms {ms_ref[0]:.1f}; sharded step ms "
+          + " ".join(f"{x:.1f}" for x in ms)
+          + f"; tokens/s {B * S / (np.mean(warm) / 1e3):.0f} (steps 2..); "
+          f"peak device GB {peak / 1e9:.2f} | {smi}", flush=True)
+    print(f"[train-sharded] {tag}: step 1 loss {losses[0]:.6f} (unsharded "
+          f"{l_ref[0]:.6f}, rel gap {lgap:.3e}, bound 1e-5), grad norm "
+          f"{gnorms[0]:.6f} ({ggap:.3e}, bound 1e-5), first moments "
+          f"{mgap:.3e} of each leaf's scale (bound 1e-4); losses "
+          + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    if lgap > 1e-5 or ggap > 1e-5 or mgap > 1e-4:
+        fail(f"{label}: the sharded step disagrees with the unsharded one")
+    if want_aux is not None:
+        agap = abs(aux[0] - want_aux) / abs(want_aux)
+        print(f"[train-sharded] {tag}: aux {aux[0]:.6f} = the shards' mean "
+              f"of their balance terms {want_aux:.6f} (rel gap {agap:.3e}, "
+              "bound 1e-5)", flush=True)
+        if agap > 1e-5:
+            fail(f"{label}: the aux is not the shards' mean")
+    if not np.isfinite(losses).all():
+        fail(f"{label}: a loss is not finite")
+    del p, opt
+    _free()
+
+
+def train_sharded_dense(smi: str, fns) -> None:
+    """(a) llama3.2-1b whole, fp32, B 8 x S 512 in ``fsdp`` on (data 2,
+    model 4), 3 steps; (b) the same model in ``sp`` at B 2 x S 512."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TrainPipeline
+    from repro_torch.distributed.mesh import LocalMesh
+    from repro_torch.models import model as MDL
+    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    mesh = LocalMesh((2, 4), ("data", "model"))
+    for label, B, layout in (("(a)", 8, "fsdp"), ("(b)", 2, "sp")):
+        pipe = TrainPipeline(cfg.vocab_size, 512, B)
+        t = time.perf_counter()
+        mesh_train(label, cfg, lambda: MDL.init_params(
+            cfg, seed=0, dtype=torch.float32, device=DEV),
+            [pipe.batch(i) for i in range(3)], mesh, smi, fns,
+            ref_rt=MDL.Runtime(remat=True), want_layout=layout)
+        print(f"[train-sharded] {label} in {time.perf_counter() - t:.1f} s",
+              flush=True)
+
+
+def train_sharded_moe(smi: str, fns) -> None:
+    """(c) phi3.5-moe-42b-a6.6b at full width, its first layer of 32, fp32,
+    on ``moe_ep``: its 16 experts one a shard on (data 1, model 16),
+    ``fsdp`` at B 16 x S 256 (a row a shard), capacity factor 8 (an
+    expert's capacity is every token of its shard: no choice dropped). One layer: its experts are 5.0 GB of fp32 weights,
+    and the step holds the weights, AdamW's two moments and the new three
+    (6 x 6.2 GB) beside the gathered copies; a second layer would not
+    fit. The reference is the single-device step whose MoE returns the
+    shards' mean of their balance terms (a row each, its own capacity),
+    as ``moe_ep``'s mean does."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TrainPipeline
+    from repro_torch.distributed.mesh import LocalMesh
+    from repro_torch.models import model as MDL
+    from repro_torch.models import moe as MOE
+    cfg = replace(get_config("phi3.5-moe-42b-a6.6b"), dtype="float32",
+                  n_layers=1, capacity_factor=8.0)
+    batches = [TrainPipeline(cfg.vocab_size, 256, 16).batch(i)
+               for i in range(3)]
+
+    def shard_mean_moe(p, cfg_, x):     # a row a shard, as moe_ep runs it
+        ys, auxs = zip(*(MOE.moe_local(p, cfg, x[r:r + 1], with_aux=True)
+                         for r in range(x.shape[0])))
+        return torch.cat(ys), torch.stack(auxs).mean()
+
+    def aux_mean(params):
+        from repro_torch.training.train import to_device
+        with torch.no_grad():
+            return float(MDL.forward_hidden(
+                cfg, params, to_device(batches[0], DEV)["tokens"],
+                rt=MDL.Runtime(moe=shard_mean_moe))[1])
+    t = time.perf_counter()
+    mesh_train("(c)", cfg, lambda: MDL.init_params(
+        cfg, seed=0, dtype=torch.float32, device=DEV, moe_virtual=16),
+        batches, LocalMesh((1, 16), ("data", "model")), smi, fns,
+        ref_rt=MDL.Runtime(remat=True, moe=shard_mean_moe),
+        want_layout="fsdp", aux_ref=aux_mean)
+    print(f"[train-sharded] (c) in {time.perf_counter() - t:.1f} s",
+          flush=True)
+
+
+def dryrun_cells(smi: str) -> None:
+    """One dry-run cell per shape kind on this machine's CPU (meta
+    tensors, no card): llama3.2-1b train_4k and prefill_32k on pod1,
+    decode_32k on pod2 as the pipeline; their roofline terms at the
+    card's datasheet figures."""
+    from repro_torch.launch import dryrun as DR
+    for arch, shape, mp, mode in (("llama3.2-1b", "train_4k", False, "dp"),
+                                  ("llama3.2-1b", "prefill_32k", False,
+                                   "dp"),
+                                  ("llama3.2-1b", "decode_32k", True,
+                                   "pp")):
+        r = DR.run_cell(arch, shape, multi_pod=mp, pod_mode=mode,
+                        save=False, verbose=False)
+        if not r["ok"]:
+            fail(f"dry-run {r['cell']}: {r['error']}")
+        h, t, m = r["hlo"], r["roofline"], r["memory"]
+        print(f"[train-sharded] dry-run {r['cell']} ({r['layout']}, "
+              f"{r['devices']} shards, built in {r['t_build_s']} s): flops "
+              f"{h['flops']:.4e}, unfused bytes {h['hbm_bytes']:.4e}, "
+              f"collective bytes {h['collective_bytes']:.4e}, peak "
+              f"{m['peak_bytes'] / 2**30:.2f} GiB a shard; at 989 TF/s, "
+              f"3.35 TB/s, 450 GB/s (datasheet): compute "
+              f"{t['t_compute'] * 1e3:.3f} ms, memory "
+              f"{t['t_memory'] * 1e3:.3f} ms, collective "
+              f"{t['t_collective'] * 1e3:.3f} ms: {t['bottleneck']}",
+              flush=True)
+
+
+def phase_train_sharded(smi: str, launches: dict) -> None:
+    """Phase 16: the sharded train step, (a)-(c), and the dry-run."""
+    fns = _kernel_fns()
+    t0 = time.perf_counter()
+    _free()
+    print(f"[train-sharded] device memory held by earlier phases: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    train_sharded_dense(smi, fns)
+    train_sharded_moe(smi, fns)
+    t = time.perf_counter()
+    dryrun_cells(smi)
+    print(f"[train-sharded] dry-run cells in {time.perf_counter() - t:.1f} "
+          "s", flush=True)
+    print(f"[train-sharded] phase 16 in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
 
@@ -4569,6 +4821,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--sharded"]:
         phase_sharded(smi, {})
         return 0
+    if sys.argv[1:2] == ["--train-sharded"]:
+        phase_train_sharded(smi, {})
+        return 0
     main_cases = phase_kernels()
     bench_launches = phase_bench(smi)
     ref: dict = {}
@@ -4582,6 +4837,7 @@ def main() -> int:
     phase_families(smi, launches)
     phase_train(smi, launches)
     phase_sharded(smi, launches)
+    phase_train_sharded(smi, launches)
     # K3 serves whisper's cross-attention decode (phase 13) beside the bench
     serving_k3 = launches.get("flash_decode", 0)
     launches["flash_decode"] = serving_k3 + bench_launches["flash_decode"]

@@ -18,3 +18,9 @@ from repro_torch.configs import (  # noqa: F401
     xlstm_350m, yi_34b, zamba2_1_2b,
 )
 
+# assigned architectures, in repro's order
+ASSIGNED = (
+    "llama3.2-1b", "internlm2-1.8b", "yi-34b", "gemma3-27b", "xlstm-350m",
+    "whisper-small", "mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-7b",
+    "zamba2-1.2b",
+)

@@ -180,6 +180,8 @@ class ParallelConfig:
     remat: bool = True
     use_kernels: bool | None = None
     kernel_splits: int = 1
+    # grad-accum microbatches of a train cell (launch/dryrun.py)
+    microbatches: int = 1
     serve_quant: str = ""        # "int8" = weight-only quant on serve paths
 
 

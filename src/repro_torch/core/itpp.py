@@ -224,49 +224,45 @@ def itpp_decode_attention_shard(q, k_new, v_new, pool_k, pool_v, block_table,
     return out.to(q.dtype), pool_k, pool_v
 
 
-def make_prefill_writer(mesh, spec: ItppSpec, *, seq_axis: str):
-    """Shard-LOCAL prefill pool writes (repro's §Perf P1).
+def make_prefill_writer(spec: ItppSpec, *, pool_layout: str = "local",
+                        ring_width: int = 0):
+    """A sequence-parallel prefill shard's pool writes (repro's §Perf P1:
+    the scatter never crosses shards), for a body that runs as a shard of
+    ``spec``'s mesh (``distributed/sharding.make_prefill_step``). Returns
+    f(pool_k, pool_v, k, v, bt, valid_len=None) -> (pool_k, pool_v), per
+    layer: pools [N+1, page, KVH, D] (``pool_layout`` as
+    ``_shard_pages`` reads it) written in place; k/v [B, S, KVH, D] the
+    rows' whole sequences, of which the shard writes the pages it owns
+    (any allocator policy; with ``blocked_chunk`` those are its own block
+    of the sequence); ``valid_len`` [B] keeps pad positions out (repro's
+    writer has none and writes them where a page exists; they lie past
+    the context and every decode write precedes its read). ``ring_width``
+    > 0 writes a ring pool's last ``ring_width`` pages of tokens as
+    ``write_prefill`` does (``valid_len`` ignored, as the unsharded ring
+    write ignores it)."""
 
-    With the allocator's ``blocked_chunk`` policy, virtual page v of a
-    request lives on the shard owning sequence block v — the shard that
-    computes those tokens' K/V under sequence-parallel prefill — so the
-    scatter never crosses shards. Returns f(pool_k, pool_v, k, v, bt,
-    valid_len=None) -> (pool_k, pool_v), per layer: pools [N+1, page, KVH,
-    D] written in place; k/v [B, S, KVH, D] sequence-sharded over
-    ``seq_axis``; ``valid_len`` [B] keeps pad positions out (repro's writer
-    has none and writes them where a page exists; they lie past the
-    context and every decode write precedes its read)."""
-    layout = mesh.pool_layout if mesh is not None else "local"
-
-    def body(pool_k, pool_v, k, v, bt, valid_len=None):
-        B, S_loc = k.shape[:2]
+    def write(pool_k, pool_v, k, v, bt, valid_len=None):
+        B, S = k.shape[:2]
         page, W = pool_k.shape[1], bt.shape[1]
-        my, P_loc, base = _shard_pages(spec, pool_k, layout)
+        my, P_loc, base = _shard_pages(spec, pool_k, pool_layout)
         trash = pool_k.shape[0] - 1
-        seq_i = M.axis_index(seq_axis) if spec.page_axes else 0
-        t = seq_i * S_loc + torch.arange(S_loc, device=k.device)
-        vpage = (t // page).expand(B, S_loc)
-        offs = (t % page).expand(B, S_loc)
+        t = torch.arange(S, device=k.device)
+        vpage = t // page
+        if ring_width:
+            vpage = vpage % ring_width
+        vpage = vpage.expand(B, S)
+        offs = (t % page).expand(B, S)
         pids = bt.long().gather(1, vpage.clamp(max=W - 1))
         owned = (pids >= 0) & (vpage < W) & (_floordiv(pids, P_loc) == my)
-        if valid_len is not None:
+        if ring_width:
+            owned = owned & (t[None] >= S - min(ring_width * page, S))
+        elif valid_len is not None:
             owned = owned & (t[None] < valid_len.long()[:, None])
         loc = torch.where(owned, pids - my * P_loc + base, trash)
         pool_k[loc, offs] = k.to(pool_k.dtype)
         pool_v[loc, offs] = v.to(pool_v.dtype)
         return pool_k, pool_v
 
-    if mesh is None or not spec.page_axes:
-        return body
-    b = spec.batch_axis
-    pool = M.P(M.Paged(spec.page_axes))
-    kv = M.P(b, seq_axis)
-    fn = M.shard_map(body, mesh, in_specs=(pool, pool, kv, kv, M.P(b),
-                                           M.P(b)),
-                     out_specs=(pool, pool))
-
-    def write(pool_k, pool_v, k, v, bt, valid_len=None):
-        return fn(pool_k, pool_v, k, v, bt, valid_len)
     return write
 
 

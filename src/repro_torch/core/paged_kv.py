@@ -52,6 +52,32 @@ class PoolSpec:
                 * self.n_kv_heads * self.d_head * bytes_per_el)
 
 
+def pool_spec_for(cfg, shape, parallel, *, n_shards: int,
+                  slack_pages: int = 0) -> PoolSpec:
+    """Pool geometry of a (ModelConfig, ShapeConfig, ParallelConfig) cell
+    over ``n_shards`` page shards (repro's ``pool_spec_for``, which reads
+    the shard count from its ParallelConfig): a page a request beyond its
+    tokens, the page count rounded up to the shards; a stack whose
+    attention layers are all windowed gets a ring capped by the window."""
+    kinds = cfg.block_kinds()
+    n_attn = sum(1 for k in kinds if k in ("attn", "local"))
+    if cfg.family == "encdec":
+        n_attn = cfg.n_layers
+    ps = parallel.page_size
+    all_windowed = n_attn > 0 and all(
+        k == "local" for k in kinds if k in ("attn", "local"))
+    ring = bool(all_windowed and cfg.sliding_window
+                and shape.seq_len > cfg.sliding_window)
+    eff_len = min(shape.seq_len, cfg.sliding_window + ps) if ring \
+        else shape.seq_len
+    per_req = -(-eff_len // ps) + 1          # ceil + 1 growth page
+    n_pages = shape.global_batch * per_req + slack_pages
+    n_pages = -(-n_pages // n_shards) * n_shards
+    return PoolSpec(n_layers=max(n_attn, 1), n_pages=n_pages, page_size=ps,
+                    n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+                    max_pages_per_req=per_req, dtype=cfg.dtype, ring=ring)
+
+
 def init_pool(spec: PoolSpec, device=None):
     """Zeroed K and V pools [L, n_pages + 1, page, KVH, D] (the last page is
     the trash page)."""

@@ -4,9 +4,15 @@ The port's counterpart of ``repro/core/jax_compat.make_mesh``,
 ``repro/launch/mesh.py`` and the ``jax.lax`` collectives of repro's
 ``shard_map`` bodies. A body is written once, SPMD-style: it runs once per
 shard, asks ``axis_index(ax)`` where it sits and calls ``psum`` /
-``pmax`` / ``pmean`` / ``all_gather`` / ``all_to_all`` / ``ppermute`` by
-axis name (one name or a tuple), and it runs unchanged under either
-backend:
+``pmax`` / ``pmean`` / ``all_gather`` / ``psum_scatter`` / ``all_to_all``
+/ ``ppermute`` by axis name (one name or a tuple), and it runs unchanged
+under either backend. ``all_gather`` and ``all_to_all`` are
+differentiable: a shard's backward (``torch.autograd.grad`` in its body)
+runs their transposes, ``psum_scatter`` and ``all_to_all``, as
+collectives of its own. They need the backward on the shard's thread:
+the caller sets ``torch.autograd.set_multithreading_enabled(False)``
+(a CUDA backward otherwise runs on autograd's device thread, which runs
+as no shard).
 
 * ``LocalMesh`` — every shard in this process, on one device, one thread
   a shard, one of them running at a time (a baton passed round robin). A collective's members (the shards that share every coordinate
@@ -18,6 +24,9 @@ backend:
   (``gloo`` on the CPU), with one process group per axis tuple, made when
   the mesh is. NCCL across cards is the design target; it is unverified
   (the card's machine has one GPU).
+* ``ShapeMesh`` — one shard's body on tensors without storage, each
+  collective counting the bytes it would move: the dry-run's backend
+  (``launch/dryrun.py``).
 
 Both backends reduce a group in the group's own order: all-gather, then a
 sum or max over the members stacked in row-major shard order. Every member
@@ -41,6 +50,7 @@ global result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import math
 import threading
@@ -192,18 +202,88 @@ def _gather(x, axis) -> list[torch.Tensor]:
     return s.mesh._gather(s.rank, _names(axis), x)
 
 
-def all_gather(x, axis, *, dim: int = 0, tiled: bool = False):
-    """The group's ``x`` in index order, stacked on a new ``dim`` or, with
-    ``tiled``, concatenated along ``dim``."""
+def _counted(kind: str):
+    """A collective of ``kind``: on a ``ShapeMesh`` its bytes are counted
+    (hlo_analysis's rule) and the ops that emulate it are not."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def f(x, axis, *args, **kw):
+            mesh = current().mesh
+            if not isinstance(mesh, ShapeMesh):
+                return fn(x, axis, *args, **kw)
+            outer = mesh.coll_depth == 0
+            mesh.coll_depth += 1
+            try:
+                with mesh.quiet():
+                    out = fn(x, axis, *args, **kw)
+            finally:
+                mesh.coll_depth -= 1
+            if outer:
+                mesh.count(kind, x, out, axis)
+            return out
+        return f
+    return wrap
+
+
+@_counted("all-gather")
+def _all_gather(x, axis, dim: int, tiled: bool):
     vals = _gather(x, axis)
     return torch.cat(vals, dim) if tiled else torch.stack(vals, dim)
 
 
+@_counted("reduce-scatter")
+def psum_scatter(x, axis, *, dim: int = 0, tiled: bool = False):
+    """``lax.psum_scatter``: member ``i`` gets the group's sum of block
+    ``i`` of ``x`` along ``dim`` (with ``tiled``; else of ``x``'s index
+    ``i`` there), summed in the group's order: all_gather's transpose."""
+    n = axis_size(axis)
+    blocks = x.chunk(n, dim) if tiled else x.unbind(dim)
+    return all_to_all(torch.stack(blocks), axis).sum(0)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, tiled):
+        ctx.args = (axis, dim, tiled)
+        return _all_gather(x, axis, dim, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim, tiled = ctx.args
+        return psum_scatter(g, axis, dim=dim, tiled=tiled), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _all_to_all(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.axis), None
+
+
+def _tracked(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def all_gather(x, axis, *, dim: int = 0, tiled: bool = False):
+    """The group's ``x`` in index order, stacked on a new ``dim`` or, with
+    ``tiled``, concatenated along ``dim``. Differentiable: the gradient
+    goes back by ``psum_scatter`` in the shard's own backward."""
+    if _tracked(x):
+        return _AllGather.apply(x, axis, dim, tiled)
+    return _all_gather(x, axis, dim, tiled)
+
+
+@_counted("all-reduce")
 def psum(x, axis):
     x = torch.as_tensor(x)
     return torch.stack(_gather(x, axis)).sum(0)
 
 
+@_counted("all-reduce")
 def pmax(x, axis):
     x = torch.as_tensor(x)
     return torch.stack(_gather(x, axis)).amax(0)
@@ -216,7 +296,15 @@ def pmean(x, axis):
 def all_to_all(x, axis):
     """``lax.all_to_all(x, axis, 0, 0, tiled=False)``: x ``[n, ...]`` (n the
     group's size); block ``j`` goes to member ``j`` and the result's block
-    ``i`` is what member ``i`` sent here."""
+    ``i`` is what member ``i`` sent here. Differentiable (its own
+    transpose)."""
+    if _tracked(x):
+        return _AllToAll.apply(x, axis)
+    return _all_to_all(x, axis)
+
+
+@_counted("all-to-all")
+def _all_to_all(x, axis):
     s = current()
     n = s.mesh.axis_size(axis)
     if x.shape[0] != n:
@@ -227,6 +315,7 @@ def all_to_all(x, axis):
     return s.mesh._all_to_all(s.rank, _names(axis), x)
 
 
+@_counted("collective-permute")
 def ppermute(x, axis, perm):
     """``lax.ppermute``: ``perm`` lists ``(source, destination)`` indices
     over ``axis``; a shard no pair sends to gets zeros."""
@@ -457,6 +546,69 @@ class ProcessMesh(Mesh):
         return fn(self.rank)
 
 
+class ShapeMesh(Mesh):
+    """One shard's body on tensors without storage (``device="meta"``):
+    the dry-run's backend (``launch/dryrun.py``). The body runs once, as
+    ``rank`` (the bodies are SPMD), on the caller's thread; a collective
+    returns a tensor of its result's shape and adds the bytes it moves
+    to ``collectives`` by ``repro/launch/hlo_analysis.py``'s rule: an
+    all-gather its output, an all-reduce (``psum`` / ``pmax``) twice its
+    input, a reduce-scatter, an all-to-all or a permute its input. A
+    group of one shard moves nothing. While ``quiet`` (a collective's
+    emulation, a shard's slicing of its arguments) ops run uncounted by
+    the dry-run's tallies. ``shard_map`` returns the body's outputs
+    assembled as a ``ProcessMesh`` does, every cut dim all-gathered
+    (counted), but a pool's pages (``Paged``) stay on their shard, as a
+    ``LocalMesh`` writes them in place; with ``assemble`` False it
+    returns the shard's own outputs."""
+    pool_layout = "local"
+
+    def __init__(self, shape, axis_names, *, rank: int = 0,
+                 assemble: bool = True):
+        super().__init__(shape, axis_names)
+        self.rank, self.assemble = rank, assemble
+        self.collectives: dict[str, float] = {}
+        self.quiet_depth = 0
+        self.coll_depth = 0
+
+    @contextlib.contextmanager
+    def quiet(self):
+        self.quiet_depth += 1
+        try:
+            yield
+        finally:
+            self.quiet_depth -= 1
+
+    def count(self, kind: str, x, out, axis) -> None:
+        if self.axis_size(axis) == 1:
+            return
+        nbytes = lambda t: t.numel() * t.element_size()
+        b = {"all-gather": nbytes(out),
+             "all-reduce": 2 * nbytes(torch.as_tensor(x))}.get(kind,
+                                                              nbytes(x))
+        self.collectives[kind] = self.collectives.get(kind, 0.0) + b
+
+    def _gather(self, rank, axes, x):
+        return [x] * self.axis_size(axes)
+
+    def _all_to_all(self, rank, axes, x):
+        return torch.empty_like(x)
+
+    def split(self, args, specs) -> list:
+        with self.quiet():
+            return [_split(a, s, self, self.rank)
+                    for a, s in zip(args, specs)]
+
+    def run(self, fn):
+        """``fn(rank)`` as this mesh's one shard."""
+        prev = getattr(_tls, "shard", None)
+        _tls.shard = Shard(self, self.rank)
+        try:
+            return fn(self.rank)
+        finally:
+            _tls.shard = prev
+
+
 # ---------------------------------------------------------------------------
 # shard_map
 # ---------------------------------------------------------------------------
@@ -467,6 +619,8 @@ def _split(a, spec, mesh: Mesh, rank: int):
         return {k: _split(a[k], spec.get(k), mesh, rank) for k in a}
     if not torch.is_tensor(a) and isinstance(a, dict):
         return {k: _split(v, spec, mesh, rank) for k, v in a.items()}
+    if isinstance(a, (list, tuple)):        # a carry's tuple: one spec
+        return type(a)(_split(v, spec, mesh, rank) for v in a)
     if spec is None or not torch.is_tensor(a):
         return a
     for d, e in enumerate(spec):
@@ -500,6 +654,9 @@ def _assemble_local(outs: list, spec, mesh: Mesh, rank: int = 0):
     if not torch.is_tensor(first) and isinstance(first, dict):
         return {k: _assemble_local([o[k] for o in outs], spec, mesh, rank)
                 for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_assemble_local([o[i] for o in outs], spec, mesh,
+                                           rank) for i in range(len(first)))
     if spec is None or not torch.is_tensor(first):
         return first
 
@@ -522,6 +679,8 @@ def _assemble_process(out, spec, mesh: "ProcessMesh"):
         return {k: _assemble_process(out[k], spec.get(k), mesh) for k in out}
     if not torch.is_tensor(out) and isinstance(out, dict):
         return {k: _assemble_process(v, spec, mesh) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_assemble_process(v, spec, mesh) for v in out)
     if spec is None or not torch.is_tensor(out):
         return out
     for d, e in enumerate(spec):
@@ -534,6 +693,28 @@ def _assemble_process(out, spec, mesh: "ProcessMesh"):
             out = torch.cat([pages, torch.zeros_like(out.narrow(d, 0, 1))],
                             d)
         else:
+            out = all_gather(out, e, dim=d, tiled=True)
+    return out
+
+
+def _assemble_shape(out, spec, mesh: ShapeMesh):
+    """``_assemble_process`` on a ``ShapeMesh``: a ``Paged`` dim takes its
+    global size without a collective (the pages stay where they are)."""
+    if isinstance(spec, dict):
+        return {k: _assemble_shape(out[k], spec.get(k), mesh) for k in out}
+    if not torch.is_tensor(out) and isinstance(out, dict):
+        return {k: _assemble_shape(v, spec, mesh) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_assemble_shape(v, spec, mesh) for v in out)
+    if spec is None or not torch.is_tensor(out):
+        return out
+    for d, e in enumerate(spec):
+        if isinstance(e, Paged):
+            shape = list(out.shape)
+            shape[d] = (shape[d] - 1) * mesh.axis_size(e.axes) + 1
+            with mesh.quiet():
+                out = out.new_empty(shape)
+        elif e is not None:
             out = all_gather(out, e, dim=d, tiled=True)
     return out
 
@@ -562,5 +743,11 @@ def shard_map(body, mesh: Mesh, in_specs, out_specs):
             out = mesh.run(shard)
             return tuple(_assemble_process(o, s, mesh)
                          for o, s in zip(out, out_specs))
+        if isinstance(mesh, ShapeMesh):
+            out = mesh.run(lambda r: body(*mesh.split(args, in_specs)))
+            if not mesh.assemble:
+                return tuple(out)
+            return mesh.run(lambda r: tuple(
+                _assemble_shape(o, s, mesh) for o, s in zip(out, out_specs)))
         raise TypeError(f"{mesh!r} has no backend to run on")
     return f

@@ -20,8 +20,8 @@ leaf of those has repro's spec without the stacked leading ``None``;
 
 On a ``LocalMesh`` (one card) tensors are global: the weights stay whole
 and a shard body gets views of them (``mesh.shard_map``). The specs say
-what each shard holds; ``_act_table`` gives the activation layouts, of
-which the MoE's shard map reads ``act``.
+what each shard holds; ``_act_table`` gives repro's activation
+layouts.
 """
 from __future__ import annotations
 
@@ -36,7 +36,8 @@ from repro_torch.core.itpp import (ItppSpec, make_itpp_attention,
 from repro_torch.distributed import mesh as M
 from repro_torch.distributed.mesh import P, abstract_mesh  # noqa: F401
 from repro_torch.models import moe as MOE
-from repro_torch.models.model import Runtime
+from repro_torch.models import model as MDL
+from repro_torch.models.model import Runtime, tree_map
 
 STACKED_KEYS = {"layers", "enc", "dec", "mamba", "mlstm", "slstm"}
 # serve-mode column-parallel (shard last dim) / row-parallel (shard first
@@ -127,6 +128,10 @@ class Plan:
     def param_specs(self, params, *, mode: str):
         """mode: 'train' (FSDP) or 'serve' (Megatron TP, rows replicated).
         A tree of ``P`` shaped like ``params``."""
+        return _unflatten(params, iter(self.spec_list(params, mode=mode)))
+
+    def spec_list(self, params, *, mode: str) -> list:
+        """``param_specs`` as a list, one ``P`` a leaf in tree order."""
         dp_n, tp_n = self.dp_total, self.tp
         specs = []
         for keys, leaf, in_list in _leaves(params):
@@ -175,7 +180,52 @@ class Plan:
             if len(shape) - start >= 2 and shape[-2] % dp_n == 0:
                 spec[-2] = self.dp_spec
             specs.append(P(*spec))
-        return _unflatten(params, iter(specs))
+        return specs
+
+    def fsdp_layout(self, params) -> list:
+        """Per leaf of ``params`` in tree order, how a shard of the train
+        step rebuilds it from its slice (``training/train.py``): (its
+        train ``P``, the ``(dim, axes)`` it all-gathers, the mesh axes no
+        dim of it is cut over, whose shards hold copies, and a ``(dim,
+        axis)`` whose block the shard then keeps, or None). An expert
+        weight keeps its expert dim cut over the model axis (``moe_ep``
+        runs the shard's own experts): a replicated one (under
+        ``REPLICATE_SMALL``) is cut there after the gather."""
+        out = []
+        for (keys, _, in_list), spec in zip(
+                _leaves(params), self.spec_list(params, mode="train")):
+            cut = [(d, e) for d, e in enumerate(spec) if e is not None]
+            named = {a for _, e in cut for a in M._names(e)}
+            pick = None
+            if "moe" in keys and keys[-1] in ("w1", "w2", "w3"):
+                cut = [(d, e) for d, e in cut if e != self.tp_axis]
+                if self.tp_axis not in named:
+                    start = 1 if keys[0] in STACKED_KEYS and not in_list \
+                        else 0
+                    pick = (start, self.tp_axis)
+            rest = tuple(a for a in self.mesh.axis_names if a not in named)
+            out.append((spec, cut, rest, pick))
+        return out
+
+    def batch_specs(self, batch) -> dict:
+        """A train or prefill batch's layout (repro's
+        ``dryrun.batch_shardings``): rows over every axis (``fsdp``), or
+        rows over the dp axes and the sequence over the model axis
+        (``sp``). Per-row entries (``bt``, ``valid_len``, ``last_idx``)
+        follow the rows."""
+        rows, seq = self.dp_spec, (self.tp_axis if self.seq_divisible
+                                   else None)
+        if self.train_layout == "fsdp":
+            rows, seq = self.full_batch_spec, None
+        out = {}
+        for k, v in batch.items():
+            if k == "positions" and v.dim() == 3:      # M-RoPE [3, B, S]
+                out[k] = P(None, rows, seq)
+            elif k in ("frames", "bt", "valid_len", "last_idx"):
+                out[k] = P(rows)
+            else:                                      # [B, S, ...]
+                out[k] = P(rows, seq)
+        return out
 
     def serve_params(self, params, parallel, *, mode: str):
         """The weights a ``mode`` runtime serves: int8 weight-only
@@ -224,33 +274,56 @@ class Plan:
 
     def make_runtime(self, cfg, parallel, *, pool_spec=None,
                      mode: str = "train") -> Runtime:
+        """The runtime of a ``mode`` cell. ``train`` and ``prefill`` run as
+        shard bodies on the plan's mesh (``training/train.make_train_step``,
+        ``make_prefill_step``): a layer's whole weights fetched from the
+        shard's FSDP slices (``fsdp_fetch``), the ``sp`` sequence cut over
+        the model axis (``seq_axis``), a MoE on ``moe_ep`` over the
+        shard's own tokens; prefill writes the pool pages the shard owns.
+        ``decode`` runs on global tensors: ITPP over the page-sharded pool
+        and, for a MoE, ``moe_ep`` through its own shard map."""
         from repro_torch.kernels.backend import KernelConfig
         kernels = KernelConfig(use_kernels=parallel.use_kernels,
                                n_splits=parallel.kernel_splits)
-        rt = Runtime(remat=parallel.remat, kernels=kernels)
+        seq = self.tp_axis if (self.train_layout == "sp"
+                               and self.seq_divisible) else None
+        moe = shard_moe(cfg, self.tp_axis, self.tp) if cfg.is_moe else None
+        if mode == "train":     # make_train_step's shard body, plain paths
+            return Runtime(remat=parallel.remat, plan=self, fetch=fsdp_fetch,
+                           seq_axis=seq, moe=moe)
+        ring = pool_spec.max_pages_per_req if pool_spec is not None \
+            and pool_spec.ring else 0
+        if mode == "prefill":
+            if seq is None:
+                raise ValueError("the sharded prefill takes the sp layout "
+                                 "with the sequence cut over "
+                                 f"{self.tp_axis!r}")
+            return Runtime(
+                kernels=kernels, ring_width=ring, fetch=fsdp_fetch,
+                seq_axis=seq, moe=moe,
+                write_pool=None if pool_spec is None else make_prefill_writer(
+                    self.itpp_spec(parallel.page_size),
+                    pool_layout=self.mesh.pool_layout, ring_width=ring))
+        if mode != "decode":
+            raise ValueError(f"mode {mode!r}")
+        rt = Runtime(remat=parallel.remat, kernels=kernels, ring_width=ring)
         if pool_spec is not None:
-            rt.ring_width = pool_spec.max_pages_per_req if pool_spec.ring \
-                else 0
-            if mode == "decode":
-                spec = self.itpp_spec(parallel.page_size)
-                kinds = set(cfg.block_kinds())
-                mixed = "local" in kinds and "attn" in kinds
-                rt.cond_window = cfg.sliding_window if mixed else 0
-                rt.itpp = make_itpp_attention(
-                    self.mesh, spec,
-                    max_pages_per_req=pool_spec.max_pages_per_req,
-                    ring_width=rt.ring_width, cond_window=rt.cond_window,
-                    kernels=kernels)
-            if mode == "prefill" and not pool_spec.ring \
-                    and self.train_layout == "sp" and self.seq_divisible:
-                rt.write_pool = make_prefill_writer(
-                    self.mesh, self.itpp_spec(parallel.page_size),
-                    seq_axis=self.tp_axis)
+            spec = self.itpp_spec(parallel.page_size)
+            kinds = set(cfg.block_kinds())
+            mixed = "local" in kinds and "attn" in kinds
+            rt.cond_window = cfg.sliding_window if mixed else 0
+            rt.itpp = make_itpp_attention(
+                self.mesh, spec,
+                max_pages_per_req=pool_spec.max_pages_per_req,
+                ring_width=ring, cond_window=rt.cond_window,
+                kernels=kernels)
         if cfg.is_moe:
             rt.moe = self._make_moe_ep(cfg)
         return rt
 
     def _make_moe_ep(self, cfg):
+        """A decode step's MoE on global tensors: each row's token on
+        every model shard of its row, the experts over the model axis."""
         tp_axis, tp_n = self.tp_axis, self.tp
         b = self.batch_spec
         all_axes = (*self.dp_axes, tp_axis)
@@ -262,9 +335,7 @@ class Plan:
             return y.reshape(B, S, D), M.pmean(aux, all_axes)
 
         def apply(p, cfg_, x):
-            is_decode = x.shape[1] == 1
-            act = self._act_table()["act"]
-            xspec = P(b, None, None) if is_decode else P(*act[:2], None)
+            xspec = P(b, None, None)
             pspec = {"router": None, "w1": P(tp_axis), "w2": P(tp_axis)}
             if "w3" in p:
                 pspec["w3"] = P(tp_axis)
@@ -273,6 +344,145 @@ class Plan:
             return fn({k: p[k] for k in pspec}, x)
 
         return apply
+
+
+# ---------------------------------------------------------------------------
+# FSDP inside a shard body: a layer's whole weights from the shard's slices
+# ---------------------------------------------------------------------------
+
+class _Slices:
+    """A subtree of a shard's FSDP slices and, per leaf, what to gather;
+    the shard runtime's ``fetch`` turns it into whole weights."""
+    __slots__ = ("tree", "cuts")
+
+    def __init__(self, tree, cuts):
+        self.tree, self.cuts = tree, cuts
+
+
+class _FsdpGather(torch.autograd.Function):
+    """A leaf's whole weight from this shard's slice, all-gathered over
+    its cut dims. Backward: the whole grad's sum over every shard, cut
+    back to the slice (``psum_scatter`` over the cut axes, ``psum`` over
+    the axes whose shards hold copies), in the shard's own backward."""
+
+    @staticmethod
+    def forward(ctx, x, cut, rest):
+        ctx.cut, ctx.rest = cut, rest
+        for d, axes in cut:
+            x = M._all_gather(x, axes, d, True)
+        return x if cut else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        for d, axes in reversed(ctx.cut):
+            g = M.psum_scatter(g, axes, dim=d, tiled=True)
+        if ctx.rest:
+            g = M.psum(g, ctx.rest)
+        return g, None, None
+
+
+def _whole(x, cut, rest, pick):
+    x = _FsdpGather.apply(x, cut, rest)
+    if pick is not None:                # a replicated expert weight
+        d, axis = pick
+        blk = x.shape[d] // M.axis_size(axis)
+        x = x.narrow(d, M.axis_index(axis) * blk, blk)
+    return x
+
+
+def fsdp_fetch(node):
+    """``Runtime.fetch`` of a shard: a ``_Slices`` node's whole weights."""
+    if not isinstance(node, _Slices):
+        return node
+    it = iter(node.cuts)
+    return tree_map(lambda x: _whole(x, *next(it)), node.tree)
+
+
+def fsdp_view(params, layout):
+    """The shard's params as the model takes them: every top-level weight
+    and every layer a ``_Slices`` (stacked ``[L, ...]`` groups split into
+    per-layer lists, their specs less the stacked dim)."""
+    it = iter(layout)
+    out = {}
+    for key, node in params.items():
+        if isinstance(node, list):              # layers / enc / dec
+            out[key] = [_Slices(lp, [next(it)[1:] for _ in _leaves(lp)])
+                        for lp in node]
+        elif isinstance(node, dict) and key in STACKED_KEYS:
+            cuts = [next(it)[1:] for _ in _leaves(node)]
+            cuts = [([(d - 1, a) for d, a in cut], rest,
+                     pick and (pick[0] - 1, pick[1]))
+                    for cut, rest, pick in cuts]
+            n = next(_leaves(node))[1].shape[0]
+            out[key] = [_Slices(tree_map(lambda a: a[i], node), cuts)
+                        for i in range(n)]
+        else:
+            out[key] = _Slices(node, [next(it)[1:] for _ in _leaves(node)])
+    return out
+
+
+def shard_moe(cfg, tp_axis: str, tp_n: int):
+    """A shard body's MoE: ``moe_ep`` over the shard's own tokens (its
+    experts local, the buffers over ``tp_axis``), its balance term
+    unreduced."""
+    def moe(p, cfg_, x):
+        B, S, D = x.shape
+        y, aux = MOE.moe_ep(p, cfg, x.reshape(-1, D), tp_axis, tp_n)
+        return y.reshape(B, S, D), aux
+    return moe
+
+
+def make_prefill_step(cfg, plan: Plan, parallel, pool_spec):
+    """repro's prefill cell: ``models.model.prefill`` under the train
+    plan's shardings, as a shard body on ``plan.mesh`` in the ``sp``
+    layout. ``step(params, state, batch) -> (logits [B, V], state)`` on
+    global tensors (``batch``: ``tokens`` [B, S], ``bt`` [B, maxp], the
+    optional ``valid_len`` / ``last_idx`` [B], ``positions``,
+    ``extra_embeds``, ``frames``).
+
+    A shard holds its FSDP slices of the weights (a layer gathered in its
+    forward, ``fsdp_fetch``), rows over the dp axes and its block of the
+    sequence over the model axis (``Plan.make_runtime(mode="prefill")``).
+    Attention takes the rows' whole K/V (gathered over the model axis) at
+    the shard's ``q_offset``, and the shard writes, from them, the pool
+    pages it owns (``make_prefill_writer``; any allocator policy); a
+    recurrent layer runs on the gathered sequence, its carry the whole
+    rows'; the logits come from the shard holding each row's last
+    position; a MoE runs ``moe_ep``. The pool is written in place on a
+    ``LocalMesh``; the carry and cross rows come back in the returned
+    state."""
+    rt = plan.make_runtime(cfg, parallel, pool_spec=pool_spec,
+                           mode="prefill")
+    rows = plan.dp_spec
+    pool = P(None, M.Paged(plan.page_axes))
+
+    def step(params, state, batch):
+        layout = plan.fsdp_layout(params)
+        keys = range(len(layout))
+        flat = dict(zip(keys, (t for _, t, _ in _leaves(params))))
+        specs = {i: lay[0] for i, lay in zip(keys, layout)}
+        s_spec = {k: ({"k": pool, "v": pool} if k == "pool"
+                      else P(None, rows)) for k in state}
+        b_spec = plan.batch_specs(batch)
+
+        def body(p_loc, st, b):
+            ptree = _unflatten(params, (p_loc[i] for i in keys))
+            # a shard's own carry rows: on a LocalMesh the model shards of
+            # a row would otherwise read each other's new carry
+            st = {k: v if k == "pool" else tree_map(torch.clone, v)
+                  for k, v in st.items()}
+            return MDL.prefill(
+                cfg, fsdp_view(ptree, layout), st, b["tokens"], b["bt"],
+                positions=b.get("positions"),
+                extra_embeds=b.get("extra_embeds"), frames=b.get("frames"),
+                last_idx=b.get("last_idx"), valid_len=b.get("valid_len"),
+                rt=rt)
+
+        f = M.shard_map(body, plan.mesh, in_specs=(specs, s_spec, b_spec),
+                        out_specs=(P(rows, None), s_spec))
+        return f(flat, state, batch)
+
+    return step
 
 
 def make_plan(mesh, parallel, shape, *, pod_mode: str = "dp",

@@ -255,6 +255,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--kernel-splits", type=int, default=1,
                     help="split-K partitions of the decode page axis")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reduced", action="store_true", default=True,
+                    help="accepted as repro's serve accepts it (a no-op: "
+                         "the reduced config is the default; "
+                         "--full-width overrides it)")
     ap.add_argument("--full-width", action="store_true",
                     help="the configuration's published widths and depth "
                          "(default: reduced to d_model 64)")

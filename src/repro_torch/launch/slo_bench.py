@@ -122,6 +122,10 @@ def write_json(rows, path: str) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--trace", default=DEFAULT_TRACE)
+    ap.add_argument("--smoke", action="store_true",
+                    help="accepted for parity with the other benches (a "
+                         "no-op: the committed trace is already the "
+                         "CI-sized profile)")
     ap.add_argument("--json", metavar="PATH", default=None,
                     help="write the rows in BENCH_slo.json's shape")
     ap.add_argument("--device", default="cuda")

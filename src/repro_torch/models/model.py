@@ -79,6 +79,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core.itpp import itpp_decode_attention_shard
+from repro_torch.distributed import mesh as M
 from repro_torch.kernels import ops
 from repro_torch.kernels.backend import KernelConfig, resolve_device
 from repro_torch.models import layers as L
@@ -99,7 +100,17 @@ class Runtime:
     (``core/itpp.make_itpp_attention``), ``moe`` the expert-parallel MoE
     (``(p, cfg, x) -> (y, aux)``), ``write_pool`` the shard-local prefill
     writer and ``cond_window`` the windowed bound of mixed local:global
-    stacks."""
+    stacks.
+
+    A sharded train step (``Plan.make_runtime(mode="train")``) carries its
+    ``plan``; ``training/train.make_train_step`` runs it on the plan's
+    mesh with a shard's runtime, whose ``fetch`` returns a layer's whole
+    weights from the shard's FSDP slices (called inside the layer's
+    forward, so remat gathers again in backward) and whose ``seq_axis``
+    names the mesh axis the sequence is cut over (the ``sp`` layout:
+    attention takes K/V gathered over it at the shard's ``q_offset``; a
+    recurrent layer runs on the gathered sequence and keeps its own
+    slice)."""
     ring_width: int = 0
     kernels: KernelConfig | None = None
     gla_chunk: int = 128                 # Mamba2 scan chunk at prefill
@@ -108,6 +119,9 @@ class Runtime:
     moe: Callable | None = None
     write_pool: Callable | None = None
     cond_window: int = 0
+    plan: Any = None
+    fetch: Callable | None = None
+    seq_axis: str | None = None
 
     def itpp_apply(self, q, k, v, pk, pv, bt, ctx, npage, noff, window):
         if self.itpp is not None:
@@ -127,6 +141,47 @@ class Runtime:
 
 
 DEFAULT_RT = Runtime()
+
+
+def _fetch(rt: Runtime, tree):
+    """``tree``'s whole weights: ``rt.fetch``'s gather of a shard's slices,
+    or ``tree`` itself."""
+    return tree if rt.fetch is None else rt.fetch(tree)
+
+
+def _seq_offset(rt: Runtime, S: int) -> int:
+    """The position of this shard's first token in its rows (``sp``)."""
+    return 0 if rt.seq_axis is None else M.axis_index(rt.seq_axis) * S
+
+
+def _seq_whole(rt: Runtime, fn, h, *, carry: bool = False):
+    """``fn`` over the whole sequence of ``h`` [B, S, D] (gathered over
+    ``rt.seq_axis`` in the ``sp`` layout), this shard's slice of its
+    output (``carry``: of its ``(y, carry)`` output's ``y``)."""
+    if rt.seq_axis is None:
+        return fn(h)
+    S = h.shape[1]
+    out = fn(M.all_gather(h, rt.seq_axis, dim=1, tiled=True))
+    y = out[0] if carry else out
+    y = y.narrow(1, _seq_offset(rt, S), S)
+    return (y, *out[1:]) if carry else y
+
+
+def _last_hidden(rt: Runtime, x, last_idx):
+    """Each row's hidden state at ``last_idx`` (its last position by
+    default); in the ``sp`` layout from the shard holding it."""
+    if rt.seq_axis is None:
+        return _last_rows(x, last_idx)
+    B, S = x.shape[:2]
+    off = _seq_offset(rt, S)
+    idx = torch.as_tensor(S * M.axis_size(rt.seq_axis) - 1
+                          if last_idx is None else last_idx,
+                          device=x.device).long().expand(B)
+    loc = idx - off
+    own = (loc >= 0) & (loc < S)
+    rows = x[torch.arange(B, device=x.device), loc.clamp(0, S - 1)]
+    return M.psum(torch.where(own[:, None], rows, torch.zeros_like(rows)),
+                  rt.seq_axis)
 
 
 def _is_hybrid(cfg) -> bool:
@@ -412,26 +467,28 @@ def encode(cfg, params, frames, rt: Runtime = DEFAULT_RT):
     def layer(lp):
         def fn(x):
             B, S = x.shape[:2]
-            q, k, v = _qkv(lp, cfg, x, None)
+            p = _fetch(rt, lp)
+            q, k, v = _qkv(p, cfg, x, None)
             a = ops.attention_fwd(q, k, v, causal=False, kernels=rt.kernels)
-            return _block_tail(lp, cfg,
+            return _block_tail(p, cfg,
                                x + L.dense(a.reshape(B, S, cfg.q_dim),
-                                           lp["attn"]["wo"]), rt)
+                                           p["attn"]["wo"]), rt)
         return fn
     for lp in params["enc"]:
         x = _remat(rt.remat, layer(lp), x)
-    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return L.rms_norm(x, _fetch(rt, params["enc_norm"]), cfg.norm_eps)
 
 
-def make_cross_kv(cfg, params, enc_out):
+def make_cross_kv(cfg, params, enc_out, rt: Runtime = DEFAULT_RT):
     """The decoder's cross-attention K/V of encoder states [B, T, D]:
     (cross_k, cross_v), each [L, B, T, KVH, D]."""
     B = enc_out.shape[0]
     shape = (B, -1, cfg.n_kv_heads, cfg.d_head)
-    ks = [L.dense(enc_out, lp["xattn"]["wk"]).reshape(shape)
-          for lp in params["dec"]]
-    vs = [L.dense(enc_out, lp["xattn"]["wv"]).reshape(shape)
-          for lp in params["dec"]]
+    ks, vs = [], []
+    for lp in params["dec"]:
+        x = _fetch(rt, lp)["xattn"]
+        ks.append(L.dense(enc_out, x["wk"]).reshape(shape))
+        vs.append(L.dense(enc_out, x["wv"]).reshape(shape))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -451,7 +508,9 @@ def _keep_rows(new, old, run):
 
 def _stacked_layers(stack) -> list[dict]:
     """Per-layer views of stacked ``[L, ...]`` weight leaves (an int8
-    QTensor's ``q`` and ``s`` alike)."""
+    QTensor's ``q`` and ``s`` alike); a list of layers as it is."""
+    if isinstance(stack, list):
+        return stack
     n = _first_leaf(stack).shape[0]
     return [tree_map(lambda a: a[i], stack) for i in range(n)]
 
@@ -497,9 +556,9 @@ def _xlstm_stack(cfg, params, state, x, mlstm, slstm, run=None):
     return x
 
 
-def _logits(cfg, params, x):
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    w = params["embed"] if cfg.tie_embeddings else params["head"]
+def _logits(cfg, params, x, rt: Runtime = DEFAULT_RT):
+    x = L.rms_norm(x, _fetch(rt, params["final_norm"]), cfg.norm_eps)
+    w = _fetch(rt, params["embed"] if cfg.tie_embeddings else params["head"])
     return L.lm_head(x, w, transpose=cfg.tie_embeddings)
 
 
@@ -820,8 +879,14 @@ def _attn_block_prefill(lp, cfg, x, cs, w, pk, pv, bt, valid_len,
     last ``ring_width * page`` tokens, the ones it can hold, and ignores
     ``valid_len``), attends causally, then (enc-dec) to ``cross``."""
     from repro_torch.core.paged_kv import write_prefill
+    lp = _fetch(rt, lp)
     B, S = x.shape[:2]
     q, k, v = _qkv(lp, cfg, x, cs)
+    off = _seq_offset(rt, S)
+    if rt.seq_axis is not None:     # the whole rows' K/V: the shard writes
+        k = M.all_gather(k, rt.seq_axis, dim=1, tiled=True)   # its pages
+        v = M.all_gather(v, rt.seq_axis, dim=1, tiled=True)
+        S = k.shape[1]
     if rt.write_pool is not None:
         rt.write_pool(pk, pv, k, v, bt, valid_len)
     elif rt.ring_width:
@@ -830,7 +895,9 @@ def _attn_block_prefill(lp, cfg, x, cs, w, pk, pv, bt, valid_len,
                       ctx_start=S - span, ring_width=rt.ring_width)
     else:
         write_prefill(pk, pv, k, v, bt, valid_len=valid_len)
-    a = ops.attention_fwd(q, k, v, causal=True, window=w, kernels=rt.kernels)
+    a = ops.attention_fwd(q, k, v, causal=True, window=w, q_offset=off,
+                          kernels=rt.kernels)
+    S = x.shape[1]
     x = x + L.dense(a.reshape(B, S, cfg.q_dim), lp["attn"]["wo"])
     if cross is not None:
         x = _cross_attn(lp, cfg, x, cross, rt)
@@ -868,8 +935,9 @@ def _prefill_mask(valid_len, S: int, device):
 def _mamba_prefill(cfg, rt: Runtime, mask):
     """Mamba2 layer body shared by ``prefill`` and ``prefill_chunk``."""
     def mamba(lp, h, rows):
-        return SSM.mamba_forward(lp, cfg, h, state=rows, chunk=rt.gla_chunk,
-                                 mask=mask, kernels=rt.kernels)
+        return _seq_whole(rt, lambda g: SSM.mamba_forward(
+            _fetch(rt, lp), cfg, g, state=rows, chunk=rt.gla_chunk,
+            mask=mask, kernels=rt.kernels), h, carry=True)
     return mamba
 
 
@@ -878,11 +946,13 @@ def _xlstm_prefill(cfg, params, state, x, rt: Runtime, mask):
     ``_xlstm_prefill_body``), shared by ``prefill`` and ``prefill_chunk``:
     the rows of ``state`` hold the carry in and the carry out."""
     def mlstm(lp, h, rows):
-        return SSM.mlstm_forward(lp, cfg, h, state=rows, chunk=rt.gla_chunk,
-                                 mask=mask)
+        return _seq_whole(rt, lambda g: SSM.mlstm_forward(
+            _fetch(rt, lp), cfg, g, state=rows, chunk=rt.gla_chunk,
+            mask=mask), h, carry=True)
 
     def slstm(lp, h, rows):
-        return SSM.slstm_forward(lp, cfg, h, state=rows, mask=mask)
+        return _seq_whole(rt, lambda g: SSM.slstm_forward(
+            _fetch(rt, lp), cfg, g, state=rows, mask=mask), h, carry=True)
     return _xlstm_stack(cfg, params, state, x, mlstm, slstm)
 
 
@@ -903,27 +973,31 @@ def prefill(cfg, params, state, tokens, bt, *, positions=None,
     ``state``'s ``cross_k`` / ``cross_v`` in place. Returns (fp32 logits of
     the last position [B, V], state)."""
     B, S = tokens.shape
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(_fetch(rt, params["embed"]), tokens)
     if extra_embeds is not None:
         x = x + extra_embeds.to(x.dtype)
+    off = _seq_offset(rt, S)
+    # the recurrent layers' mask covers the whole rows (gathered in sp)
+    S_all = S if rt.seq_axis is None else S * M.axis_size(rt.seq_axis)
     if "mlstm" in params:
         x = _xlstm_prefill(cfg, params, state, x, rt,
-                           _prefill_mask(valid_len, S, x.device))
-        return _logits(cfg, params, _last_rows(x, last_idx)), state
+                           _prefill_mask(valid_len, S_all, x.device))
+        return _logits(cfg, params, _last_hidden(rt, x, last_idx), rt), state
     if cfg.family == "encdec":
-        pos = torch.arange(S, device=x.device)
+        pos = torch.arange(off, off + S, device=x.device)
         x = x + L.sinusoidal_at(pos, cfg.d_model).to(x.dtype)[None]
         if frames is None:
             raise ValueError(f"{cfg.name}: an enc-dec prefill needs "
                              "frames [B, enc_seq, D]")
-        ck, cv = make_cross_kv(cfg, params, encode(cfg, params, frames, rt))
+        ck, cv = make_cross_kv(cfg, params, encode(cfg, params, frames, rt),
+                               rt)
         if "cross_k" in state:          # the engine's rows, in place
             state["cross_k"].copy_(ck)
             state["cross_v"].copy_(cv)
         else:
             state["cross_k"], state["cross_v"] = ck, cv
     if positions is None:
-        positions = default_positions(cfg, B, S, device=x.device)
+        positions = default_positions(cfg, B, S, device=x.device) + off
     cs = _cos_sin(cfg, positions)
     pool = state["pool"]
     if "mamba" in params:
@@ -931,12 +1005,12 @@ def prefill(cfg, params, state, tokens, bt, *, positions=None,
             return _attn_block_prefill(lp, cfg, h, cs, 0, pool["k"][c],
                                        pool["v"][c], bt, valid_len, rt)
         x = _hybrid_stack(cfg, params, state, x, _mamba_prefill(
-            cfg, rt, _prefill_mask(valid_len, S, x.device)), attn)
+            cfg, rt, _prefill_mask(valid_len, S_all, x.device)), attn)
     else:
         for i, (lp, w, cross) in enumerate(_decoder(cfg, params, state)):
             x = _attn_block_prefill(lp, cfg, x, cs, w, pool["k"][i],
                                     pool["v"][i], bt, valid_len, rt, cross)
-    return _logits(cfg, params, _last_rows(x, last_idx)), state
+    return _logits(cfg, params, _last_hidden(rt, x, last_idx), rt), state
 
 
 def prefill_chunk(cfg, params, state, tokens, bt, ctx_start, *,
@@ -1015,8 +1089,11 @@ def _attn_block_train(lp, cfg, x, cs, window, rt: Runtime, *,
     load-balancing term (0 without experts)."""
     B, S = x.shape[:2]
     q, k, v = _qkv(lp, cfg, x, cs)
+    if rt.seq_axis is not None:
+        k = M.all_gather(k, rt.seq_axis, dim=1, tiled=True)
+        v = M.all_gather(v, rt.seq_axis, dim=1, tiled=True)
     a = ops.attention_fwd(q, k, v, causal=causal, window=window,
-                          kernels=rt.kernels)
+                          q_offset=_seq_offset(rt, S), kernels=rt.kernels)
     x = x + L.dense(a.reshape(B, S, cfg.q_dim), lp["attn"]["wo"])
     if enc_out is not None:
         shape = (B, -1, cfg.n_kv_heads, cfg.d_head)
@@ -1046,10 +1123,12 @@ def forward_hidden(cfg, params, tokens, *, positions=None, extra_embeds=None,
     on the training path (``check_trainable``), where no kernel launches.
     """
     _check_family(cfg)
-    if torch.is_grad_enabled() and params["embed"].requires_grad:
+    emb = _fetch(rt, params["embed"])
+    if torch.is_grad_enabled() and emb.requires_grad:
         check_trainable(rt, "forward_hidden")
     B, S = tokens.shape
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(emb, tokens)
+    del emb
     if extra_embeds is not None:
         x = x + extra_embeds.to(x.dtype)
     dev = x.device
@@ -1057,23 +1136,28 @@ def forward_hidden(cfg, params, tokens, *, positions=None, extra_embeds=None,
     if "mlstm" in params:
         def cycle(lm, ls):
             def fn(h):
-                h = h + SSM.mlstm_forward(lm, cfg, h, chunk=rt.gla_chunk)[0]
-                return h + SSM.slstm_forward(ls, cfg, h)[0]
+                pm, ps = _fetch(rt, lm), _fetch(rt, ls)
+                h = h + _seq_whole(rt, lambda g: SSM.mlstm_forward(
+                    pm, cfg, g, chunk=rt.gla_chunk)[0], h)
+                return h + _seq_whole(
+                    rt, lambda g: SSM.slstm_forward(ps, cfg, g)[0], h)
             return fn
         for lm, ls in zip(_stacked_layers(params["mlstm"]),
                           _stacked_layers(params["slstm"])):
             x = _remat(rt.remat, cycle(lm, ls), x)
-        return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+        return L.rms_norm(x, _fetch(rt, params["final_norm"]),
+                          cfg.norm_eps), aux
+    off = _seq_offset(rt, S)
     if cfg.family == "encdec":
-        x = x + L.sinusoidal_at(torch.arange(S, device=dev),
+        x = x + L.sinusoidal_at(torch.arange(off, off + S, device=dev),
                                 cfg.d_model).to(x.dtype)[None]
     if positions is None:
-        positions = default_positions(cfg, B, S, device=dev)
+        positions = default_positions(cfg, B, S, device=dev) + off
     cs = _cos_sin(cfg, positions)
 
     def attn(lp, w, enc_out=None):
-        return lambda h: _attn_block_train(lp, cfg, h, cs, w, rt,
-                                           enc_out=enc_out)
+        return lambda h: _attn_block_train(_fetch(rt, lp), cfg, h, cs, w,
+                                           rt, enc_out=enc_out)
     if cfg.family == "encdec":
         if frames is None:
             raise ValueError(f"{cfg.name}: an enc-dec forward needs frames "
@@ -1087,8 +1171,9 @@ def forward_hidden(cfg, params, tokens, *, positions=None, extra_embeds=None,
         layers = _stacked_layers(params["mamba"])
 
         def mamba(lp):
-            return lambda h: h + SSM.mamba_forward(
-                lp, cfg, h, chunk=rt.gla_chunk, kernels=rt.kernels)[0]
+            return lambda h: h + _seq_whole(rt, lambda g: SSM.mamba_forward(
+                _fetch(rt, lp), cfg, g, chunk=rt.gla_chunk,
+                kernels=rt.kernels)[0], h)
         for c in range(n_cyc):
             for lp in layers[c * per_cyc:(c + 1) * per_cyc]:
                 x = _remat(rt.remat, mamba(lp), x)
@@ -1098,7 +1183,7 @@ def forward_hidden(cfg, params, tokens, *, positions=None, extra_embeds=None,
         for lp, w in zip(params["layers"], _window_array(cfg)):
             x, a = _remat(rt.remat, attn(lp, w), x)
             aux = aux + a
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+    return L.rms_norm(x, _fetch(rt, params["final_norm"]), cfg.norm_eps), aux
 
 
 def forward(cfg, params, tokens, *, positions=None, extra_embeds=None,
@@ -1114,19 +1199,31 @@ def train_loss(cfg, params, batch, rt: Runtime = DEFAULT_RT, *,
                loss_chunk: int = 1024):
     """batch: ``tokens`` / ``targets`` [B, S], ``mask`` [B, S] (and the
     optional ``positions``, ``extra_embeds``, ``frames``); returns (loss,
-    metrics).
+    metrics): ``nll_sum``'s sum over the mask's tokens; a MoE adds ``0.01
+    * aux / n_layers``. Raises on a ``Runtime`` with kernels
+    (``check_trainable``)."""
+    nll, aux, count = nll_sum(cfg, params, batch, rt, loss_chunk=loss_chunk)
+    loss = nll / count.clamp_min(1.0)
+    if cfg.is_moe:
+        loss = loss + 0.01 * aux / max(1, cfg.n_layers)
+    return loss, {"nll": loss, "tokens": count}
+
+
+def nll_sum(cfg, params, batch, rt: Runtime = DEFAULT_RT, *,
+            loss_chunk: int = 1024):
+    """(summed masked cross-entropy, MoE aux, mask sum) of ``batch``.
 
     Cross-entropy in sequence chunks of ``loss_chunk`` (the whole sequence
     when that does not divide S, as in repro), each chunk's logits
     recomputed in backward, so the [B, S, V] logits never exist at once.
-    A MoE adds ``0.01 * aux / n_layers``. Raises on a ``Runtime`` with
-    kernels (``check_trainable``)."""
+    A sharded train step divides the sum by the mesh's token count."""
     check_trainable(rt, "train_loss")
     hidden, aux = forward_hidden(cfg, params, batch["tokens"],
                                  positions=batch.get("positions"),
                                  extra_embeds=batch.get("extra_embeds"),
                                  frames=batch.get("frames"), rt=rt)
-    w = params["embed"] if cfg.tie_embeddings else params["head"]
+    w = _fetch(rt, params["embed"] if cfg.tie_embeddings
+               else params["head"])
     tgt = batch["targets"].long()
     mask = batch["mask"].float()
     S = tgt.shape[1]
@@ -1144,7 +1241,4 @@ def train_loss(cfg, params, batch, rt: Runtime = DEFAULT_RT, *,
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, S, c):
         nll = nll + _remat(True, chunk_nll(i), hidden[:, i:i + c])
-    loss = nll / mask.sum().clamp_min(1.0)
-    if cfg.is_moe:
-        loss = loss + 0.01 * aux / max(1, cfg.n_layers)
-    return loss, {"nll": loss, "tokens": mask.sum()}
+    return nll, aux, mask.sum()

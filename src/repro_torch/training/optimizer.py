@@ -97,10 +97,13 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, params, grads, state):
-    """Returns (new_params, new_state, metrics)."""
+def apply(cfg: AdamWConfig, params, grads, state, *, gnorm=None):
+    """Returns (new_params, new_state, metrics). ``gnorm``: the clip's
+    grad norm, when ``grads`` are a shard's slices of the whole grads
+    (``global_norm(grads)`` else)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(cfg, step)

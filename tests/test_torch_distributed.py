@@ -278,14 +278,19 @@ def test_itpp_sharded_matches_repro(ref, case, path):
 
 
 def test_prefill_writer_matches_repro(ref):
-    """Blocked page allocation + the shard-local prefill scatter: the pools
-    equal repro's sharded writer's and the port's global ``write_prefill``'s
+    """Blocked page allocation + the shard-local prefill scatter (a shard
+    of the sharded prefill writes the pages it owns from its rows' whole
+    K/V): the pool pages equal repro's sharded writer's (each shard its
+    own block of the sequence) and the port's global ``write_prefill``'s
     exactly."""
     c = _sub(ref, "writer")
     page, KVH, D = 4, c["k"].shape[2], c["k"].shape[3]
     mesh = M.LocalMesh((2, 4), ("data", "model"))
     spec = IT.ItppSpec(("data", "model"), ("model",), "data", 8, 4, page)
-    writer = IT.make_prefill_writer(mesh, spec, seq_axis="model")
+    pool, rows = M.P(M.Paged(spec.page_axes)), M.P("data")
+    writer = M.shard_map(
+        IT.make_prefill_writer(spec, pool_layout=mesh.pool_layout), mesh,
+        in_specs=(pool, pool, rows, rows, rows), out_specs=(pool, pool))
     pk = torch.zeros((33, page, KVH, D))
     pv = torch.zeros((33, page, KVH, D))
     k, v, bt = _t(c["k"]), _t(c["v"]), _t(c["bt"])
@@ -294,7 +299,9 @@ def test_prefill_writer_matches_repro(ref):
     np.testing.assert_array_equal(pv[:32].numpy(), c["out_v"])
     gk, gv = torch.zeros_like(pk), torch.zeros_like(pv)
     PK.write_prefill(gk, gv, k, v, bt)
-    assert torch.equal(gk, pk) and torch.equal(gv, pv)
+    # page 32 is the trash page: a shard drops there the tokens it does
+    # not own
+    assert torch.equal(gk[:32], pk[:32]) and torch.equal(gv[:32], pv[:32])
 
 
 def _moe_cfg():
@@ -302,8 +309,11 @@ def _moe_cfg():
                    capacity_factor=8.0)
 
 
-def _moe_ep_fn(mesh, cfg):
+def _moe_ep_fn(mesh, cfg, rt=None):
     def body(pw, x_loc):
+        if rt is not None:          # a shard runtime's MoE
+            y, aux = rt.moe_apply(pw, cfg, x_loc, with_aux=True)
+            return y, M.pmean(aux, "model")
         B, S, D = x_loc.shape
         y, aux = MOE.moe_ep(pw, cfg, x_loc.reshape(-1, D), "model", 8)
         return y.reshape(B, S, D), M.pmean(aux, "model")
@@ -317,7 +327,7 @@ def test_moe_ep_matches_local(ref):
     """``moe_ep`` over 8 shards (4 experts x 2 ff slices, dropless):
     within 2e-5 of scale of the port's ``moe_local`` and of repro's
     ``moe_ep``; its aux (the shards' mean) equals repro's within 1e-6;
-    the plan's expert-parallel runtime gives the same output."""
+    the plan's prefill shard runtime gives the same output."""
     c = _sub(ref, "moe")
     cfg = _moe_cfg()
     p = {k[2:]: _t(v) for k, v in c.items() if k.startswith("p/")}
@@ -339,7 +349,7 @@ def test_moe_ep_matches_local(ref):
                      ShapeConfig("p", "prefill", 8, 2))
     rt = plan.make_runtime(cfg, ParallelConfig(remat=False),
                            mode="prefill")
-    y_rt, aux_rt = rt.moe_apply(p, cfg, x, with_aux=True)
+    y_rt, aux_rt = _moe_ep_fn(plan.mesh, cfg, rt)(p, x)
     assert torch.equal(y_rt, y) and float(aux_rt) == float(aux)
 
 
@@ -761,3 +771,137 @@ def test_pp_decode_moe_matches_forward():
                  "noff": torch.full((B,), t % page, dtype=torch.int32)}
         lg, state = step(params, state, batch)
         assert float((lg - logits_ref[:, t]).abs().max()) < 5e-3, t
+
+
+@pytest.mark.parametrize("path", ["plain", "kernels"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-27b"])
+def test_model_decode_sharded_matches_unsharded(arch, path):
+    """The model-level sharded decode: ``Plan.make_runtime(mode="decode")``
+    (ITPP over a (data 2, model 4) LocalMesh, requests pinned to data rows
+    by ``row_affine``; gemma3's mixed local:global stack on ``cond_window``)
+    through ``models.model.decode_step`` against the unsharded runtime,
+    both from the same prefilled pool: 4 greedy steps, tokens identical,
+    logits within 1e-5 of their scale (the unsharded runtime is fed the
+    sharded one's tokens)."""
+    cfg = replace(reduced(get_config(arch)), dtype="float32")
+    params = MDL.init_params(cfg, seed=5, device="cpu")
+    B, page, steps, n_pages = 4, 4, 4, 64
+    g = torch.Generator().manual_seed(7)
+    lens = torch.randint(8, 25, (B,), generator=g)
+    S = int(lens.max())
+    maxp = (S + steps) // page + 1
+    mesh = M.LocalMesh((2, 4), ("data", "model"))
+    parallel = ParallelConfig(page_size=page, remat=False,
+                              use_kernels=None if path == "kernels"
+                              else False)
+    plan = make_plan(mesh, parallel, ShapeConfig("d", "decode", S + steps,
+                                                 B))
+    spec = PK.PoolSpec(cfg.n_layers, n_pages, page, cfg.n_kv_heads,
+                       cfg.d_head, maxp, dtype="float32")
+    rt = plan.make_runtime(cfg, parallel, pool_spec=spec, mode="decode")
+    assert plan.itpp_spec(page).merge_axes == ("model",)
+    assert rt.cond_window == (cfg.sliding_window
+                              if arch == "gemma3-27b" else 0)
+    rt_u = MDL.Runtime(kernels=KERNELS[path])
+    alloc = PageAllocator(n_pages, 8, page, policy="row_affine", n_rows=2)
+    for b in range(B):
+        alloc.admit(b, int(lens[b]) + steps, row=b // 2)
+    bt = torch.from_numpy(np.stack([alloc.block_table(b, maxp)
+                                    for b in range(B)])).to(torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    state = MDL.init_decode_state(cfg, spec, B, device="cpu")
+    lg, _ = MDL.prefill(cfg, params, state, toks, bt, last_idx=lens - 1,
+                        valid_len=lens)
+    state_u = {"pool": {k: v.clone() for k, v in state["pool"].items()}}
+    V = cfg.vocab_size
+    tok = lg[:, :V].argmax(-1).to(torch.int32)
+    rows = torch.arange(B)
+    for j in range(steps):
+        pos = (lens + j).to(torch.int32)
+        args = (pos + 1, bt[rows, (pos // page).long()].contiguous(),
+                (pos % page).to(torch.int32))
+        lg_s, _ = MDL.decode_step(cfg, params, state, tok, bt, *args, rt=rt)
+        lg_u, _ = MDL.decode_step(cfg, params, state_u, tok, bt, *args,
+                                  rt=rt_u)
+        scale = float(lg_u.abs().max())
+        assert float((lg_s - lg_u).abs().max()) <= 1e-5 * scale, (arch, j)
+        assert torch.equal(lg_s[:, :V].argmax(-1), lg_u[:, :V].argmax(-1))
+        tok = lg_s[:, :V].argmax(-1).to(torch.int32)
+    # the pages the steps wrote, from hidden states 1e-5 apart
+    for k in ("k", "v"):
+        want = state_u["pool"][k][:, :n_pages]
+        gap = float((state["pool"][k][:, :n_pages] - want).abs().max())
+        assert gap <= 1e-5 * float(want.abs().max()), (arch, k, gap)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-27b",
+                                  "zamba2-1.2b", "xlstm-350m",
+                                  "whisper-small", "qwen2-vl-7b",
+                                  "mixtral-8x22b"])
+def test_sharded_prefill_matches_unsharded(arch, monkeypatch):
+    """``sharding.make_prefill_step`` (repro's prefill cell: the ``sp``
+    layout on a (data 2, model 4) LocalMesh, every divisible leaf cut so
+    the shards gather their weights; ``REPLICATE_SMALL`` at 0) against the
+    unsharded ``prefill``: 2 rows of 32 tokens (one padded to 27), logits,
+    the pool's pages, the carry and the cross rows within 1e-5 of their
+    scale. mixtral's all-windowed stack writes a ring pool (its window 16
+    under 32 tokens)."""
+    from repro_torch.distributed import sharding as SH
+    monkeypatch.setattr(SH, "REPLICATE_SMALL", 0)
+    cfg = replace(reduced(get_config(arch)), dtype="float32")
+    if cfg.is_moe:
+        cfg = replace(cfg, capacity_factor=8.0)
+    params = MDL.init_params(cfg, seed=0, device="cpu",
+                             moe_virtual=4 if cfg.is_moe else 0)
+    B, S, page = 2, 32, 4
+    parallel = ParallelConfig(page_size=page)
+    shape = ShapeConfig("p", "prefill", S, B)
+    plan = make_plan(M.LocalMesh((2, 4), ("data", "model")), parallel, shape)
+    assert plan.train_layout == "sp"
+    spec = PK.pool_spec_for(cfg, shape, parallel, n_shards=8,
+                            slack_pages=16)
+    ring = spec.max_pages_per_req if spec.ring else 0
+    assert bool(ring) == (arch == "mixtral-8x22b")
+    alloc = PageAllocator(spec.n_pages, 8, page, policy="row_affine",
+                          n_rows=2, **({"ring_pages": ring} if ring else {}))
+    for b in range(B):
+        alloc.admit(b, S, row=b)
+    bt = torch.from_numpy(np.stack([alloc.block_table(
+        b, spec.max_pages_per_req) for b in range(B)])).to(torch.int32)
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=g), "bt": bt}
+    if cfg.family == "encdec":
+        batch["frames"] = 0.1 * torch.randn(B, cfg.enc_seq, cfg.d_model,
+                                            generator=g)
+    if cfg.rope_kind == "mrope":
+        batch["positions"] = torch.arange(S)[None, None].expand(
+            3, B, S).contiguous()
+        batch["extra_embeds"] = 0.02 * torch.randn(B, S, cfg.d_model,
+                                                   generator=g)
+    if not ring:        # a ring pool's write ignores valid_len, as unsharded
+        lens = torch.tensor([S, S - 5])
+        batch.update(valid_len=lens, last_idx=lens - 1)
+    kw = {k: v for k, v in batch.items() if k not in ("tokens", "bt")}
+    st0 = MDL.init_decode_state(cfg, spec, B, device="cpu")
+    lg0, st0 = MDL.prefill(cfg, params, st0, batch["tokens"], bt,
+                           rt=MDL.Runtime(ring_width=ring), **kw)
+    step = SH.make_prefill_step(cfg, plan, parallel, spec)
+    lg1, st1 = step(params, MDL.init_decode_state(cfg, spec, B,
+                                                  device="cpu"), batch)
+
+    def close(a, b, what):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 1e-5 * scale, (arch, what)
+    close(lg1, lg0, "logits")
+    assert set(st1) == set(st0)
+    for k in st0:
+        for a, b in zip(_walk(st1[k], torch.is_tensor),
+                        _walk(st0[k], torch.is_tensor)):
+            if k == "pool":
+                a, b = a[:, :spec.n_pages], b[:, :spec.n_pages]
+            close(a, b, k)
+    with pytest.raises(ValueError, match="sp layout"):
+        SH.make_prefill_step(cfg, make_plan(
+            M.LocalMesh((2, 4), ("data", "model")), parallel,
+            ShapeConfig("p", "prefill", S, 8)), parallel, spec)

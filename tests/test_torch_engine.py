@@ -234,6 +234,45 @@ def test_serve_cli_completes_on_cpu(capsys):
     assert "page balance per shard: max=0 min=0" in out
 
 
+def test_serve_cli_accepts_reduced_as_repro():
+    """``--reduced`` parses as repro's serve parses it: a no-op (True by
+    default) that leaves ``--full-width`` its meaning."""
+    from repro_torch.launch import serve
+    args = serve.parse_args(["--reduced", "--device", "cpu"])
+    assert args.reduced is True and args.full_width is False
+    assert serve.parse_args([]).reduced is True
+    both = serve.parse_args(["--reduced", "--full-width"])
+    assert both.reduced is True and both.full_width is True
+
+
+def test_core_engine_shim_reexports_serving():
+    """``repro_torch.core.engine`` is repro's back-compat shim: the
+    serving package's engine and its config."""
+    from repro_torch.core import engine as shim
+    from repro_torch import serving
+    assert shim.DecodeEngine is serving.DecodeEngine
+    assert shim.EngineConfig is serving.EngineConfig
+    assert shim.__all__ == ["DecodeEngine", "EngineConfig"]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "whisper-small"])
+def test_quickstart_example_on_cpu(arch):
+    """``examples/quickstart_torch.py --device cpu``: forward, prefill into
+    the paged pool and paged decode agree (exit 0), and the engine
+    completes its requests (attention stacks)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run(
+        [sys.executable, str(SRC.parent / "examples" / "quickstart_torch.py"),
+         arch, "--device", "cpu"], env=env, capture_output=True, text=True,
+        timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    out = res.stdout
+    assert "prefill logits match forward: True" in out
+    assert out.count("matches forward: True") == 4 and "done." in out
+    if arch == "llama3.2-1b":
+        assert "serving: completed=3" in out
+
+
 def test_serve_cli_prefix_cache_on_cpu(capsys):
     """A shared-prefix trace through the prefix cache and a host tier small
     enough to offload: the ``kvcache:`` line reports hits and copies on
@@ -280,7 +319,9 @@ def test_port_imports_without_jax():
 
 @pytest.mark.parametrize("what", ["src/repro_torch", "chip_smoke.py",
                                   "examples/serve_longbench_torch.py",
-                                  "examples/train_100m_torch.py"])
+                                  "examples/train_100m_torch.py",
+                                  "examples/quickstart_torch.py",
+                                  "examples/multipod_dryrun_torch.py"])
 def test_port_source_never_imports_jax_or_repro(what):
     """The port's package, its card script and its example: no import of
     jax or repro anywhere in their source."""

@@ -1729,3 +1729,111 @@ def test_moe_ep_on_the_card_matches_local():
                        out_specs=(M.P(None, "model"), None))(p, x)
     ref = MOE.moe_local(p, cfg, x)
     assert float((y - ref).abs().max()) < 2e-5 * float(ref.abs().max())
+
+
+def _mesh_train_case(arch, B):
+    """Reduced fp32 weights from seed 0 and one seeded batch of B x 16."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as MDL
+    cfg = replace(reduced(get_config(arch)), dtype="float32")
+    if cfg.is_moe:
+        cfg = replace(cfg, capacity_factor=8.0)     # drops nothing
+    params = MDL.init_params(cfg, seed=0, device="cuda",
+                             moe_virtual=4 if cfg.is_moe else 0)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, 16), generator=g)
+    batch = {"tokens": toks, "targets": toks.roll(-1, 1),
+             "mask": torch.ones(B, 16)}
+    return cfg, params, {k: v.cuda() for k, v in batch.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["fsdp", "sp", "moe"])
+def test_sharded_train_step_on_the_card(case, monkeypatch):
+    """``make_train_step`` on a (data 2, model 4) LocalMesh on the card,
+    every divisible leaf cut (``REPLICATE_SMALL`` 0), against the unsharded
+    step on the card: loss and grad norm within 1e-5 relative, AdamW's
+    first moments (the clipped grads) within 1e-4 of each leaf's scale.
+    ``sp`` gathers K/V over ``model`` and the MoE runs ``moe_ep``'s
+    all_to_alls inside the shards' backward, which runs on the shard's
+    thread (the collectives would deadlock on autograd's device thread);
+    the MoE's reference returns the shards' mean aux."""
+    _card()
+    from repro_torch.configs import ParallelConfig, ShapeConfig
+    from repro_torch.distributed import mesh as M
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as MDL
+    from repro_torch.models import moe as MOE
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train import make_train_step
+    monkeypatch.setattr(SH, "REPLICATE_SMALL", 0)
+    B = 2 if case == "sp" else 8
+    cfg, params, batch = _mesh_train_case(
+        "mixtral-8x22b" if case == "moe" else "llama3.2-1b", B)
+    ocfg = OPT.AdamWConfig(lr=1e-3, warmup_steps=1)
+    plan = SH.make_plan(M.LocalMesh((2, 4), ("data", "model")),
+                        ParallelConfig(), ShapeConfig("t", "train", 16, B))
+    assert plan.train_layout == ("sp" if case == "sp" else "fsdp")
+
+    def shard_mean_moe(p, cfg_, x):             # fsdp: a row a shard
+        return MOE.moe_local(p, cfg, x), torch.stack(
+            [MOE.aux_loss(p["router"], cfg, x[r])
+             for r in range(x.shape[0])]).mean()
+    ref = make_train_step(cfg, MDL.Runtime(
+        remat=True, moe=shard_mean_moe if cfg.is_moe else None), ocfg)
+    _, o0, m0 = ref(params, OPT.init(params), batch)
+    step = make_train_step(cfg, plan.make_runtime(cfg, ParallelConfig(),
+                                                  mode="train"), ocfg)
+    _, o1, m1 = step(params, OPT.init(params), batch)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(m1[k]), float(m0[k]), rtol=1e-5)
+    assert _leaf_gap(o1["m"], o0["m"]) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-1.2b"])
+def test_sharded_prefill_on_the_card(arch):
+    """``sharding.make_prefill_step`` on a (data 2, model 4) LocalMesh on
+    the card with the kernels (K2 at each shard's ``q_offset``; zamba2's
+    Mamba2 on K4 over the gathered sequence) against the unsharded kernel
+    prefill: logits and pool pages within 1e-4 of their scale."""
+    _card()
+    from dataclasses import replace
+    from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
+    from repro_torch.configs import reduced
+    from repro_torch.core import paged_kv as PK
+    from repro_torch.core.allocator import PageAllocator
+    from repro_torch.distributed import mesh as M
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.models import model as MDL
+    cfg = replace(reduced(get_config(arch)), dtype="float32")
+    params = MDL.init_params(cfg, seed=0, device="cuda")
+    B, S, page = 2, 64, 4
+    parallel = ParallelConfig(page_size=page)
+    shape = ShapeConfig("p", "prefill", S, B)
+    plan = SH.make_plan(M.LocalMesh((2, 4), ("data", "model")), parallel,
+                        shape)
+    spec = PK.pool_spec_for(cfg, shape, parallel, n_shards=8)
+    alloc = PageAllocator(spec.n_pages, 8, page, policy="row_affine",
+                          n_rows=2)
+    for b in range(B):
+        alloc.admit(b, S, row=b)
+    bt = torch.from_numpy(np.stack([alloc.block_table(
+        b, spec.max_pages_per_req) for b in range(B)])).to(torch.int32).cuda()
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g).cuda()
+    lens = torch.tensor([S, S - 7], device="cuda")
+    st0 = MDL.init_decode_state(cfg, spec, B, device="cuda")
+    lg0, st0 = MDL.prefill(cfg, params, st0, toks, bt, last_idx=lens - 1,
+                           valid_len=lens,
+                           rt=MDL.Runtime(kernels=KernelConfig()))
+    lg1, st1 = SH.make_prefill_step(cfg, plan, parallel, spec)(
+        params, MDL.init_decode_state(cfg, spec, B, device="cuda"),
+        {"tokens": toks, "bt": bt, "valid_len": lens, "last_idx": lens - 1})
+    scale = float(lg0.abs().max())
+    assert float((lg1 - lg0).abs().max()) <= 1e-4 * scale
+    for k in ("k", "v"):
+        a, b = st1["pool"][k][:, :spec.n_pages], st0["pool"][k][:, :spec.n_pages]
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -61,6 +61,18 @@ def test_check_regression_accepts_the_port(rows, tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_smoke_flag_is_a_noop(tmp_path, capsys):
+    """``--smoke`` parses as ``benchmarks/slo_bench.py`` parses it: the same
+    committed trace, the same rows (scheduling under ``eos=-1`` does not
+    depend on the weights, so the port's own seeded weights give
+    ``BENCH_slo.json``'s rows too)."""
+    out = tmp_path / "slo.json"
+    slo_bench.main(["--smoke", "--device", "cpu", "--json", str(out)])
+    assert "slo_slo," in capsys.readouterr().out
+    want = json.loads((ROOT / "BENCH_slo.json").read_text())["rows"]
+    assert json.loads(out.read_text())["rows"] == want
+
+
 def test_slo_policy_row_and_tokens_equal_repro(rows):
     """The ``slo`` policy (priority preemption through re-prefill) on
     repro's engine: the same row and the same tokens."""
