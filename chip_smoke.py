@@ -263,25 +263,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    long_500k: gemma3-27b's first 6 layers at full width, one request of
    524288 tokens in pages of 256 striped over (data 2, model 4) and merged
    over both, the 51.5 GB pool seeded and viewed by every shard (no copy),
-   4 decode steps through ``Plan.make_runtime(mode="decode")``: K1 on each
+   4 decode steps through ``sharding.make_decode_step`` (the dense layers
+   as Megatron TP over ``model`` on each shard's serve slices): K1 on each
    shard's local table, ``windowed_slice`` on the 5 local layers
-   (``cond_window`` 1024); held to the unsharded K1 (``n_splits`` 64) on
-   the same pool fed the same tokens (attention 2e-5 of scale a layer,
-   greedy tokens by C.3); the global layer's K1 over 8 shards and in one
-   launch against its byte bound. (b) llama3.2-1b whole, 8 rows of
+   (``cond_window`` 1024); held to the unsharded step (K1 at ``n_splits``
+   64) on the same pool fed the same tokens (logits 1e-5 of scale, greedy
+   tokens by C.3); the global layer's K1 over 8 shards and in one launch
+   against its byte bound. (b) llama3.2-1b whole, 8 rows of
    256-1024 tokens over (data 2, model 4), ``row_affine`` +
    ``blocked_chunk``: repro's prefill cell (``sharding.make_prefill_step``,
    ``sp``, FSDP weights; K2 at each shard's ``q_offset`` against its rows'
    gathered K/V, 16 layers x 8 shards; each shard writes the pages it
    owns) against the unsharded kernel prefill (logits and pool pages
-   within 1e-4 of scale), then 32 decode steps merged over ``model``
-   against the unsharded K1 runtime. (c) mixtral-8x22b's MoE layer at
+   within 1e-4 of scale), then 32 decode steps of ``make_decode_step``
+   (TP over ``model``, ITPP merged over ``model``) against the unsharded
+   K1 step (logits 1e-5 of scale). (c) mixtral-8x22b's MoE layer at
    full width on ``moe_ep`` (8 virtual experts on 8 shards, dropless, 8 x
    64 tokens; the prefill shard runtime's MoE) against ``moe_local``
    (2e-5 of scale; aux = the shards' plain mean). (d) GPipe decode of
    llama3.2-1b whole on (pod 2, data 2, model 2), 2 stages, 2
-   microbatches, B 4, 256 prefilled tokens and 16 steps, against
-   ``forward`` (5e-3).
+   microbatches, B 4, 256 prefilled tokens and 16 steps, each stage TP
+   over ``model`` on the serve slices, against the unsharded step (logits
+   1e-5 of scale) and ``forward`` (5e-3).
 
 16. train-sharded — ``make_train_step`` on a single-process mesh
    (``Plan.make_runtime(mode="train")``, fp32, remat, AdamW lr 1e-3),
@@ -3990,15 +3993,6 @@ def _sharded_params(arch: str, layers: int | None = None):
     return cfg, MDL.init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
 
 
-def _recording(fn, into: list):
-    """``fn`` (a Runtime's itpp) that also keeps each call's output."""
-    def f(*args):
-        out = fn(*args)
-        into.append(out[0].clone())
-        return out
-    return f
-
-
 def _free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -4033,23 +4027,46 @@ def _check_path(label, la, want, launches) -> None:
         launches[k] = launches.get(k, 0) + v
 
 
+def _logit_gap(lg_a, lg_b) -> float:
+    """max |lg_a - lg_b| over the largest |lg_b|."""
+    return float((lg_a - lg_b).abs().max()) / float(lg_b.abs().max())
+
+
+def _tp_slices(label, plan, params, rt) -> str:
+    """The serve plan's cut of ``params`` (``make_decode_step``'s shard
+    holds these slices): fails unless it cuts something and the runtime
+    runs TP over ``model``; returns a note of how much."""
+    from repro_torch.distributed.sharding import _leaves
+    specs = plan.spec_list(params, mode="serve")
+    n_cut = sum(any(e is not None for e in sp) for sp in specs)
+    whole = sum(t.numel() * t.element_size() for _, t, _ in _leaves(params))
+    held = sum(t.numel() * t.element_size() // (
+        plan.tp if plan.tp_axis in sp else 1)
+        for (_, t, _), sp in zip(_leaves(params), specs))
+    if not n_cut or rt.tp_axis != plan.tp_axis:
+        fail(f"{label}: the decode shard does not run TP on its slices")
+    return (f"{n_cut} of {len(specs)} weight leaves cut over model, "
+            f"{held / 1e9:.2f} of {whole / 1e9:.2f} GB a shard")
+
+
 def sharded_long(smi: str, launches: dict, fns) -> None:
     """(a) long_500k: one request over all 8 shards of a (data 2, model 4)
     mesh, gemma3-27b at full width, its first 6 layers (5 local with the
     1024-token window, 1 global), a context of ``LONG_CTX`` tokens in
     pages of 256 striped over the mesh and merged over both axes. The pool
     is seeded K/V (its ``LONG_CTX - 4`` tokens), then 4 greedy decode
-    steps through ``Plan.make_runtime(mode="decode")``: K1 on each
-    shard's local table, ``windowed_slice`` on the local layers
-    (``cond_window`` 1024). Held to the unsharded K1 path (``n_splits``
-    64) on the same pool, fed the same tokens: each layer's attention
-    output within 2e-5 of its scale, greedy tokens identical (C.3)."""
+    steps through ``sharding.make_decode_step``: the dense layers as
+    Megatron TP over ``model`` on each shard's serve slices (the request
+    replicated over ``data``), K1 on each shard's local table,
+    ``windowed_slice`` on the local layers (``cond_window`` 1024). Held to
+    the unsharded step (K1 at ``n_splits`` 64) on the same pool, fed the
+    same tokens: logits within 1e-5 of their scale, greedy tokens
+    identical (C.3)."""
     from repro_torch.configs import SHAPES, ParallelConfig
-    from repro_torch.core import itpp as IT
     from repro_torch.core.allocator import PageAllocator
     from repro_torch.core.paged_kv import PoolSpec
     from repro_torch.distributed.mesh import LocalMesh
-    from repro_torch.distributed.sharding import make_plan
+    from repro_torch.distributed.sharding import make_decode_step, make_plan
     from repro_torch.kernels.backend import KernelConfig
     from repro_torch.models import model as MDL
     cfg, params = _sharded_params("gemma3-27b", layers=6)
@@ -4071,12 +4088,11 @@ def sharded_long(smi: str, launches: dict, fns) -> None:
     alloc.admit(0, LONG_CTX)
     bt = torch.tensor(alloc.block_table(0, n_pages)[None], dtype=torch.int32,
                       device=DEV)
-    rt = plan.make_runtime(cfg, parallel, pool_spec=spec, mode="decode")
-    if rt.cond_window != cfg.sliding_window or \
+    step = make_decode_step(cfg, plan, parallel, spec)
+    if step.rt.cond_window != cfg.sliding_window or \
             plan.itpp_spec(page).merge_axes != ("data", "model"):
         fail("long_500k: the plan did not set cond_window / the pod merge")
-    att_s: list = []
-    rt.itpp = _recording(rt.itpp, att_s)
+    cut = _tp_slices("(a)", plan, params, step.rt)
     start = LONG_CTX - steps
     tok = torch.tensor([7], dtype=torch.int32, device=DEV)
     toks, lgs, ms = [], [], []
@@ -4093,8 +4109,8 @@ def sharded_long(smi: str, launches: dict, fns) -> None:
         ctx, npage, noff = step_args(j)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        lg, state = MDL.decode_step(cfg, params, state, tok, bt, ctx, npage,
-                                    noff, rt=rt)
+        lg, state = step(params, state, {"tokens": tok, "bt": bt, "ctx": ctx,
+                                         "npage": npage, "noff": noff})
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t))
         lgs.append(lg)
@@ -4111,13 +4127,10 @@ def sharded_long(smi: str, launches: dict, fns) -> None:
     launches["paged_attention windowed"] = \
         launches.get("paged_attention windowed", 0) + windowed
     peak = torch.cuda.max_memory_allocated()
-    # the reference: one shard, K1 over the whole table, fed the same tokens
-    kc = KernelConfig(n_splits=64)
-    att_r: list = []
-    rt_ref = MDL.Runtime(kernels=kc)
-    rt_ref.itpp = _recording(lambda *a: IT.itpp_decode_attention_shard(
-        *a, max_pages_per_req=n_pages, kernels=kc), att_r)
-    gap, ms_ref = 0.0, []
+    # the reference: the unsharded step, K1 over the whole table, fed the
+    # same tokens
+    rt_ref = MDL.Runtime(kernels=KernelConfig(n_splits=64))
+    gap, err, ms_ref = 0.0, 0.0, []
     for j in range(steps):
         ctx, npage, noff = step_args(j)
         torch.cuda.synchronize()
@@ -4129,11 +4142,10 @@ def sharded_long(smi: str, launches: dict, fns) -> None:
         nxt = toks[j + 1] if j + 1 < steps else \
             lgs[j][:, :cfg.vocab_size].argmax(-1)
         gap = max(gap, _greedy_check("(a)", cfg, lgs[j], lg, nxt))
-    err = max(float((a - b).abs().max()) / float(b.abs().max())
-              for a, b in zip(att_s, att_r))
-    if len(att_s) != len(att_r) or not err <= 2e-5:
-        fail(f"(a): attention outputs differ from the unsharded K1 path by "
-             f"{err:.3e} of scale (bound 2e-5)")
+        err = max(err, _logit_gap(lgs[j], lg))
+    if not err <= 1e-5:
+        fail(f"(a): logits differ from the unsharded step by {err:.3e} of "
+             "scale (bound 1e-5)")
     # K1 on the global layer: the 8 shards' launches against one launch
     # over the whole table, and the byte bound of the layer's K/V
     from repro_torch.kernels.paged_attention import paged_attention_partials
@@ -4158,10 +4170,11 @@ def sharded_long(smi: str, launches: dict, fns) -> None:
     bound = kv_bytes / HBM_BYTES_S * 1e3
     print(f"[sharded] (a) long_500k gemma3-27b {cfg.n_layers} layers "
           f"(5 local w{cfg.sliding_window} + 1 global) ctx {LONG_CTX} page "
-          f"{page} mesh (data 2, model 4) striped, merge over both: step ms "
+          f"{page} mesh (data 2, model 4) striped, merge over both, TP over "
+          f"model ({cut}): step ms "
           + " ".join(f"{x:.2f}" for x in ms) + " (unsharded K1 n_splits 64: "
-          + " ".join(f"{x:.2f}" for x in ms_ref) + f"); attention err "
-          f"{err:.3e} of scale, max logit gap {gap:.3e}; K1 launches "
+          + " ".join(f"{x:.2f}" for x in ms_ref) + f"); logits {err:.3e} of "
+          f"scale (bound 1e-5), max logit gap {gap:.3e}; K1 launches "
           f"{la['paged_attention']} ({windowed} windowed_slice); global "
           f"layer K1 8 shards x n_splits {LONG_SPLITS} {k1_ms:.3f} ms, one "
           f"launch n_splits 64 {one_ms:.3f} ms, bound {bound:.3f} ms "
@@ -4180,13 +4193,16 @@ def sharded_batched(smi: str, launches: dict, fns, params) -> None:
     ``q_offset`` against the rows' gathered 1024 keys, the pages it owns
     written), its logits and pool pages within 1e-4 of scale of the
     unsharded kernel prefill's; then 32 greedy decode steps through the
-    sharded ITPP merged over ``model``, tokens equal to the unsharded K1
-    runtime fed the same tokens (C.3)."""
+    decode step (``sharding.make_decode_step``: TP over ``model`` on the
+    shards' serve slices, each data row's 4 rows, ITPP merged over
+    ``model``), tokens equal to the unsharded K1 step fed the same tokens
+    (C.3), logits within 1e-5 of their scale."""
     from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
     from repro_torch.core.allocator import PageAllocator
     from repro_torch.core.paged_kv import PoolSpec
     from repro_torch.distributed.mesh import LocalMesh
-    from repro_torch.distributed.sharding import make_plan, make_prefill_step
+    from repro_torch.distributed.sharding import (make_decode_step, make_plan,
+                                                  make_prefill_step)
     from repro_torch.kernels.backend import KernelConfig
     from repro_torch.models import model as MDL
     cfg = replace(get_config("llama3.2-1b"), dtype="float32")
@@ -4211,7 +4227,8 @@ def sharded_batched(smi: str, launches: dict, fns, params) -> None:
                          train_layout="sp")
     pre_step = make_prefill_step(cfg, pre_plan, parallel, spec)
     plan = make_plan(mesh, parallel, ShapeConfig("d", "decode", S + steps, B))
-    rt = plan.make_runtime(cfg, parallel, pool_spec=spec, mode="decode")
+    step = make_decode_step(cfg, plan, parallel, spec)
+    cut = _tp_slices("(b)", plan, params, step.rt)
     if pre_plan.itpp_spec(page) != plan.itpp_spec(page) or \
             plan.itpp_spec(page).merge_axes != ("model",):
         fail("(b): the prefill and decode plans do not share the pool's "
@@ -4263,8 +4280,8 @@ def sharded_batched(smi: str, launches: dict, fns, params) -> None:
         ctx, npage, noff = step_args(j)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        lg, _ = MDL.decode_step(cfg, params, state, tok, bt, ctx, npage,
-                                noff, rt=rt)
+        lg, state = step(params, state, {"tokens": tok, "bt": bt, "ctx": ctx,
+                                         "npage": npage, "noff": noff})
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t))
         lgs.append(lg)
@@ -4277,7 +4294,7 @@ def sharded_batched(smi: str, launches: dict, fns, params) -> None:
     peak = torch.cuda.max_memory_allocated()
     # the unsharded runtime's decode, K1 over whole tables, fed the tokens
     gap = _greedy_check("(b) prefill", cfg, lg0, lg0_u, toks[0])
-    ms_u = []
+    err, ms_u = 0.0, []
     for j in range(steps):
         ctx, npage, noff = step_args(j)
         torch.cuda.synchronize()
@@ -4287,6 +4304,10 @@ def sharded_batched(smi: str, launches: dict, fns, params) -> None:
         torch.cuda.synchronize()
         ms_u.append(1e3 * (time.perf_counter() - t))
         gap = max(gap, _greedy_check("(b)", cfg, lgs[j], lg, toks[j + 1]))
+        err = max(err, _logit_gap(lgs[j], lg))
+    if not err <= 1e-5:
+        fail(f"(b): decode logits differ from the unsharded step by "
+             f"{err:.3e} of scale (bound 1e-5)")
     warm = np.median(ms[1:])
     print(f"[sharded] (b) batched llama3.2-1b {cfg.n_layers} layers, 8 rows "
           f"(prompts {int(lens.min())}-{int(lens.max())}) over (data 2, "
@@ -4294,8 +4315,10 @@ def sharded_batched(smi: str, launches: dict, fns, params) -> None:
           f"{pre_ms:.1f} (make_prefill_step, sp: logits {lgap:.3e}, pool "
           f"pages {pgap:.3e} of scale from the unsharded prefill's, bound "
           f"1e-4; unsharded {pre_ms_u:.1f}), decode step ms "
-          f"median {warm:.2f} (unsharded K1 {np.median(ms_u[1:]):.2f}); "
-          f"tokens identical over {steps} steps, max logit gap {gap:.3e}; "
+          f"median {warm:.2f} (make_decode_step, TP over model: {cut}; "
+          f"unsharded K1 {np.median(ms_u[1:]):.2f}); tokens identical over "
+          f"{steps} steps, logits {err:.3e} of scale (bound 1e-5), max "
+          f"logit gap {gap:.3e}; "
           f"K1 launches {la['paged_attention']}, K2 "
           f"{la['flash_attention']}; peak device GB {peak / 1e9:.2f} | {smi}",
           flush=True)
@@ -4375,7 +4398,11 @@ def sharded_moe(smi: str, launches: dict, fns) -> None:
 def sharded_pipeline(smi: str, launches: dict, fns, params) -> None:
     """(d) pipeline decode: llama3.2-1b whole on a (pod 2, data 2, model 2)
     mesh, 2 stages, 2 microbatches, B 4, 256 prefilled tokens (K2), 16
-    decode steps teacher-forced: logits within 5e-3 (the bound of
+    decode steps teacher-forced, each stage's layers as Megatron TP over
+    ``model`` on the shards' serve slices (the decode runtime of
+    ``sharding.make_decode_step``), a microbatch's rows over ``data``:
+    logits within 1e-5 of their scale of the unsharded step's fed the same
+    tokens (greedy tokens identical, C.3) and within 5e-3 (the bound of
     ``tests/test_distributed.py``) of the port's full-sequence forward."""
     from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
     from repro_torch.core.allocator import PageAllocator
@@ -4407,11 +4434,14 @@ def sharded_pipeline(smi: str, launches: dict, fns, params) -> None:
     state = MDL.init_decode_state(cfg, spec, B, device=DEV)
     step = make_pp_decode_step(cfg, plan, parallel, spec, n_stages=2,
                                microbatches=mbs)
+    cut = _tp_slices("(d)", plan, params, plan.make_runtime(
+        cfg, parallel, pool_spec=spec, mode="decode"))
     _free()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fns)
     MDL.prefill(cfg, params, state, toks[:, :S_pre], bt,
                 rt=MDL.Runtime(kernels=KernelConfig()))
+    state_u = {"pool": {k: v.clone() for k, v in state["pool"].items()}}
     lgs, ms = [], []
     for t_ in range(S_pre, S):
         batch = {"tokens": toks[:, t_], "bt": bt,
@@ -4431,6 +4461,22 @@ def sharded_pipeline(smi: str, launches: dict, fns, params) -> None:
             "paged_attention": steps * mbs * cfg.n_layers * 4}
     _check_path("(d) pipeline", la, want, launches)
     peak = torch.cuda.max_memory_allocated()
+    # the unsharded step on a copy of the prefilled pool, the same tokens
+    rt_u, err, tgap = MDL.Runtime(kernels=KernelConfig()), 0.0, 0.0
+    for j, t_ in enumerate(range(S_pre, S)):
+        lg, _ = MDL.decode_step(
+            cfg, params, state_u, toks[:, t_], bt,
+            torch.full((B,), t_ + 1, dtype=torch.int32, device=DEV),
+            bt[:, t_ // page].contiguous(),
+            torch.full((B,), t_ % page, dtype=torch.int32, device=DEV),
+            rt=rt_u)
+        err = max(err, _logit_gap(lgs[j], lg))
+        tgap = max(tgap, _greedy_check("(d)", cfg, lgs[j], lg,
+                                       lgs[j][:, :cfg.vocab_size].argmax(-1)))
+    if not err <= 1e-5:
+        fail(f"(d): pipeline logits differ from the unsharded step by "
+             f"{err:.3e} of scale (bound 1e-5)")
+    del state_u
     ref, _ = MDL.forward(cfg, params, toks)
     gap = max(float((lg - ref[:, S_pre + j]).abs().max())
               for j, lg in enumerate(lgs))
@@ -4439,7 +4485,9 @@ def sharded_pipeline(smi: str, launches: dict, fns, params) -> None:
     print(f"[sharded] (d) pipeline llama3.2-1b {cfg.n_layers} layers, mesh "
           f"(pod 2, data 2, model 2), 2 stages x {cfg.n_layers // 2} layers, "
           f"{mbs} microbatches, B {B}, {S_pre} prefilled + {steps} decode "
-          f"steps: max |logits - forward| {gap:.3e} (bound 5e-3); step ms "
+          f"steps, TP over model ({cut}): logits {err:.3e} of scale from "
+          f"the unsharded step's (bound 1e-5; max gap {tgap:.3e}), max "
+          f"|logits - forward| {gap:.3e} (bound 5e-3); step ms "
           f"median {np.median(ms[1:]):.2f}; K1 launches "
           f"{la['paged_attention']}, K2 {la['flash_attention']}; peak device "
           f"GB {peak / 1e9:.2f} | {smi}", flush=True)

@@ -22,16 +22,23 @@ On a ``LocalMesh`` (one card) tensors are global: the weights stay whole
 and a shard body gets views of them (``mesh.shard_map``). The specs say
 what each shard holds; ``_act_table`` gives repro's activation
 layouts.
+
+The cells' steps run as shard bodies on the plan's mesh: the train step
+(``training/train.make_train_step``) and ``make_prefill_step`` on the
+shard's FSDP slices, ``make_decode_step`` on its serve slices (Megatron
+TP, ``Runtime.tp_axis``) with ITPP attention and, for a MoE,
+``moe_ep_rows``.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any
 
 import torch
 
-from repro_torch.core.itpp import (ItppSpec, make_itpp_attention,
+from repro_torch.core.itpp import (ItppSpec, itpp_decode_attention_shard,
                                    make_prefill_writer)
 from repro_torch.distributed import mesh as M
 from repro_torch.distributed.mesh import P, abstract_mesh  # noqa: F401
@@ -274,14 +281,16 @@ class Plan:
 
     def make_runtime(self, cfg, parallel, *, pool_spec=None,
                      mode: str = "train") -> Runtime:
-        """The runtime of a ``mode`` cell. ``train`` and ``prefill`` run as
-        shard bodies on the plan's mesh (``training/train.make_train_step``,
+        """The shard runtime of a ``mode`` cell, for a body on the plan's
+        mesh. ``train`` and ``prefill`` (``training/train.make_train_step``,
         ``make_prefill_step``): a layer's whole weights fetched from the
         shard's FSDP slices (``fsdp_fetch``), the ``sp`` sequence cut over
         the model axis (``seq_axis``), a MoE on ``moe_ep`` over the
         shard's own tokens; prefill writes the pool pages the shard owns.
-        ``decode`` runs on global tensors: ITPP over the page-sharded pool
-        and, for a MoE, ``moe_ep`` through its own shard map."""
+        ``decode`` (``make_decode_step``, the pipeline's stages): Megatron
+        TP over the model axis on the shard's serve slices (``tp_axis``),
+        ITPP over the shard's pages (``itpp_decode_attention_shard``,
+        merged over ``itpp_spec``'s axes), a MoE on ``moe_ep_rows``."""
         from repro_torch.kernels.backend import KernelConfig
         kernels = KernelConfig(use_kernels=parallel.use_kernels,
                                n_splits=parallel.kernel_splits)
@@ -306,44 +315,18 @@ class Plan:
                     pool_layout=self.mesh.pool_layout, ring_width=ring))
         if mode != "decode":
             raise ValueError(f"mode {mode!r}")
-        rt = Runtime(remat=parallel.remat, kernels=kernels, ring_width=ring)
-        if pool_spec is not None:
-            spec = self.itpp_spec(parallel.page_size)
-            kinds = set(cfg.block_kinds())
-            mixed = "local" in kinds and "attn" in kinds
-            rt.cond_window = cfg.sliding_window if mixed else 0
-            rt.itpp = make_itpp_attention(
-                self.mesh, spec,
-                max_pages_per_req=pool_spec.max_pages_per_req,
-                ring_width=ring, cond_window=rt.cond_window,
-                kernels=kernels)
-        if cfg.is_moe:
-            rt.moe = self._make_moe_ep(cfg)
-        return rt
-
-    def _make_moe_ep(self, cfg):
-        """A decode step's MoE on global tensors: each row's token on
-        every model shard of its row, the experts over the model axis."""
-        tp_axis, tp_n = self.tp_axis, self.tp
-        b = self.batch_spec
-        all_axes = (*self.dp_axes, tp_axis)
-
-        def body(pw, x_loc):
-            B, S, D = x_loc.shape
-            y, aux = MOE.moe_ep(pw, cfg, x_loc.reshape(-1, D), tp_axis,
-                                tp_n)
-            return y.reshape(B, S, D), M.pmean(aux, all_axes)
-
-        def apply(p, cfg_, x):
-            xspec = P(b, None, None)
-            pspec = {"router": None, "w1": P(tp_axis), "w2": P(tp_axis)}
-            if "w3" in p:
-                pspec["w3"] = P(tp_axis)
-            fn = M.shard_map(body, self.mesh, in_specs=(pspec, xspec),
-                             out_specs=(xspec, None))
-            return fn({k: p[k] for k in pspec}, x)
-
-        return apply
+        kinds = set(cfg.block_kinds())
+        cond = cfg.sliding_window if {"local", "attn"} <= kinds else 0
+        itpp = None if pool_spec is None else partial(
+            itpp_decode_attention_shard,
+            spec=self.itpp_spec(parallel.page_size),
+            max_pages_per_req=pool_spec.max_pages_per_req,
+            ring_width=ring, cond_window=cond, kernels=kernels,
+            pool_layout=self.mesh.pool_layout)
+        return Runtime(kernels=kernels, ring_width=ring, itpp=itpp,
+                       cond_window=cond, tp_axis=self.tp_axis,
+                       moe=decode_moe(cfg, self.tp_axis, self.tp)
+                       if cfg.is_moe else None)
 
 
 # ---------------------------------------------------------------------------
@@ -430,6 +413,103 @@ def shard_moe(cfg, tp_axis: str, tp_n: int):
         y, aux = MOE.moe_ep(p, cfg, x.reshape(-1, D), tp_axis, tp_n)
         return y.reshape(B, S, D), aux
     return moe
+
+
+def own_experts(p, axis: str):
+    """A MoE layer's weights as ``moe_ep`` takes them on a shard: its
+    virtual expert of each ``[V, ...]`` leaf (one the plan left whole,
+    under ``REPLICATE_SMALL``, is cut here), the router whole."""
+    i = M.axis_index(axis)
+
+    def own(w):
+        return w if w.shape[0] == 1 else w.narrow(0, i, 1)
+    return {k: w if k == "router" else tree_map(own, w)
+            for k, w in p.items()}
+
+
+def decode_moe(cfg, tp_axis: str, tp_n: int):
+    """A decode shard's MoE: ``moe_ep_rows`` over its rows, the same on
+    every shard of ``tp_axis``, the experts over ``tp_axis``."""
+    def moe(p, cfg_, x):
+        B, S, D = x.shape
+        y, aux = MOE.moe_ep_rows(own_experts(p, tp_axis), cfg,
+                                 x.reshape(-1, D), tp_axis, tp_n)
+        return y.reshape(B, S, D), aux
+    return moe
+
+
+# the decode state's entries a step writes (the cross rows it only reads)
+_WRITTEN = ("pool", "mamba", "mlstm", "slstm")
+
+
+def serve_args(plan: Plan, params):
+    """``params`` as a decode shard map takes them: the leaves and their
+    ``spec_list(mode="serve")`` specs, keyed by position; a function that
+    rebuilds the tree from a shard's slices; whether the head's vocabulary
+    is cut over the model axis (the logits come back cut there)."""
+    leaves = list(_leaves(params))
+    specs = plan.spec_list(params, mode="serve")
+    keys = range(len(specs))
+    vocab_cut = any(k[0] == "head" and plan.tp_axis in s
+                    for (k, _, _), s in zip(leaves, specs))
+    return (dict(zip(keys, (t for _, t, _ in leaves))),
+            dict(zip(keys, specs)),
+            lambda loc: _unflatten(params, (loc[i] for i in keys)),
+            vocab_cut)
+
+
+def make_decode_step(cfg, plan: Plan, parallel, pool_spec):
+    """repro's decode cell: ``models.model.decode_step`` under the serve
+    plan's shardings, as a shard body on ``plan.mesh``. ``step(params,
+    state, batch) -> (logits [B, V] fp32, state)`` on global tensors
+    (``batch``: ``tokens`` [B], ``bt`` [B, maxp], ``ctx`` [B] incl. the
+    new token, ``npage`` / ``noff`` [B], the optional ``positions`` and
+    ``run``).
+
+    A shard holds its slices of the weights under ``spec_list(mode=
+    "serve")`` (a leaf under ``REPLICATE_SMALL``, or whose dim does not
+    divide, whole) and computes with them as Megatron TP over the model
+    axis (``Runtime.tp_axis``; a site tells a cut weight by its shape);
+    its rows are those of its data row (over the dp axes), or every row
+    when the batch does not divide them (long_500k's one request, which
+    ITPP stripes over the whole mesh); the pool is cut into the page
+    shards' pages and the recurrent / cross rows follow the batch. The
+    logits come back cut on the vocabulary over the model axis (repro's
+    ``logits_decode``) where the head is. The pool is written in place on
+    a ``LocalMesh``; the recurrent rows come back in the returned state
+    (each shard advances its own copy of its rows)."""
+    rt = plan.make_runtime(cfg, parallel, pool_spec=pool_spec,
+                           mode="decode")
+    rows, tp = plan.batch_spec, plan.tp_axis
+    pool = P(None, M.Paged(plan.page_axes))
+
+    def step(params, state, batch):
+        flat, p_spec, tree, vocab_cut = serve_args(plan, params)
+        s_spec = {k: ({"k": pool, "v": pool} if k == "pool"
+                      else P(None, rows)) for k in state}
+        b_spec = {k: P(None, rows) if k == "positions" and v.dim() == 3
+                  else P(rows) for k, v in batch.items()}
+        out_spec = {k: s_spec[k] for k in state if k in _WRITTEN}
+
+        def body(p_loc, st, b):
+            # a shard's own recurrent rows: on a LocalMesh the model shards
+            # of a row would otherwise read each other's new carry
+            st = {k: tree_map(torch.clone, v) if k in _WRITTEN[1:] else v
+                  for k, v in st.items()}
+            lg, st = MDL.decode_step(
+                cfg, tree(p_loc), st, b["tokens"], b["bt"], b["ctx"], b["npage"],
+                b["noff"], positions=b.get("positions"), run=b.get("run"),
+                rt=rt)
+            return lg, {k: st[k] for k in out_spec}
+
+        f = M.shard_map(body, plan.mesh, in_specs=(p_spec, s_spec, b_spec),
+                        out_specs=(P(rows, tp if vocab_cut else None),
+                                   out_spec))
+        lg, new = f(flat, state, batch)
+        return lg, {**state, **new}
+
+    step.rt = rt
+    return step
 
 
 def make_prefill_step(cfg, plan: Plan, parallel, pool_spec):

@@ -44,14 +44,17 @@ What one shard runs (``layout``):
   the dp axes, the sequence over ``model``; attention over the rows'
   gathered K/V, each shard writing the pages it owns; a recurrent layer
   on the gathered sequence), its outputs left in the plan's layout.
-* ``decode`` — the port's serving step as one rank of a ``ProcessMesh``
-  runs it: ``models.model.decode_step`` on the global batch with the
-  plan's runtime, whose ITPP attention and ``moe_ep`` run as this shard's
-  body and whose outputs are all-gathered (counted), a pool's pages
-  staying on their shard. The dense layers run whole on every rank: the
-  port has no Megatron TP (ROADMAP C.13), so these cells' flops are the
-  global batch's, not a 1/n_dev share.
-* ``--pod-mode pp`` — ``distributed/pipeline.make_pp_decode_step``.
+* ``decode`` — ``distributed/sharding.make_decode_step``'s shard body
+  (repro's decode cell: ``decode_step`` on the serve slices, Megatron TP
+  over ``model``, the shard's rows of its data row, ITPP over its pages,
+  a MoE on ``moe_ep_rows``), its outputs left in the plan's layout. A
+  batch the dp axes do not divide (long_500k's one request) is
+  replicated over them, so each data row computes the dense layers'
+  1/tp share of the whole request: ``notes.replicated_rows`` is the dp
+  size such a cell's dense work repeats over (1 when the rows divide).
+* ``--pod-mode pp`` — ``distributed/pipeline.make_pp_decode_step``'s
+  shard body (stage 0: its layers for every microbatch, TP inside the
+  stage).
 
 Meta tensors launch no kernel: the plans' runtimes take the plain paths,
 which do the kernels' products. xLSTM's sLSTM is a Python loop of cell
@@ -86,8 +89,8 @@ from repro_torch.configs import (ASSIGNED, SHAPES, ParallelConfig,
 from repro_torch.core.paged_kv import pool_spec_for
 from repro_torch.distributed import mesh as M
 from repro_torch.distributed.mesh import P
-from repro_torch.distributed.sharding import (_leaves, make_plan,
-                                              make_prefill_step)
+from repro_torch.distributed.sharding import (_leaves, make_decode_step,
+                                              make_plan, make_prefill_step)
 from repro_torch.launch import roofline as RF
 from repro_torch.models import model as MDL
 from repro_torch.models import ssm as SSM
@@ -158,7 +161,7 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool,
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     mode = shape.kind
-    mesh = shape_mesh(multi_pod=multi_pod, assemble=mode == "decode")
+    mesh = shape_mesh(multi_pod=multi_pod, assemble=False)
     parallel = replace(parallel or ParallelConfig(), use_kernels=False)
     plan = make_plan(mesh, parallel, shape, pod_mode=pod_mode)
     moe_virtual = plan.tp if cfg.is_moe else 0
@@ -213,14 +216,7 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool,
         return (step, (params, state, binp), (p_serve, s_spec, bshard),
                 (None, s_spec), plan)
 
-    rt = plan.make_runtime(cfg, parallel, pool_spec=pool, mode="decode")
-
-    def step(params, state, batch):
-        return MDL.decode_step(cfg, params, state, batch["tokens"],
-                               batch["bt"], batch["ctx"], batch["npage"],
-                               batch["noff"],
-                               positions=batch.get("positions"), rt=rt)
-
+    step = make_decode_step(cfg, plan, parallel, pool)
     return (step, (params, state, binp), (p_serve, s_spec, bshard),
             (None, s_spec), plan)
 
@@ -461,9 +457,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         if mesh.assemble:       # global outputs: the plan's share of them
             out_bytes = sum(_local_bytes(o, s, mesh)
                             for o, s in zip(outs, out_sh) if s is not None)
-        else:                   # the shard's own outputs
+        else:                   # the shard's own outputs (none passed
+            ins = {id(t) for t in tree_leaves(args)}    # through untouched)
             out_bytes = sum(_nbytes(t) for t in tree_leaves(
-                outs[:2] if SHAPES[shape_name].kind == "train" else outs))
+                outs[:2] if SHAPES[shape_name].kind == "train" else outs)
+                if id(t) not in ins)
         flops = tally.flops + extra["flops"]
         coll = dict(mesh.collectives)
         hlo = {"flops": float(flops),
@@ -486,6 +484,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
             "notes": {"extrapolated_slstm_steps": extra["steps"],
                       "sp_recurrent_flops": _sp_recurrent_flops(
                           cfg, plan, SHAPES[shape_name]),
+                      "replicated_rows": (
+                          plan.dp_total if SHAPES[shape_name].kind
+                          == "decode" and not plan.batch_divisible else 1),
                       "dtype": cfg.dtype},
             "t_build_s": round(time.time() - t0, 1),
         }

@@ -65,16 +65,13 @@ def lever(row: dict) -> str:
     if b == "collective":
         return ("shrink the weight gathers: bf16 collectives, fewer "
                 "re-gathers under remat" if kind == "train"
-                else "fewer output all-gathers: keep activations sharded "
-                "(a Megatron TP body)")
+                else "fewer collectives a layer: one gather for the TP "
+                "inputs, the TP sums fused with the ITPP merge")
     if b == "memory":
         return ("bound gathered KV to the window / fuse attention "
                 "intermediates" if kind == "decode" else
                 "fused attention and MLP (the unfused op-by-op bytes); "
                 "bf16 intermediates")
-    if kind != "train":
-        return ("shard the dense layers (the serving step runs them whole "
-                "on every rank)")
     return "already compute-bound: raise tensor-core utilization"
 
 

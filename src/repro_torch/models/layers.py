@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import mesh as M
+
 NEG_INF = -1e30
 
 
@@ -26,6 +28,51 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
         y = torch.matmul(x, w["q"].to(x.dtype))
         return (y * w["s"][..., 0, :].to(x.dtype)).to(x.dtype)
     return torch.matmul(x, w).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Megatron tensor parallelism inside a shard body: a weight the serve plan
+# cuts holds the shard's block of its columns (column-parallel) or rows
+# (row-parallel); ``tp`` names the mesh axis it is cut over (None: no TP)
+# ---------------------------------------------------------------------------
+
+def _mat(w) -> torch.Tensor:
+    """A weight's matrix (an int8 QTensor's ``q``)."""
+    return w["q"] if isinstance(w, dict) else w
+
+
+def own_cols(w, tp):
+    """A column block of ``w`` as the shard computes with it: an int8
+    QTensor whose per-column scale the plan left whole (under its size
+    floor) gets the scale of the shard's columns."""
+    if not isinstance(w, dict) or w["s"].shape[-1] == w["q"].shape[-1]:
+        return w
+    n = w["q"].shape[-1]
+    return {"q": w["q"], "s": w["s"].narrow(-1, M.axis_index(tp) * n, n)}
+
+
+def dense_col(x, w, width: int, tp=None, *, gather: bool = True):
+    """x @ w for a column-parallel weight of ``width`` output columns. On a
+    TP shard holding a block of them, the block's product, all-gathered
+    over ``tp`` (``gather``) or left as the shard's block."""
+    n = _mat(w).shape[-1]
+    if tp is None or n == width:
+        return dense(x, w)
+    y = dense(x, own_cols(w, tp))
+    return M.all_gather(y, tp, dim=-1, tiled=True) if gather else y
+
+
+def dense_row(x, w, width: int, tp=None):
+    """x @ w for a row-parallel weight of ``width`` input rows. On a TP
+    shard holding a block of them, the product of x's matching block (x
+    whole, or already the shard's block), summed over ``tp``. An int8
+    QTensor keeps its per-column scale whole."""
+    n = _mat(w).shape[-2]
+    if tp is None or n == width:
+        return dense(x, w)
+    if x.shape[-1] != n:
+        x = x.narrow(-1, M.axis_index(tp) * n, n)
+    return M.psum(dense(x, w), tp)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
@@ -183,19 +230,35 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # MLP, attention projections, embeddings
 # ---------------------------------------------------------------------------
 
-def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
-    h = activate(dense(x, p["w1"]), act)
+def mlp(p, x: torch.Tensor, act: str, d_ff: int = 0, tp=None):
+    """The MLP; on a TP shard (``tp``) ``w1`` / ``w3`` give the shard's
+    block of the ``d_ff`` hidden units, which its row block of ``w2``
+    takes."""
+    h = activate(dense_col(x, p["w1"], d_ff, tp, gather=False), act)
     if "w3" in p:
-        h = h * dense(x, p["w3"])
-    return dense(h, p["w2"])
+        h = h * dense_col(x, p["w3"], d_ff, tp, gather=False)
+    return dense_row(h, p["w2"], d_ff, tp)
 
 
-def qkv_project(p, cfg, x: torch.Tensor):
-    """x [B,S,D] -> q [B,S,H,dh], k,v [B,S,KVH,dh], with qk-norm if set."""
+def qkv_project(p, cfg, x: torch.Tensor, tp=None):
+    """x [B,S,D] -> q [B,S,H,dh], k,v [B,S,KVH,dh], with qk-norm if set.
+    On a TP shard (``tp``) holding blocks of the three weights' columns,
+    the products are all-gathered in one collective, whole, before they
+    are cut into heads (a block of k / v may end inside a head)."""
     b, s, _ = x.shape
-    q = dense(x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = dense(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = dense(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    ws = (p["wq"], p["wk"], p["wv"])
+    widths = (cfg.q_dim, cfg.kv_dim, cfg.kv_dim)
+    if tp is not None and all(_mat(w).shape[-1] < n
+                              for w, n in zip(ws, widths)):
+        ys = [dense(x, own_cols(w, tp)) for w in ws]
+        g = M.all_gather(torch.cat(ys, -1), tp, dim=-2)   # [b, s, tp, c]
+        q, k, v = (t.reshape(b, s, -1) for t in g.split(
+            [y.shape[-1] for y in ys], dim=-1))
+    else:
+        q, k, v = (dense_col(x, w, n, tp) for w, n in zip(ws, widths))
+    q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
     if "qn" in p:
         q = rms_norm(q, p["qn"], cfg.norm_eps)
         k = rms_norm(k, p["kn"], cfg.norm_eps)

@@ -19,10 +19,11 @@ through ``Runtime.moe_apply`` (``moe_local`` on one device, the plan's
 passes.
 
 A sharding plan (``distributed/sharding.py``) fills the ``Runtime``'s
-distribution hooks as repro's does: decode attention through
-``Runtime.itpp`` (ITPP over a page-sharded mesh), the prefill pool writes
-through ``Runtime.write_pool``, the MoE through ``Runtime.moe``; their
-defaults are the single-device paths.
+distribution hooks for a shard body: decode attention through
+``Runtime.itpp`` (a shard's ITPP over its pages), the dense decode
+products as Megatron TP through ``Runtime.tp_axis``, the prefill pool
+writes through ``Runtime.write_pool``, the MoE through ``Runtime.moe``;
+their defaults are the single-device paths.
 
 The zamba2 hybrid: ``pattern`` = n Mamba2 blocks then one attention block
 whose weights (``attn_shared``) are shared by every cycle; each invocation
@@ -110,7 +111,20 @@ class Runtime:
     names the mesh axis the sequence is cut over (the ``sp`` layout:
     attention takes K/V gathered over it at the shard's ``q_offset``; a
     recurrent layer runs on the gathered sequence and keeps its own
-    slice)."""
+    slice).
+
+    A sharded decode step (``Plan.make_runtime(mode="decode")``,
+    ``distributed/sharding.make_decode_step``) sets ``tp_axis``, the mesh
+    axis of Megatron tensor parallelism: a weight the serve plan cuts
+    holds the shard's block (``models/layers.dense_col`` /
+    ``dense_row``). A column-parallel product is all-gathered where the
+    next step takes the whole vector (q/k/v into ITPP, whose shards each
+    attend over their own pages with every head; the Mamba2 and mLSTM
+    inputs) and an MLP's ``w1`` / ``w3`` block feeds its row-parallel
+    ``w2``; a row-parallel product is summed over the axis. ``embed`` is
+    cut on D (a looked-up block, all-gathered), an untied ``head`` on the
+    vocabulary (the shard's block of the logits), a tied head is
+    row-parallel over D."""
     ring_width: int = 0
     kernels: KernelConfig | None = None
     gla_chunk: int = 128                 # Mamba2 scan chunk at prefill
@@ -122,6 +136,7 @@ class Runtime:
     plan: Any = None
     fetch: Callable | None = None
     seq_axis: str | None = None
+    tp_axis: str | None = None
 
     def itpp_apply(self, q, k, v, pk, pv, bt, ctx, npage, noff, window):
         if self.itpp is not None:
@@ -556,16 +571,35 @@ def _xlstm_stack(cfg, params, state, x, mlstm, slstm, run=None):
     return x
 
 
+def _embed(cfg, table, tokens, rt: Runtime = DEFAULT_RT):
+    """Token embeddings [.., D]; a TP shard's table holds a block of D:
+    its columns are looked up, then all-gathered."""
+    x = L.embed(table, tokens)
+    if x.shape[-1] < cfg.d_model:
+        x = M.all_gather(x, rt.tp_axis, dim=-1, tiled=True)
+    return x
+
+
 def _logits(cfg, params, x, rt: Runtime = DEFAULT_RT):
+    """fp32 logits over the padded vocabulary; on a TP shard whose untied
+    head holds a block of the vocabulary, that block's."""
     x = L.rms_norm(x, _fetch(rt, params["final_norm"]), cfg.norm_eps)
-    w = _fetch(rt, params["embed"] if cfg.tie_embeddings else params["head"])
-    return L.lm_head(x, w, transpose=cfg.tie_embeddings)
+    if not cfg.tie_embeddings:
+        return L.lm_head(x, L.own_cols(_fetch(rt, params["head"]),
+                                       rt.tp_axis), transpose=False)
+    w = _fetch(rt, params["embed"])
+    n = w.shape[-1]
+    if n == cfg.d_model:
+        return L.lm_head(x, w, transpose=True)
+    x = x.narrow(-1, M.axis_index(rt.tp_axis) * n, n)  # row-parallel over D
+    return M.psum(L.lm_head(x, w, transpose=True), rt.tp_axis)
 
 
-def _qkv(lp, cfg, x, cs):
-    """Attention prologue: pre-norm, q/k/v projections, rope."""
+def _qkv(lp, cfg, x, cs, tp=None):
+    """Attention prologue: pre-norm, q/k/v projections (whole on a TP
+    shard, ``tp``), rope."""
     q, k, v = L.qkv_project(lp["attn"], cfg,
-                            L.rms_norm(x, lp["ln1"], cfg.norm_eps))
+                            L.rms_norm(x, lp["ln1"], cfg.norm_eps), tp)
     if cs is not None:
         q = L.apply_rope(q, *cs)
         k = L.apply_rope(k, *cs)
@@ -578,7 +612,7 @@ def _cross_attn(lp, cfg, h, cross, rt: Runtime):
     prefill (non-causal flash attention), [B, D] at decode
     (``ops.cross_attention_decode``)."""
     hx = L.rms_norm(h, lp["lnx"], cfg.norm_eps)
-    qx = L.dense(hx, lp["xattn"]["wq"])
+    qx = L.dense_col(hx, lp["xattn"]["wq"], cfg.q_dim, rt.tp_axis)
     if h.dim() == 2:
         B = h.shape[0]
         ax = ops.cross_attention_decode(
@@ -589,8 +623,8 @@ def _cross_attn(lp, cfg, h, cross, rt: Runtime):
         ax = ops.attention_fwd(qx.reshape(B, S, cfg.n_heads, cfg.d_head),
                                cross[0], cross[1], causal=False,
                                kernels=rt.kernels)
-    return h + L.dense(ax.reshape(*h.shape[:-1], cfg.q_dim),
-                       lp["xattn"]["wo"])
+    return h + L.dense_row(ax.reshape(*h.shape[:-1], cfg.q_dim),
+                           lp["xattn"]["wo"], cfg.q_dim, rt.tp_axis)
 
 
 def _block_tail(lp, cfg, h, rt: Runtime = DEFAULT_RT, *,
@@ -607,7 +641,7 @@ def _block_tail(lp, cfg, h, rt: Runtime = DEFAULT_RT, *,
             if with_aux:
                 y, aux = y
         else:
-            y = L.mlp(lp["mlp"], h2, cfg.act)
+            y = L.mlp(lp["mlp"], h2, cfg.act, cfg.d_ff, rt.tp_axis)
         h = h + y
     return (h, aux) if with_aux else h
 
@@ -621,10 +655,11 @@ def _attn_block_decode(lp, cfg, x, cs, window, pool_k, pool_v, bt, ctx,
     """x [B, D] one token; writes pool_k/pool_v in place. ``cross``: the
     layer's (k, v) cross rows (enc-dec) or None."""
     B = x.shape[0]
-    q, k, v = _qkv(lp, cfg, x[:, None, :], cs)           # [B,1,H,dh]
+    q, k, v = _qkv(lp, cfg, x[:, None, :], cs, rt.tp_axis)   # [B,1,H,dh]
     a, _, _ = rt.itpp_apply(q[:, 0], k[:, 0], v[:, 0], pool_k, pool_v, bt,
                             ctx, npage, noff, window)
-    x = x + L.dense(a.reshape(B, cfg.q_dim), lp["attn"]["wo"])
+    x = x + L.dense_row(a.reshape(B, cfg.q_dim), lp["attn"]["wo"],
+                        cfg.q_dim, rt.tp_axis)
     if cross is not None:
         x = _cross_attn(lp, cfg, x, cross, rt)
     return _block_tail(lp, cfg, x[:, None, :], rt)[:, 0]
@@ -650,42 +685,45 @@ def decode_step(cfg, params, state, tokens, bt, ctx, npage, noff, *,
 
     tokens [B]; bt [B, maxp]; ctx [B] (INCLUDING the new token);
     npage/noff [B] write target for the new token's KV (``n_pages`` =
-    the trash page, for slots not decoding). ``run`` [B] bool: slots
-    decoding this step — recurrent rows of the others keep their carry
-    (an idle, paused or mid-chunk-prefill slot must not absorb its stale
-    pending token); None advances every row. ``positions``: rope ids [B, 1]
+    the trash page, for slots not decoding). ``rt.tp_axis`` runs it as a
+    Megatron TP shard body (``distributed/sharding.make_decode_step``).
+    ``run`` [B] bool: slots decoding this step — recurrent rows of the
+    others keep their carry (an idle, paused or mid-chunk-prefill slot
+    must not absorb its stale pending token); None advances every row.
+    ``positions``: rope ids [B, 1]
     or M-RoPE ids [3, B, 1]; None = ctx - 1 (on all three axes), computed
     on the device, as the enc-dec family's sinusoidal position is, so a
     captured horizon reads only its static ``ctx``. Returns (fp32 logits
     [B, V], state) — the state's pool and rows are written in place.
     """
-    x = L.embed(params["embed"], tokens)                # [B, D]
+    x = _embed(cfg, params["embed"], tokens, rt)        # [B, D]
     if cfg.family == "encdec":
         x = x + L.sinusoidal_at(ctx - 1, cfg.d_model).to(x.dtype)
     if "mlstm" in params:
         def mlstm(lp, h, rows):
-            return SSM.mlstm_step(lp, cfg, h, rows)
+            return SSM.mlstm_step(lp, cfg, h, rows, tp=rt.tp_axis)
 
         def slstm(lp, h, rows):
             return SSM.slstm_step(lp, cfg, h, rows)
         x = _xlstm_stack(cfg, params, state, x, mlstm, slstm, run)
-        return _logits(cfg, params, x), state
+        return _logits(cfg, params, x, rt), state
     cs = _cos_sin(cfg, (ctx.long() - 1)[:, None] if positions is None
                   else positions)
     pool = state["pool"]
     if "mamba" in params:
         def mamba(lp, h, rows):
-            return SSM.mamba_step(lp, cfg, h, rows, kernels=rt.kernels)
+            return SSM.mamba_step(lp, cfg, h, rows, kernels=rt.kernels,
+                                  tp=rt.tp_axis)
 
         def attn(lp, h, c):
             return _attn_block_decode(lp, cfg, h, cs, 0, pool["k"][c],
                                       pool["v"][c], bt, ctx, npage, noff, rt)
         x = _hybrid_stack(cfg, params, state, x, mamba, attn, run)
-        return _logits(cfg, params, x), state
+        return _logits(cfg, params, x, rt), state
     for i, (lp, w, cross) in enumerate(_decoder(cfg, params, state)):
         x = _attn_block_decode(lp, cfg, x, cs, w, pool["k"][i], pool["v"][i],
                                bt, ctx, npage, noff, rt, cross)
-    return _logits(cfg, params, x), state
+    return _logits(cfg, params, x, rt), state
 
 
 def decode_multi(cfg, params, state, tokens, bt, ctx, rem, allow, gen=None,

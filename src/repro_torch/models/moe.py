@@ -34,7 +34,13 @@ Two execution paths share the routing math, as in repro:
   model axis and the v partial outputs of each chosen expert are summed
   at the combine (d_ff row-split). Its ``aux`` is the shard's own
   load-balancing term (the plan takes their mean), not ``moe_local``'s
-  term over every token.
+  term over every token;
+* ``moe_ep_rows`` — ``moe_ep`` for a decode shard, whose tokens are the
+  same on every shard of the model axis (a data row's requests): each
+  shard routes them alike, runs its own virtual expert once on its real
+  expert's buffer, and the partial outputs are all-gathered. The same
+  function as ``moe_ep`` on those tokens, which would send each expert
+  the buffer once from every shard and compute it as many times.
 """
 from __future__ import annotations
 
@@ -191,5 +197,24 @@ def moe_ep(p_local, cfg, x_loc, axis: str, n_shards: int):
     out = expert_mlp(p_local, cfg, flat)[0]
     back = M.all_to_all(out.reshape(n_shards, C, D), axis)
     summed = back.reshape(E, v, C, D).sum(1)
+    y = combine(summed, top_p, top_e, slot, keep)
+    return y, _balance(probs, top_e, E)
+
+
+def moe_ep_rows(p_local, cfg, x, axis: str, n_shards: int):
+    """``moe_ep`` when ``x`` [T, D] is the same on every shard of ``axis``
+    (a decode shard's rows): the buffers ``[E, C, D]`` are the same on
+    every shard, so each runs its virtual expert (``p_local["w*"]`` [1,
+    ...]) on its real expert's buffer alone and the partial outputs come
+    back by one all-gather. Returns (y [T, D], aux)."""
+    E, D = cfg.n_experts, cfg.d_model
+    v = n_shards // E
+    probs, top_p, top_e = _route(p_local["router"], cfg, x)
+    C = capacity(cfg, x.shape[0])
+    slot, keep = _dispatch_indices(top_e, E, C)
+    buf = dispatch(x, top_e, slot, keep, E, C)              # [E, C, D]
+    e = M.axis_index(axis) // v
+    out = expert_mlp(p_local, cfg, buf[e][None])[0]         # [C, D]
+    summed = M.all_gather(out, axis).reshape(E, v, C, D).sum(1)
     y = combine(summed, top_p, top_e, slot, keep)
     return y, _balance(probs, top_e, E)

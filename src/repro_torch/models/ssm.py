@@ -28,7 +28,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import NEG_INF, dense, rms_norm
+from repro_torch.models.layers import (NEG_INF, dense, dense_col, dense_row,
+                                       rms_norm)
 
 F32 = torch.float32
 
@@ -169,10 +170,12 @@ def init_mamba(cfg, normal, zeros, dtype, device):
     }
 
 
-def _mamba_proj(p, cfg, x):
-    """Shared in-proj/split. x [B, S, D] -> z, xbc_raw, dt_raw."""
-    z = dense(x, p["wz"])
-    xbc = torch.cat([dense(x, p["wx"]), dense(x, p["wbc"])], dim=-1)
+def _mamba_proj(p, cfg, x, tp=None):
+    """Shared in-proj/split. x [B, S, D] -> z, xbc_raw, dt_raw (whole on
+    a TP shard, ``tp``)."""
+    z = dense_col(x, p["wz"], cfg.d_inner, tp)
+    xbc = torch.cat([dense_col(x, p["wx"], cfg.d_inner, tp),
+                     dense(x, p["wbc"])], dim=-1)
     dt_raw = dense(x, p["wdt"])
     return z, xbc, dt_raw
 
@@ -284,7 +287,7 @@ def mamba_scan(Cm, Bm, xh, log_a, log_g, *, chunk: int, state=None,
 
 
 def mamba_forward(p, cfg, x, state=None, *, chunk: int = 128, mask=None,
-                  kernels=None):
+                  kernels=None, tp=None):
     """x [B, S, D] -> (y [B, S, D], state). state = {"conv": tail
     [B, K-1, C], "ssm": (C, n, m)}.
 
@@ -294,11 +297,12 @@ def mamba_forward(p, cfg, x, state=None, *, chunk: int = 128, mask=None,
     ``ops.mamba_mixer`` with ``kernels`` (the chunk-scan kernel when
     enabled, ``chunked_gla`` otherwise) at ``scan_geometry``'s chunk (JAX
     asserts that ``chunk`` divides S; the result does not depend on the
-    chunking).
+    chunking). ``tp``: a Megatron TP shard's axis (``wz`` / ``wx``
+    column-parallel and gathered, ``out_proj`` row-parallel).
     """
     Bsz, S, _ = x.shape
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
-    z, xbc, dt_raw = _mamba_proj(p, cfg, xin)
+    z, xbc, dt_raw = _mamba_proj(p, cfg, xin, tp)
     carried = cfg.ssm_conv - 1
     if state is not None:
         conv_tail = state["conv"]
@@ -323,14 +327,14 @@ def mamba_forward(p, cfg, x, state=None, *, chunk: int = 128, mask=None,
     y = y + xh.float() * p["D"][None, None, :, None]
     y = y.reshape(Bsz, S, cfg.d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"], cfg.norm_eps)
-    out = dense(y, p["out_proj"])
+    out = dense_row(y, p["out_proj"], cfg.d_inner, tp)
     return out, {"conv": new_conv_tail, "ssm": ssm_state}
 
 
-def mamba_step(p, cfg, x, state, *, kernels=None):
+def mamba_step(p, cfg, x, state, *, kernels=None, tp=None):
     """x [B, D] single token. state as returned by mamba_forward."""
     y, new_state = mamba_forward(p, cfg, x[:, None, :], state, chunk=1,
-                                 kernels=kernels)
+                                 kernels=kernels, tp=tp)
     return y[:, 0], new_state
 
 
@@ -371,20 +375,21 @@ def init_mlstm(cfg, normal, zeros, dtype, device):
     }
 
 
-def _mlstm_qkvg(p, cfg, xin):
+def _mlstm_qkvg(p, cfg, xin, tp=None):
     di, H = cfg.d_inner, cfg.n_heads
     dh = di // H
-    u, g = dense(xin, p["wu"]), dense(xin, p["wg"])
+    u, g = dense_col(xin, p["wu"], di, tp), dense_col(xin, p["wg"], di, tp)
     shp = (*u.shape[:-1], H, dh)
-    q = dense(u, p["wq"]).reshape(shp)
-    k = dense(u, p["wk"]).reshape(shp) / math.sqrt(dh)
-    v = dense(u, p["wv"]).reshape(shp)
+    q = dense_col(u, p["wq"], di, tp).reshape(shp)
+    k = dense_col(u, p["wk"], di, tp).reshape(shp) / math.sqrt(dh)
+    v = dense_col(u, p["wv"], di, tp).reshape(shp)
     log_g = dense(u, p["wi"]).float() + p["bi"]              # input gate
     log_a = -F.softplus(-(dense(u, p["wf"]).float() + p["bf"]))  # log sigmoid
     return q, k, v, log_a, log_g, g
 
 
-def mlstm_forward(p, cfg, x, state=None, *, chunk: int = 128, mask=None):
+def mlstm_forward(p, cfg, x, state=None, *, chunk: int = 128, mask=None,
+                  tp=None):
     """x [B, S, D] -> (y [B, S, D], (C, n, m)). ``mask`` [B, S] bool: pad
     positions are identity steps (the carry passes through unchanged);
     their outputs are garbage and must not be read.
@@ -392,10 +397,12 @@ def mlstm_forward(p, cfg, x, state=None, *, chunk: int = 128, mask=None):
     The scan runs at ``scan_geometry(S, chunk)``: JAX's chunk
     (``min(chunk, S)``) wherever it divides S, and where it does not (JAX
     asserts) the largest chunk that does, S padded with identity steps
-    when that chunk would be shorter than ``CHUNK_FLOOR``."""
+    when that chunk would be shorter than ``CHUNK_FLOOR``. ``tp``: a
+    Megatron TP shard's axis (``wu`` / ``wg`` / ``wq`` / ``wk`` / ``wv``
+    column-parallel and gathered, ``down`` row-parallel)."""
     B, S, _ = x.shape
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v, log_a, log_g, g = _mlstm_qkvg(p, cfg, xin)
+    q, k, v, log_a, log_g, g = _mlstm_qkvg(p, cfg, xin, tp)
     if mask is not None:
         log_a, log_g = mask_log_gates(log_a, log_g, mask)
     c, S_scan = scan_geometry(S, chunk)
@@ -410,12 +417,13 @@ def mlstm_forward(p, cfg, x, state=None, *, chunk: int = 128, mask=None):
                                normalize=True, state=state)
     y = y[:, :S].reshape(B, S, cfg.d_inner).to(x.dtype)
     y = rms_norm(y, p["norm"], cfg.norm_eps) * F.silu(g.float()).to(x.dtype)
-    return dense(y, p["down"]), new_state
+    return dense_row(y, p["down"], cfg.d_inner, tp), new_state
 
 
-def mlstm_step(p, cfg, x, state):
+def mlstm_step(p, cfg, x, state, *, tp=None):
     """x [B, D] single token; the scan at chunk 1, as in JAX."""
-    y, new_state = mlstm_forward(p, cfg, x[:, None, :], state, chunk=1)
+    y, new_state = mlstm_forward(p, cfg, x[:, None, :], state, chunk=1,
+                                 tp=tp)
     return y[:, 0], new_state
 
 
@@ -500,7 +508,8 @@ def slstm_forward(p, cfg, x, state=None, *, mask=None):
 
 
 def slstm_step(p, cfg, x, state):
-    """x [B, D] single token."""
+    """x [B, D] single token. The serve plan cuts none of its weights
+    (``w``, ``r``, ``proj``): a TP shard runs it whole."""
     y, state = slstm_forward(p, cfg, x[:, None, :], state)
     return y[:, 0], state
 

@@ -9,13 +9,17 @@ long-context request (one request over every shard), the sequence-sharded
 prefill writer, ``moe_ep`` over 8 shards, and GPipe decode over (pod 2,
 data 2, model 2). repro's single-device oracles (``write_token`` +
 ``paged_decode_attention_ref``, ``write_prefill``, ``moe_local``,
-``forward``) run in this process.
+``forward``) run in this process. The sharded decode step's own
+reference (repro's decode cell under the serve shardings) is
+``tests/test_torch_decode_tp.py``'s.
 
 The port runs each case on a single-process ``LocalMesh`` (8 shards as
 threads), with the plain path and with the kernel wrappers (their plain
-versions here). Two cases — the 8-shard ITPP merge and ``moe_ep``'s
-``all_to_all`` — also run on an 8-rank ``gloo`` ``ProcessMesh`` (8 local
-processes) and must equal the ``LocalMesh`` bit for bit. ``make_plan``,
+versions here). Three cases — the 8-shard ITPP merge, ``moe_ep``'s
+``all_to_all`` and the Megatron-TP decode step
+(``sharding.make_decode_step`` on (data 2, model 4)) — also run on an
+8-rank ``gloo`` ``ProcessMesh`` (8 local processes) and must equal the
+``LocalMesh`` bit for bit. ``make_plan``,
 ``Plan.itpp_spec`` and ``param_specs`` equal repro's on repro's
 ``abstract_mesh`` with ``PartitionSpec``s read as tuples.
 """
@@ -365,11 +369,15 @@ def _unflatten(flat: dict) -> dict:
 
 
 @pytest.mark.parametrize("path", list(KERNELS))
-def test_pp_decode_matches_forward(ref, path):
-    """GPipe decode over (pod 2, data 2, model 2) with 2 microbatches:
-    logits within 5e-3 of the port's full-sequence forward (the bound of
-    ``tests/test_distributed.py``) and within 1e-4 of repro's pipeline; the
-    pool within 1e-5 of repro's."""
+def test_pp_decode_matches_forward(ref, path, monkeypatch):
+    """GPipe decode over (pod 2, data 2, model 2) with 2 microbatches, each
+    stage's layers as Megatron TP over ``model`` on its serve slices
+    (``REPLICATE_SMALL`` at 0: every divisible leaf cut) and a
+    microbatch's rows over ``data``: logits within 5e-3 of the port's
+    full-sequence forward (the bound of ``tests/test_distributed.py``) and
+    within 1e-4 of repro's pipeline; the pool within 1e-5 of repro's."""
+    from repro_torch.distributed import sharding as SH
+    monkeypatch.setattr(SH, "REPLICATE_SMALL", 0)
     c = _sub(ref, "pp")
     cfg = replace(reduced(get_config("llama3.2-1b"), layers=4),
                   dtype="float32")
@@ -462,6 +470,15 @@ f = M.shard_map(body, mesh, in_specs=(pspec, M.P(None, "model")),
 p = {k: t("moe_" + k) for k in ("router", "w1", "w2", "w3")}
 y, aux = f(p, t("moe_x"))
 res["moe_y"], res["moe_aux"] = y.numpy(), aux.numpy()
+# the TP decode step on a (data 2, model 4) world (this mesh's groups now)
+sys.path.insert(0, sys.argv[5])
+from repro_torch.distributed import sharding as SH
+from test_torch_decode_tp import GLOO_ARCHS, decode_tp_run
+SH.REPLICATE_SMALL = 0
+mesh = M.ProcessMesh((2, 4), ("data", "model"))
+for arch in GLOO_ARCHS:
+    res.update({f"decode_tp/{arch}/{k}": v
+                for k, v in decode_tp_run(mesh, arch).items()})
 if rank == 0:
     np.savez(outp, **res)
 dist.barrier()
@@ -492,7 +509,7 @@ def gloo(ref, tmp_path_factory):
     port = str(_free_port())
     procs = [subprocess.Popen(
         [sys.executable, "-c", RANK_PROG, str(r), port, str(d / "in.npz"),
-         str(d / "out.npz")], env=env, stdout=subprocess.PIPE,
+         str(d / "out.npz"), str(Path(__file__).resolve().parent)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(8)]
     errs = []
     for p in procs:
@@ -508,11 +525,25 @@ def gloo(ref, tmp_path_factory):
         return {k: z[k] for k in z.files}
 
 
-@pytest.mark.parametrize("case", ["itpp_plain", "itpp_kernels", "moe"])
-def test_process_mesh_equals_local_mesh(ref, gloo, case):
+@pytest.mark.parametrize("case", ["itpp_plain", "itpp_kernels", "moe",
+                                  "decode_tp"])
+def test_process_mesh_equals_local_mesh(ref, gloo, case, monkeypatch):
     """The same bodies over ``torch.distributed`` (gloo, one shard a
-    process) give the LocalMesh's bits: the ITPP merge's pmax / psum and
-    ``moe_ep``'s two ``all_to_all``s."""
+    process) give the LocalMesh's bits: the ITPP merge's pmax / psum,
+    ``moe_ep``'s two ``all_to_all``s, and ``make_decode_step``'s TP shard
+    body on (data 2, model 4) (gemma3's tied head and windows, phi3.5-moe
+    on ``moe_ep_rows``: logits and pool pages over 2 steps)."""
+    if case == "decode_tp":
+        from repro_torch.distributed import sharding as SH
+        from test_torch_decode_tp import GLOO_ARCHS, decode_tp_run
+        monkeypatch.setattr(SH, "REPLICATE_SMALL", 0)
+        for arch in GLOO_ARCHS:
+            local = decode_tp_run(M.LocalMesh((2, 4), ("data", "model")),
+                                  arch)
+            for k, v in local.items():
+                np.testing.assert_array_equal(
+                    gloo[f"decode_tp/{arch}/{k}"], v, err_msg=f"{arch} {k}")
+        return
     if case == "moe":
         c = _sub(ref, "moe")
         p = {k[2:]: _t(v) for k, v in c.items() if k.startswith("p/")}
@@ -736,11 +767,14 @@ def _walk(tree, is_leaf):
         yield tree
 
 
-def test_pp_decode_moe_matches_forward():
+def test_pp_decode_moe_matches_forward(monkeypatch):
     """GPipe decode of a MoE stack (reduced mixtral, 4 experts as 4
     virtual experts on the model axis, dropless) on (pod 2, data 1, model
-    4): each stage's experts run as ``moe_ep`` over ``model``; logits
-    within 5e-3 of the port's full-sequence forward."""
+    4): each stage's experts run as ``moe_ep_rows`` over ``model``, its
+    dense layers as TP on the serve slices (``REPLICATE_SMALL`` at 0);
+    logits within 5e-3 of the port's full-sequence forward."""
+    from repro_torch.distributed import sharding as SH
+    monkeypatch.setattr(SH, "REPLICATE_SMALL", 0)
     cfg = replace(reduced(get_config("mixtral-8x22b"), layers=2),
                   dtype="float32", capacity_factor=8.0, sliding_window=0)
     params = MDL.init_params(cfg, seed=3, device="cpu", moe_virtual=4)
@@ -775,14 +809,17 @@ def test_pp_decode_moe_matches_forward():
 
 @pytest.mark.parametrize("path", ["plain", "kernels"])
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-27b"])
-def test_model_decode_sharded_matches_unsharded(arch, path):
-    """The model-level sharded decode: ``Plan.make_runtime(mode="decode")``
-    (ITPP over a (data 2, model 4) LocalMesh, requests pinned to data rows
-    by ``row_affine``; gemma3's mixed local:global stack on ``cond_window``)
-    through ``models.model.decode_step`` against the unsharded runtime,
-    both from the same prefilled pool: 4 greedy steps, tokens identical,
-    logits within 1e-5 of their scale (the unsharded runtime is fed the
-    sharded one's tokens)."""
+def test_model_decode_sharded_matches_unsharded(arch, path, monkeypatch):
+    """The model-level sharded decode: ``sharding.make_decode_step`` (the
+    serve slices as Megatron TP over ``model``, every divisible leaf cut
+    with ``REPLICATE_SMALL`` at 0; ITPP over a (data 2, model 4)
+    LocalMesh, requests pinned to data rows by ``row_affine``; gemma3's
+    mixed local:global stack on ``cond_window``) against the unsharded
+    ``decode_step``, both from the same prefilled pool: 4 greedy steps,
+    tokens identical, logits within 1e-5 of their scale (the unsharded
+    runtime is fed the sharded one's tokens)."""
+    from repro_torch.distributed import sharding as SH
+    monkeypatch.setattr(SH, "REPLICATE_SMALL", 0)
     cfg = replace(reduced(get_config(arch)), dtype="float32")
     params = MDL.init_params(cfg, seed=5, device="cpu")
     B, page, steps, n_pages = 4, 4, 4, 64
@@ -798,10 +835,12 @@ def test_model_decode_sharded_matches_unsharded(arch, path):
                                                  B))
     spec = PK.PoolSpec(cfg.n_layers, n_pages, page, cfg.n_kv_heads,
                        cfg.d_head, maxp, dtype="float32")
-    rt = plan.make_runtime(cfg, parallel, pool_spec=spec, mode="decode")
+    step = SH.make_decode_step(cfg, plan, parallel, spec)
+    rt = step.rt
     assert plan.itpp_spec(page).merge_axes == ("model",)
     assert rt.cond_window == (cfg.sliding_window
                               if arch == "gemma3-27b" else 0)
+    assert rt.tp_axis == "model" and rt.fetch is None
     rt_u = MDL.Runtime(kernels=KERNELS[path])
     alloc = PageAllocator(n_pages, 8, page, policy="row_affine", n_rows=2)
     for b in range(B):
@@ -820,7 +859,8 @@ def test_model_decode_sharded_matches_unsharded(arch, path):
         pos = (lens + j).to(torch.int32)
         args = (pos + 1, bt[rows, (pos // page).long()].contiguous(),
                 (pos % page).to(torch.int32))
-        lg_s, _ = MDL.decode_step(cfg, params, state, tok, bt, *args, rt=rt)
+        lg_s, state = step(params, state, dict(zip(
+            ("tokens", "bt", "ctx", "npage", "noff"), (tok, bt, *args))))
         lg_u, _ = MDL.decode_step(cfg, params, state_u, tok, bt, *args,
                                   rt=rt_u)
         scale = float(lg_u.abs().max())

@@ -15,8 +15,9 @@ import pytest
 import torch
 
 from repro.configs import ASSIGNED as JAX_ASSIGNED
-from repro_torch.configs import ASSIGNED, SHAPES, get_config
+from repro_torch.configs import ASSIGNED, SHAPES, ParallelConfig, get_config
 from repro_torch.distributed import mesh as M
+from repro_torch.distributed.sharding import make_plan
 from repro_torch.launch import dryrun as DR
 from repro_torch.launch import profile_cell as PC
 from repro_torch.launch import roofline as RF
@@ -92,6 +93,9 @@ def test_cell_builds_and_writes_json(cells, cell):
         # FSDP: weights gathered in forward (and remat), grads scattered
         assert h["collectives"]["all-gather"] > 0
         assert h["collectives"]["reduce-scatter"] > 0
+    if SHAPES[cell[1]].kind == "decode":
+        # Megatron TP: the row-parallel products summed over ``model``
+        assert h["collectives"]["all-reduce"] > 0
 
 
 def test_json_keys_are_repros(cells):
@@ -143,9 +147,20 @@ def _plain_attention_flops(cfg, shape, n_dev: int) -> float:
             * cfg.d_head * n_attn / n_dev)
 
 
+def _decode_attention_flops(cfg, shape, n_dev: int) -> float:
+    """A decode step's attention products per device: 4 B H d against
+    every context token of a global layer, its window's of a local one.
+    ``model_flops``'s decode term counts the K/V bytes a step reads,
+    which a GQA stack's H / KVH query heads per K/V head multiply."""
+    span = sum(shape.seq_len if k == "attn" else
+               min(shape.seq_len, cfg.sliding_window or shape.seq_len)
+               for k in cfg.block_kinds() if k in ("attn", "local"))
+    return 4.0 * shape.global_batch * cfg.n_heads * cfg.d_head * span / n_dev
+
+
 def test_flops_against_model_flops(cells):
-    """The counted flops against ``model_flops`` (6ND train, 2ND prefill,
-    over the devices), within 0.5-4x:
+    """The counted flops against ``model_flops`` (6ND train, 2ND prefill
+    and decode, over the devices), within 0.5-4x:
 
     * train: as they are (the count adds attention and remat's
       recompute);
@@ -156,10 +171,14 @@ def test_flops_against_model_flops(cells):
       ratio is low (0.06); ``notes.sp_recurrent_flops`` is that layer's
       parameter products on the other shards' tokens (its scan's own
       work, which 6ND leaves out, comes on top);
-    * decode: not in range. The port's decode step runs its dense layers
-      whole on every rank (no Megatron TP, ROADMAP C.13): the ratio is
-      below 0.5 and a dense stack's count is at least the whole batch's
-      2ND (a pipeline stage's: half the layers, rank 0 holding no head).
+    * decode and long (``make_decode_step``'s and the pipeline stage's
+      Megatron-TP shard body, pp included): with the attention products
+      added to ``model_flops`` (``_decode_attention_flops``), as prefill
+      adds its own. A batch the dp axes do not divide (long_500k's one
+      request) is replicated over them by repro's serve layout: each data
+      row computes the dense layers' 1/tp share of the whole request, so
+      its 2ND counts ``notes.replicated_rows`` (the dp size) times over;
+      a divided batch has ``replicated_rows`` 1.
 
     Every ratio is printed."""
     for cell, r in cells[1].items():
@@ -168,18 +187,21 @@ def test_flops_against_model_flops(cells):
         mf = RF.model_flops(arch, shape, r["devices"])
         if sh.kind == "prefill":
             mf += _plain_attention_flops(cfg, sh, r["devices"])
+        rep = r["notes"]["replicated_rows"]
+        if sh.kind == "decode":
+            plan = make_plan(M.make_production_mesh(multi_pod=cell[2]),
+                             ParallelConfig(), sh, pod_mode=cell[3])
+            assert rep == (1 if plan.batch_divisible else plan.dp_total)
+            mf += _decode_attention_flops(cfg, sh, r["devices"]) + (
+                rep - 1) * 2 * cfg.active_param_count() * sh.global_batch \
+                / r["devices"]
+        else:
+            assert rep == 1
         counted = r["hlo"]["flops"]
         rec = r["notes"]["sp_recurrent_flops"]
         print(f"{cell}: model/counted flops {mf / counted:.4f}"
-              + (f", sp recurrent share {rec / counted:.3f}" if rec else ""))
-        if sh.kind == "decode":
-            assert mf / counted < 0.5, cell
-            n = cfg.active_param_count()
-            if cell[3] == "pp":     # stage 0 of 2: half the layers, no head
-                n = (n - cfg.padded_vocab * cfg.d_model) / 2
-            if not cfg.is_moe:      # moe_ep spreads the experts' products
-                assert counted >= 0.9 * 2 * n * sh.global_batch, cell
-            continue
+              + (f", sp recurrent share {rec / counted:.3f}" if rec else "")
+              + (f", rows replicated {rep}x" if rep > 1 else ""))
         if rec:     # the exception: printed, and its cause counted
             assert arch in RECURRENT and r["layout"] == "sp", cell
             assert mf / counted < 0.5 and 0 < rec < counted, cell

@@ -1837,3 +1837,66 @@ def test_sharded_prefill_on_the_card(arch):
     for k in ("k", "v"):
         a, b = st1["pool"][k][:, :spec.n_pages], st0["pool"][k][:, :spec.n_pages]
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-27b",
+                                  "phi3.5-moe-42b-a6.6b", "zamba2-1.2b"])
+def test_sharded_decode_on_the_card(arch, monkeypatch):
+    """``sharding.make_decode_step`` on a (data 2, model 4) LocalMesh on
+    the card with the kernels (every divisible leaf cut: Megatron TP over
+    ``model``; K1 on each shard's table; zamba2's Mamba2 steps on K4)
+    against the unsharded kernel step, 4 greedy steps from the same
+    prefill: tokens identical, logits within 1e-5 of their scale."""
+    _card()
+    from dataclasses import replace
+    from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
+    from repro_torch.configs import reduced
+    from repro_torch.core import paged_kv as PK
+    from repro_torch.core.allocator import PageAllocator
+    from repro_torch.distributed import mesh as M
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.models import model as MDL
+    monkeypatch.setattr(SH, "REPLICATE_SMALL", 0)
+    cfg = replace(reduced(get_config(arch)), dtype="float32")
+    if cfg.is_moe:
+        cfg = replace(cfg, capacity_factor=8.0)
+    params = MDL.init_params(cfg, seed=0, device="cuda",
+                             moe_virtual=4 if cfg.is_moe else 0)
+    B, S, page, steps, n_pages = 4, 24, 4, 4, 64
+    maxp = (S + steps) // page + 1
+    n_attn = sum(k in ("attn", "local") for k in cfg.block_kinds())
+    spec = PK.PoolSpec(n_attn, n_pages, page, cfg.n_kv_heads, cfg.d_head,
+                       maxp, dtype="float32")
+    parallel = ParallelConfig(page_size=page)
+    plan = SH.make_plan(M.LocalMesh((2, 4), ("data", "model")), parallel,
+                        ShapeConfig("d", "decode", S + steps, B))
+    alloc = PageAllocator(n_pages, 8, page, policy="row_affine", n_rows=2)
+    for b in range(B):
+        alloc.admit(b, S + steps, row=b // 2)
+    bt = torch.from_numpy(np.stack([alloc.block_table(b, maxp)
+                                    for b in range(B)])).to(torch.int32).cuda()
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g).cuda()
+    rt = MDL.Runtime(kernels=KernelConfig())
+    state = MDL.init_decode_state(cfg, spec, B, device="cuda")
+    lg, state = MDL.prefill(cfg, params, state, toks, bt, rt=rt)
+    state_u = MDL.tree_map(torch.clone, state)
+    step = SH.make_decode_step(cfg, plan, parallel, spec)
+    V = cfg.vocab_size
+    tok = lg[:, :V].argmax(-1).to(torch.int32)
+    rows = torch.arange(B, device="cuda")
+    for j in range(steps):
+        pos = torch.full((B,), S + j, dtype=torch.int32, device="cuda")
+        batch = {"tokens": tok, "bt": bt, "ctx": pos + 1,
+                 "npage": bt[rows, (pos // page).long()].contiguous(),
+                 "noff": (pos % page).to(torch.int32)}
+        lg_s, state = step(params, state, batch)
+        lg_u, state_u = MDL.decode_step(cfg, params, state_u, tok, bt,
+                                        batch["ctx"], batch["npage"],
+                                        batch["noff"], rt=rt)
+        scale = float(lg_u.abs().max())
+        assert float((lg_s - lg_u).abs().max()) <= 1e-5 * scale, (arch, j)
+        assert torch.equal(lg_s[:, :V].argmax(-1), lg_u[:, :V].argmax(-1))
+        tok = lg_s[:, :V].argmax(-1).to(torch.int32)
