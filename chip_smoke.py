@@ -62,6 +62,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and pipeline rows; their bounds count the tokens the tables hold. K2
    also at phase 15 (b)'s sharded prefill: a shard's 4 rows of 256
    queries at q_offset 0 / 256 / 512 / 768 against 1024 gathered keys.
+   At per-row offsets (the chunk, the sharded prefill, gemma3's chunk)
+   the library call is SDPA with a boolean ``[B, 1, Sq, Skv]`` mask built
+   from ``q_offset`` (and the window), itself held to the plain version.
 4. bench   — ``python -m repro_torch.launch.kernel_bench`` at full size,
    in-process: its asserts must hold and each kernel's launch count must
    equal the calls the bench made of its wrapper (K3 launches here and on
@@ -299,11 +302,37 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    tokens/s and peak memory. Then one dry-run
    cell per shape kind on this machine's CPU (meta tensors) with its
    roofline terms at the card's datasheet figures.
+   Phases 15 and 16 call the steps in the resident form (``Plan.shard``
+   at the start, ``Plan.gather`` where they compare), the identity on a
+   ``LocalMesh``.
+
+17. mesh — a ``ProcessMesh`` on the card: two ranks (data 1, model 2),
+   two processes on the one H100 started by this script (``--mesh-rank``)
+   over gloo on a localhost port, their collectives' CUDA tensors staged
+   through host memory (NCCL refuses two ranks on one device; the compute
+   stays on the card), each holding only its own part of the state
+   (``Plan.shard``), deterministic algorithms on. (a) llama3.2-1b at
+   full width, fp32, random weights from seed 0: the sharded prefill of
+   phase 15 (b)'s 8 rows (``sp``, FSDP slices), then 8 resident decode
+   steps (TP over ``model`` on the serve slices, ITPP on the rank's page
+   block, written in place); (b) 3 resident ``fsdp`` train steps at B 8 x
+   S 512. Each rank prints the device memory (``memory_allocated``) of
+   its serve slices, FSDP slices, pool block, and params + moments
+   beside the plan's count of its slices (held within 1%) and the whole
+   tree, its step ms and the bytes staged through the host, and holds K1
+   on its own page block (its pages, then its trash page; the local
+   table) against its plain version (``TOL``). Launches a rank: K2 16,
+   K1 16 x 8. Rank 0 gathers the results and holds them to the same
+   steps on a ``LocalMesh`` (1, 2) in its process: greedy tokens
+   identical (C.3), logits and pool pages within 1e-5 of scale, losses
+   and grad norms 1e-5 relative, params and first moments 1e-4 of each
+   leaf's scale. A rank that fails fails the phase; both are stopped.
 
 ``python3 chip_smoke.py --lifecycle`` builds the kernels and runs phase 10
 alone; ``--disagg`` builds them and runs phase 11 alone; ``--xlstm``
 phase 12 alone; ``--families`` phase 13 alone; ``--train`` phase 14
-alone; ``--sharded`` phase 15 alone; ``--train-sharded`` phase 16 alone.
+alone; ``--sharded`` phase 15 alone; ``--train-sharded`` phase 16 alone;
+``--mesh`` phase 17 alone.
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
 and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
 bench and long-context shapes) and K4 (zamba2 prefill and decode, slot
@@ -611,15 +640,20 @@ def _shard_case(dev, dtype, *, KVH, G, D, page, n_pages, n_shards, my,
 def check_paged(rng, dtype, *, B=8, KVH=8, G=4, D=64, page=16, W=128,
                 ctx_max=2048, n_splits=1, window=0, ring_width=0,
                 windowed_slice=False, qpos=1, idle_row=False, time_it=False,
-                ctx_fixed=None, shard=None):
+                ctx_fixed=None, shard=None, inputs=None):
     """K1 against its plain version on a random pool, or, with ``shard``
     (``_shard_case``'s arguments), on one shard's view of a page-sharded
-    pool; a shard case's bound counts the tokens its table holds."""
+    pool, or on ``inputs`` (q, k / v pages, local table, ctx: phase 17's
+    rank block); a shard case's bound counts the tokens its table holds."""
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels.ref import combine_partials
     from repro_torch.kernels.backend import decode_hbm_bytes
     dev = DEV
-    if shard is None:
+    if inputs is not None:
+        q, kp, vp, bt, ctx = inputs
+        B, W = bt.shape
+        KVH, G, D, page = q.shape[1], q.shape[2], q.shape[3], kp.shape[1]
+    elif shard is None:
         q, kp, vp, bt, ctx = _pool_case(rng, dev, dtype, B, KVH, G, D, page,
                                         W, ctx_max=ctx_max, qpos=qpos,
                                         ctx_fixed=ctx_fixed)
@@ -674,7 +708,8 @@ def check_paged(rng, dtype, *, B=8, KVH=8, G=4, D=64, page=16, W=128,
         lo = (c - window).clamp_min(0) if window else torch.zeros_like(c)
         seen = float((hi - lo).clamp_min(0).sum())
         live = float((hi[:, -1] - lo[:, 0]).clamp_min(0).sum())
-        if shard is not None:        # sparse tables: the tokens they hold
+        if shard is not None or inputs is not None:   # sparse tables:
+            # the tokens they hold
             live = seen = _table_tokens(bt, ctx, page, window,
                                         windowed_slice)
         nbytes = (decode_hbm_bytes(live, KVH, D, esz) + q.numel() * esz
@@ -759,6 +794,30 @@ def check_flash(dtype, *, B=2, Sq=1024, Skv=1024, H=32, KVH=8, D=64,
                 res["library_ms"] = cuda_ms(
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal, enable_gqa=True))
+        elif causal:
+            # per-row offsets (a chunk, a sharded prefill's shard) have no
+            # SDPA flag: a boolean mask [B, 1, Sq, Skv] built from each
+            # row's q_offset (and the window) computes the same function
+            # in one call; held to the plain version as the kernel is
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            pos = off.long()[:, None, None] + torch.arange(
+                Sq, device=dev)[None, :, None]
+            j = torch.arange(Skv, device=dev)[None, None]
+            mask = j <= pos
+            if window:
+                mask &= j > pos - window
+            mask = mask[:, None]
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            res["library_err"] = (lib().transpose(1, 2).float()
+                                  - want.float()).abs().max().item()
+            if res["library_err"] > TOL[dtype]:
+                fail(f"SDPA with the q_offset mask misses the plain version "
+                     f"by {res['library_err']:.3e}")
+            res["library_ms"] = cuda_ms(lib)
+            res["library"] = "sdpa q_offset mask"
     return res
 
 
@@ -1089,6 +1148,12 @@ def phase_kernels() -> dict:
                 ("sharded prefill B=4 Sq=256 Skv=1024 "
                  "q_offset=[0,256,512,768]",
                  dict(B=4, Sq=256, offs=(0, 256, 512, 768), time_it=True)),
+                # phase 17's ProcessMesh prefill: a rank's 8 rows x 512
+                # queries at q_offset 0 (rank 0) or 512 (rank 1) against
+                # the rows' gathered 1024 keys; both offsets in one call
+                ("process-mesh prefill B=8 Sq=512 Skv=1024 "
+                 "q_offset=[0,512]x4",
+                 dict(B=8, Sq=512, offs=(0, 512) * 4, time_it=True)),
                 ("window=256", dict(window=256)),
                 ("ragged Sq=1000", dict(Sq=1000, Skv=1000)),
                 ("G=8 D=128 Sq=300", dict(Sq=300, Skv=300, H=16, KVH=2,
@@ -1169,8 +1234,10 @@ def phase_kernels() -> dict:
                      f"library_ms={r.get('library_ms', 'none')}"
                      + (f" ({r['library']})" if "library" in r else ""))
             if "library_err" in r:
-                line += (" (library: scaled_dot_product_attention, merged "
-                         f"output; its max_abs_err {r['library_err']:.3e})")
+                line += (" (library: scaled_dot_product_attention"
+                         + (", merged output" if kern == "flash_decode"
+                            else "")
+                         + f"; its max_abs_err {r['library_err']:.3e})")
         if "dead_splits" in r:
             line += f" dead_blocks={r['dead_splits']}"
         print(line, flush=True)
@@ -4088,7 +4155,12 @@ def sharded_long(smi: str, launches: dict, fns) -> None:
     alloc.admit(0, LONG_CTX)
     bt = torch.tensor(alloc.block_table(0, n_pages)[None], dtype=torch.int32,
                       device=DEV)
-    step = make_decode_step(cfg, plan, parallel, spec)
+    # the resident form a ProcessMesh rank takes (on this LocalMesh the
+    # global tensors themselves: shard and gather are the identity)
+    p_spec, s_spec = (plan.param_specs(params, mode="serve"),
+                      plan.state_specs(state))
+    step = make_decode_step(cfg, plan, parallel, spec, specs=p_spec)
+    p_loc, state = plan.shard(params, p_spec), plan.shard(state, s_spec)
     if step.rt.cond_window != cfg.sliding_window or \
             plan.itpp_spec(page).merge_axes != ("data", "model"):
         fail("long_500k: the plan did not set cond_window / the pod merge")
@@ -4109,13 +4181,14 @@ def sharded_long(smi: str, launches: dict, fns) -> None:
         ctx, npage, noff = step_args(j)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        lg, state = step(params, state, {"tokens": tok, "bt": bt, "ctx": ctx,
-                                         "npage": npage, "noff": noff})
+        lg, state = step(p_loc, state, {"tokens": tok, "bt": bt, "ctx": ctx,
+                                        "npage": npage, "noff": noff})
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t))
         lgs.append(lg)
         toks.append(tok)
         tok = lg[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    state = plan.gather(state, s_spec)
     la = launch_counts(fns)
     windowed = fns["paged_attention"].launches_windowed
     n_local = sum(1 for k in cfg.block_kinds() if k == "local")
@@ -4197,53 +4270,34 @@ def sharded_batched(smi: str, launches: dict, fns, params) -> None:
     shards' serve slices, each data row's 4 rows, ITPP merged over
     ``model``), tokens equal to the unsharded K1 step fed the same tokens
     (C.3), logits within 1e-5 of their scale."""
-    from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
-    from repro_torch.core.allocator import PageAllocator
-    from repro_torch.core.paged_kv import PoolSpec
+    from repro_torch.configs import get_config
     from repro_torch.distributed.mesh import LocalMesh
-    from repro_torch.distributed.sharding import (make_decode_step, make_plan,
+    from repro_torch.distributed.sharding import (make_decode_step,
                                                   make_prefill_step)
     from repro_torch.kernels.backend import KernelConfig
     from repro_torch.models import model as MDL
     cfg = replace(get_config("llama3.2-1b"), dtype="float32")
     B, S, page, steps, n_shards = 8, 1024, 16, 32, 8
-    rng = np.random.default_rng(15)
-    lens = rng.integers(256, S + 1, B)
-    maxp = (S + steps) // page + 1
-    n_pages = n_shards * 96
-    mesh = LocalMesh((2, 4), ("data", "model"))
-    parallel = ParallelConfig(page_size=page, kernel_splits=SHARD_SPLITS,
-                              remat=False)
-    alloc = PageAllocator(n_pages, n_shards, page, policy="row_affine",
-                          n_rows=2, blocked_chunk=S // 4 // page)
-    for b in range(B):
-        alloc.admit(b, int(lens[b]) + steps, row=b // 4)
-    bt = torch.tensor(np.stack([alloc.block_table(b, maxp)
-                                for b in range(B)]), dtype=torch.int32,
-                      device=DEV)
-    spec = PoolSpec(cfg.n_layers, n_pages, page, cfg.n_kv_heads, cfg.d_head,
-                    maxp, dtype="float32")
-    pre_plan = make_plan(mesh, parallel, ShapeConfig("p", "prefill", S, B),
-                         train_layout="sp")
-    pre_step = make_prefill_step(cfg, pre_plan, parallel, spec)
-    plan = make_plan(mesh, parallel, ShapeConfig("d", "decode", S + steps, B))
-    step = make_decode_step(cfg, plan, parallel, spec)
+    case = _mesh_serve_case(cfg, LocalMesh((2, 4), ("data", "model")), steps)
+    parallel, spec, lens = case["parallel"], case["spec"], case["lens"]
+    pre_plan, plan, step_args = case["pre_plan"], case["plan"], \
+        case["step_args"]
+    batch = case["batch"]
+    bt, tokens, valid = batch["bt"], batch["tokens"], batch["valid_len"]
+    n_pages = spec.n_pages
+    # the resident form a ProcessMesh rank takes (phase 17); on this
+    # LocalMesh shard and gather are the identity
+    pt_spec = pre_plan.param_specs(params, mode="train")
+    ps_spec = plan.param_specs(params, mode="serve")
+    pre_step = make_prefill_step(cfg, pre_plan, parallel, spec,
+                                 specs=pt_spec)
+    step = make_decode_step(cfg, plan, parallel, spec, specs=ps_spec)
     cut = _tp_slices("(b)", plan, params, step.rt)
     if pre_plan.itpp_spec(page) != plan.itpp_spec(page) or \
             plan.itpp_spec(page).merge_axes != ("model",):
         fail("(b): the prefill and decode plans do not share the pool's "
              "layout / the row merge")
-    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
-                          device=DEV)
-    valid = torch.tensor(lens, device=DEV)
-    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
-    rows = torch.arange(B, device=DEV)
     V = cfg.vocab_size
-
-    def step_args(j):
-        pos = lens_t + j
-        return (pos + 1, bt[rows, (pos // page).long()].contiguous(),
-                (pos % page).to(torch.int32))
     # the unsharded runtime's prefill (write_prefill's pool) comes first:
     # the sharded pool is held to it before its decode steps write
     rt_u = MDL.Runtime(kernels=KernelConfig(n_splits=SHARD_SPLITS))
@@ -4255,14 +4309,14 @@ def sharded_batched(smi: str, launches: dict, fns, params) -> None:
     torch.cuda.synchronize()
     pre_ms_u = 1e3 * (time.perf_counter() - t)
     state = MDL.init_decode_state(cfg, spec, B, device=DEV)
+    s_spec = plan.state_specs(state)
+    state = plan.shard(state, s_spec)
     _free()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fns)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    lg0, state = pre_step(params, state, {"tokens": tokens, "bt": bt,
-                                          "valid_len": valid,
-                                          "last_idx": valid - 1})
+    lg0, state = pre_step(pre_plan.shard(params, pt_spec), state, batch)
     torch.cuda.synchronize()
     pre_ms = 1e3 * (time.perf_counter() - t)
     pgap = max(float((state["pool"][n][:, :n_pages]
@@ -4276,12 +4330,13 @@ def sharded_batched(smi: str, launches: dict, fns, params) -> None:
              "by more than 1e-4")
     tok = lg0[:, :V].argmax(-1).to(torch.int32)
     toks, lgs, ms = [tok], [], []
+    p_loc = plan.shard(params, ps_spec)
     for j in range(steps):
         ctx, npage, noff = step_args(j)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        lg, state = step(params, state, {"tokens": tok, "bt": bt, "ctx": ctx,
-                                         "npage": npage, "noff": noff})
+        lg, state = step(p_loc, state, {"tokens": tok, "bt": bt, "ctx": ctx,
+                                        "npage": npage, "noff": noff})
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t))
         lgs.append(lg)
@@ -4432,8 +4487,9 @@ def sharded_pipeline(smi: str, launches: dict, fns, params) -> None:
     rng = np.random.default_rng(16)
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)), device=DEV)
     state = MDL.init_decode_state(cfg, spec, B, device=DEV)
+    p_spec = plan.param_specs(params, mode="serve")
     step = make_pp_decode_step(cfg, plan, parallel, spec, n_stages=2,
-                               microbatches=mbs)
+                               microbatches=mbs, specs=p_spec)
     cut = _tp_slices("(d)", plan, params, plan.make_runtime(
         cfg, parallel, pool_spec=spec, mode="decode"))
     _free()
@@ -4442,6 +4498,9 @@ def sharded_pipeline(smi: str, launches: dict, fns, params) -> None:
     MDL.prefill(cfg, params, state, toks[:, :S_pre], bt,
                 rt=MDL.Runtime(kernels=KernelConfig()))
     state_u = {"pool": {k: v.clone() for k, v in state["pool"].items()}}
+    # resident (the identity on this LocalMesh, as in (a) and (b))
+    s_spec = plan.state_specs(state)
+    p_loc, state = plan.shard(params, p_spec), plan.shard(state, s_spec)
     lgs, ms = [], []
     for t_ in range(S_pre, S):
         batch = {"tokens": toks[:, t_], "bt": bt,
@@ -4452,10 +4511,11 @@ def sharded_pipeline(smi: str, launches: dict, fns, params) -> None:
                                     device=DEV)}
         torch.cuda.synchronize()
         t = time.perf_counter()
-        lg, state = step(params, state, batch)
+        lg, state = step(p_loc, state, batch)
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t))
         lgs.append(lg)
+    state = plan.gather(state, s_spec)
     la = launch_counts(fns)
     want = {"flash_attention": cfg.n_layers,
             "paged_attention": steps * mbs * cfg.n_layers * 4}
@@ -4570,7 +4630,12 @@ def mesh_train(label: str, cfg, make_params, batches, mesh, smi: str,
     rt = plan.make_runtime(cfg, ParallelConfig(), mode="train")
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fns)
-    step = make_train_step(cfg, rt, ocfg)
+    # resident params and moments (on this LocalMesh the global ones;
+    # phase 17 runs the same on a ProcessMesh)
+    spec = plan.param_specs(p, mode="train")
+    o_spec = {"m": spec, "v": spec, "step": None}
+    step = make_train_step(cfg, rt, ocfg, specs=spec)
+    p = plan.shard(p, spec)
     opt = OPT.init(p)
     losses, gnorms, ms, aux = [], [], [], []
     for i, b in enumerate(batches):
@@ -4586,7 +4651,7 @@ def mesh_train(label: str, cfg, make_params, batches, mesh, smi: str,
         if "aux" in m:
             aux.append(float(m["aux"]))
         if i == 0:
-            m_mesh = _first_moments(opt)
+            m_mesh = _first_moments(plan.gather(opt, o_spec))
     peak = torch.cuda.max_memory_allocated()
     zero_launches(label, fns)
     lgap = abs(losses[0] - l_ref[0]) / abs(l_ref[0])
@@ -4725,6 +4790,479 @@ def phase_train_sharded(smi: str, launches: dict) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 17. a ProcessMesh on the card: two ranks holding their state resident
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = ((1, 2), ("data", "model"))
+MESH_STEPS = 8                  # (a): resident decode steps after prefill
+MESH_TRAIN_STEPS = 3            # (b): resident train steps
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.training.optimizer import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _held(make, cut, label: str, want: int, whole: int, out: dict):
+    """``cut(make())``: the rank's resident part of a global tree made on
+    the card, the global tree freed; records the device memory it holds
+    (``torch.cuda.memory_allocated`` before and after) beside the plan's
+    count of its slices, and fails unless they agree within 1% (a whole
+    copy would be twice the slices' bytes or more)."""
+    _free()
+    m0 = torch.cuda.memory_allocated()
+    glob = make()
+    part = cut(glob)
+    del glob
+    _free()
+    held = torch.cuda.memory_allocated() - m0
+    out[label] = {"held": held, "plan": want, "whole": whole}
+    if abs(held - want) > 0.01 * want:
+        fail(f"phase 17 {label}: the rank holds {held} bytes, its slices "
+             f"under the plan are {want}")
+    return part
+
+
+def _mesh_serve(mesh, rank: int, fns, res: dict) -> dict:
+    """(a) on this rank: the sharded prefill, then ``MESH_STEPS`` decode
+    steps, on resident params and state; returns what rank 0 compares."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (make_decode_step,
+                                                  make_prefill_step)
+    from repro_torch.models import model as MDL
+    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    case = _mesh_serve_case(cfg, mesh, MESH_STEPS)
+    B, steps = 8, MESH_STEPS
+    parallel, spec = case["parallel"], case["spec"]
+    pre_plan, plan = case["pre_plan"], case["plan"]
+    meta = MDL.init_params(cfg, device="meta")
+    meta_state = MDL.init_decode_state(cfg, spec, B, device="meta")
+    p_serve_spec = plan.param_specs(meta, mode="serve")
+    p_train_spec = pre_plan.param_specs(meta, mode="train")
+    s_spec = plan.state_specs(meta_state)
+    mem = res.setdefault("memory", {})
+    params = lambda: MDL.init_params(cfg, seed=0, dtype=torch.float32,
+                                     device=DEV)
+    p_serve = _held(params, lambda t: plan.shard(t, p_serve_spec),
+                    "serve slices", plan.local_bytes(meta, p_serve_spec),
+                    _tree_bytes(meta), mem)
+    p_train = _held(params, lambda t: pre_plan.shard(t, p_train_spec),
+                    "prefill FSDP slices",
+                    pre_plan.local_bytes(meta, p_train_spec),
+                    _tree_bytes(meta), mem)
+    st = _held(lambda: MDL.init_decode_state(cfg, spec, B, device=DEV),
+               lambda t: plan.shard(t, s_spec), "pool block",
+               plan.local_bytes(meta_state, s_spec),
+               _tree_bytes(meta_state), mem)
+    ptr = st["pool"]["k"].data_ptr()
+    pre_step = make_prefill_step(cfg, pre_plan, parallel, spec,
+                                 specs=p_train_spec)
+    step = make_decode_step(cfg, plan, parallel, spec, specs=p_serve_spec)
+    batch, step_args = case["batch"], case["step_args"]
+    reset_counts(fns)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lg0, st = pre_step(p_train, st, batch)
+    torch.cuda.synchronize()
+    pre_ms = 1e3 * (time.perf_counter() - t)
+    del p_train
+    _free()
+    la_pre = launch_counts(fns)
+    V = cfg.vocab_size
+    tok = lg0[:, :V].argmax(-1).to(torch.int32)
+    toks, lgs, ms = [tok], [], []
+    reset_counts(fns)
+    for j in range(steps):
+        ctx, npage, noff = step_args(j)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, st = step(p_serve, st, {"tokens": tok, "bt": batch["bt"],
+                                    "ctx": ctx, "npage": npage,
+                                    "noff": noff})
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        lgs.append(lg)
+        tok = lg[:, :V].argmax(-1).to(torch.int32)
+        toks.append(tok)
+    la_dec = launch_counts(fns)
+    if st["pool"]["k"].data_ptr() != ptr:
+        fail("phase 17 (a): the pool block was copied inside a step")
+    res["serve"] = {"prefill_ms": pre_ms, "decode_ms": ms,
+                    "launches_prefill": la_pre, "launches_decode": la_dec,
+                    "staged_bytes": mesh.staged_bytes}
+    # K1 on this rank's own block (its pages, its own trash page after
+    # them), the local table (its pages by local id, -1 elsewhere), layer 0
+    # at the last step's context: against its plain version
+    P_loc = st["pool"]["k"].shape[1] - 1
+    my = mesh.index(rank, plan.page_axes)
+    bt = batch["bt"].long()
+    bt_loc = torch.where((bt >= my * P_loc) & (bt < (my + 1) * P_loc),
+                         bt - my * P_loc, -1).to(torch.int32)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(17 + rank)
+    q = torch.randn((B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                     cfg.d_head), generator=g, device=DEV)
+    kp, vp = (st["pool"][n][0].narrow(0, 0, P_loc) for n in ("k", "v"))
+    k1 = check_paged(None, torch.float32, n_splits=SHARD_SPLITS,
+                     time_it=True, inputs=(q, kp, vp, bt_loc,
+                                           step_args(steps - 1)[0]))
+    if not k1["ok"]:
+        fail(f"phase 17 (a): K1 on rank {rank}'s block misses its plain "
+             f"version by {k1['max_abs_err']:.3e}")
+    res["serve"]["k1_local"] = {k: k1[k] for k in (
+        "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")}
+    res["serve"]["k1_local"]["block"] = list(kp.shape)
+    full = plan.gather(st, s_spec)      # on every rank (an all-gather)
+    out = {"toks": [t.cpu() for t in toks], "lg0": lg0.cpu(),
+           "lgs": [x.cpu() for x in lgs],
+           "pool": {n: full["pool"][n][:, :spec.n_pages].cpu()
+                    for n in ("k", "v")}}
+    del full, st, p_serve, lgs, lg0
+    _free()
+    return out
+
+
+def _mesh_serve_case(cfg, mesh, steps: int) -> dict:
+    """Phase 15 (b)'s and 17 (a)'s geometry on ``mesh``: 8 rows of 256-1024
+    tokens (padded to 1024; seed 15) in pages of 16, room for ``steps``
+    decode steps, ``row_affine`` over the mesh's data rows (4 rows a data
+    row on (2, 4)) with ``blocked_chunk`` a model shard's block of the
+    sequence; its plans, batch and step arguments."""
+    from repro_torch.configs import ParallelConfig, ShapeConfig
+    from repro_torch.core.allocator import PageAllocator
+    from repro_torch.core.paged_kv import PoolSpec
+    from repro_torch.distributed.sharding import make_plan
+    B, S, page = 8, 1024, 16
+    n_shards, tp, dp = mesh.size, mesh.shape["model"], mesh.shape["data"]
+    rng = np.random.default_rng(15)
+    lens = rng.integers(256, S + 1, B)
+    maxp = (S + steps) // page + 1
+    n_pages = 768
+    parallel = ParallelConfig(page_size=page, kernel_splits=SHARD_SPLITS,
+                              remat=False)
+    alloc = PageAllocator(n_pages, n_shards, page, policy="row_affine",
+                          n_rows=dp, blocked_chunk=S // tp // page)
+    for b in range(B):
+        alloc.admit(b, int(lens[b]) + steps, row=b // (B // dp))
+    bt = torch.tensor(np.stack([alloc.block_table(b, maxp)
+                                for b in range(B)]), dtype=torch.int32,
+                      device=DEV)
+    spec = PoolSpec(cfg.n_layers, n_pages, page, cfg.n_kv_heads, cfg.d_head,
+                    maxp, dtype="float32")
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                          device=DEV)
+    valid = torch.tensor(lens, device=DEV)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    rows = torch.arange(B, device=DEV)
+
+    def step_args(j):
+        pos = lens_t + j
+        return (pos + 1, bt[rows, (pos // page).long()].contiguous(),
+                (pos % page).to(torch.int32))
+    return {"parallel": parallel, "spec": spec, "step_args": step_args,
+            "lens": lens,
+            "pre_plan": make_plan(mesh, parallel,
+                                  ShapeConfig("p", "prefill", S, B),
+                                  train_layout="sp"),
+            "plan": make_plan(mesh, parallel,
+                              ShapeConfig("d", "decode", S + steps, B)),
+            "batch": {"tokens": tokens, "bt": bt, "valid_len": valid,
+                      "last_idx": valid - 1}}
+
+
+def _mesh_train(mesh, rank: int, fns, res: dict) -> dict:
+    """(b) on this rank: ``MESH_TRAIN_STEPS`` ``fsdp`` train steps of
+    llama3.2-1b at B 8 x S 512 on resident params and moments; returns
+    the losses, grad norms and the gathered params and first moments."""
+    from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
+    from repro_torch.data.pipeline import TrainPipeline
+    from repro_torch.distributed.sharding import make_plan
+    from repro_torch.models import model as MDL
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train import make_train_step, to_device
+    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    B, S = 8, 512
+    plan = make_plan(mesh, ParallelConfig(), ShapeConfig("t", "train", S, B))
+    if plan.train_layout != "fsdp":
+        fail(f"phase 17 (b): the plan chose {plan.train_layout}")
+    meta = MDL.init_params(cfg, device="meta")
+    spec = plan.param_specs(meta, mode="train")
+    o_spec = {"m": spec, "v": spec, "step": None}
+    mem = res.setdefault("memory", {})
+
+    def resident(glob):
+        p = plan.shard(glob, spec)
+        return p, OPT.init(p)
+    p, opt = _held(lambda: MDL.init_params(cfg, seed=0, dtype=torch.float32,
+                                           device=DEV), resident,
+                   "params + moments", 3 * plan.local_bytes(meta, spec) + 4,
+                   3 * _tree_bytes(meta) + 4, mem)
+    ocfg = OPT.AdamWConfig(**TRAIN_OPT)
+    step = make_train_step(cfg, plan.make_runtime(cfg, ParallelConfig(),
+                                                  mode="train"), ocfg,
+                           specs=spec)
+    batches = [to_device(TrainPipeline(cfg.vocab_size, S, B).batch(i), DEV)
+               for i in range(MESH_TRAIN_STEPS)]
+    losses, gnorms, ms = [], [], []
+    staged = mesh.staged_bytes
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fns)
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, opt, m = step(p, opt, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    res["train"] = {"ms": ms, "losses": losses, "gnorms": gnorms,
+                    "launches": launch_counts(fns),
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "staged_bytes": mesh.staged_bytes - staged}
+    out = {"losses": losses, "gnorms": gnorms,
+           "params": [x.cpu() for x in OPT.tree_leaves(
+               plan.gather(p, spec))]}
+    del p
+    _free()
+    out["m"] = [x.cpu() for x in OPT.tree_leaves(
+        plan.gather(opt, o_spec)["m"])]
+    del opt
+    _free()
+    return out
+
+
+def mesh_rank(rank: int, port: int, out: Path) -> int:
+    """One rank of phase 17 (``chip_smoke.py --mesh-rank R PORT DIR``, run
+    by ``phase_process_mesh``): a gloo world of ``MESH_SHAPE``'s ranks on
+    the one card (NCCL refuses two ranks on one device; gloo's collectives
+    run on host tensors, so ``ProcessMesh`` stages the CUDA tensors
+    through host memory); (a) and (b) on resident state, the results
+    gathered; rank 0 then runs the same steps on a ``LocalMesh`` and
+    holds the gathered results to them. Writes ``DIR/rank<R>.json``."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.distributed.mesh import ProcessMesh
+    torch.cuda.set_device(0)
+    # the embedding's backward (an accumulating index) repeatable, so the
+    # two meshes' steps can agree bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    n = int(np.prod(MESH_SHAPE[0]))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=n, rank=rank)
+    try:
+        mesh = ProcessMesh(*MESH_SHAPE)
+        fns = _kernel_fns()
+        res: dict = {"rank": rank, "staged": mesh.staged}
+        t0 = time.perf_counter()
+        serve = _mesh_serve(mesh, rank, fns, res)
+        train = _mesh_train(mesh, rank, fns, res)
+        res["process_mesh_s"] = time.perf_counter() - t0
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        t0 = time.perf_counter()
+        res["local"] = _mesh_against_local(serve, train, fns)
+        res["local_s"] = time.perf_counter() - t0
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def _mesh_against_local(serve: dict, train: dict, fns) -> dict:
+    """Rank 0: (a) and (b) on a ``LocalMesh`` of ``MESH_SHAPE`` in this
+    process (its shards threads, resident tensors the global ones), fed
+    the ProcessMesh's tokens: greedy tokens identical (C.3's near-tie
+    rule), logits and the pool's pages within 1e-5 of their scale, each
+    train step's loss and grad norm within 1e-5 relative, the params and
+    first moments within 1e-4 of each leaf's scale (phase 16's bounds).
+    Returns the gaps."""
+    from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
+    from repro_torch.data.pipeline import TrainPipeline
+    from repro_torch.distributed.mesh import LocalMesh
+    from repro_torch.distributed.sharding import (make_decode_step, make_plan,
+                                                  make_prefill_step)
+    from repro_torch.models import model as MDL
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train import make_train_step, to_device
+    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    mesh = LocalMesh(*MESH_SHAPE)
+    case = _mesh_serve_case(cfg, mesh, MESH_STEPS)
+    params = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    state = MDL.init_decode_state(cfg, case["spec"], 8, device=DEV)
+    pre = make_prefill_step(cfg, case["pre_plan"], case["parallel"],
+                            case["spec"], specs=case["pre_plan"].param_specs(
+                                params, mode="train"))
+    step = make_decode_step(cfg, case["plan"], case["parallel"],
+                            case["spec"], specs=case["plan"].param_specs(
+                                params, mode="serve"))
+    reset_counts(fns)
+    lg0, state = pre(params, state, case["batch"])
+    gaps = {"logits": _logit_gap(serve["lg0"].to(DEV), lg0)}
+    gaps["max_logit_gap"] = _greedy_check("phase 17 (a) prefill", cfg,
+                                          serve["lg0"].to(DEV), lg0,
+                                          serve["toks"][0].to(DEV))
+    batch = case["batch"]
+    for j in range(MESH_STEPS):
+        ctx, npage, noff = case["step_args"](j)
+        lg, state = step(params, state, {
+            "tokens": serve["toks"][j].to(DEV), "bt": batch["bt"],
+            "ctx": ctx, "npage": npage, "noff": noff})
+        got = serve["lgs"][j].to(DEV)
+        gaps["max_logit_gap"] = max(gaps["max_logit_gap"], _greedy_check(
+            "phase 17 (a)", cfg, got, lg, serve["toks"][j + 1].to(DEV)))
+        gaps["logits"] = max(gaps["logits"], _logit_gap(got, lg))
+    n = case["spec"].n_pages
+    gaps["pages"] = max(_logit_gap(serve["pool"][k].to(DEV),
+                                   state["pool"][k][:, :n]) for k in "kv")
+    gaps["bit_equal_serve"] = bool(
+        gaps["logits"] == 0 and gaps["pages"] == 0)
+    gaps["launches_serve"] = launch_counts(fns)
+    del params, state, lg0, lg
+    _free()
+    B, S = 8, 512
+    plan = make_plan(mesh, ParallelConfig(), ShapeConfig("t", "train", S, B))
+    p = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    step = make_train_step(cfg, plan.make_runtime(cfg, ParallelConfig(),
+                                                  mode="train"),
+                           OPT.AdamWConfig(**TRAIN_OPT),
+                           specs=plan.param_specs(p, mode="train"))
+    opt = OPT.init(p)
+    losses, gnorms = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        p, opt, m = step(p, opt, to_device(
+            TrainPipeline(cfg.vocab_size, S, B).batch(i), DEV))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    gaps["loss"] = max(abs(a - b) / abs(b) for a, b in zip(train["losses"],
+                                                           losses))
+    gaps["grad_norm"] = max(abs(a - b) / abs(b)
+                            for a, b in zip(train["gnorms"], gnorms))
+    gaps["params"] = _moment_gap(train["params"], [
+        x.detach().cpu() for x in OPT.tree_leaves(p)])
+    gaps["first_moments"] = _moment_gap(train["m"], _first_moments(opt))
+    gaps["bit_equal_train"] = bool(
+        gaps["loss"] == 0 and gaps["params"] == 0
+        and gaps["first_moments"] == 0)
+    del p, opt
+    _free()
+    bad = [k for k, bound in (("logits", 1e-5), ("pages", 1e-5),
+                              ("loss", 1e-5), ("grad_norm", 1e-5),
+                              ("params", 1e-4), ("first_moments", 1e-4))
+           if not gaps[k] <= bound]
+    if bad:
+        fail(f"phase 17: the ProcessMesh's gathered results differ from the "
+             f"LocalMesh's in {bad}: {gaps}")
+    return gaps
+
+
+def phase_process_mesh(smi: str, launches: dict) -> None:
+    """Phase 17: a ``ProcessMesh`` on the card for the first time: two
+    ranks (``MESH_SHAPE``, both on the one H100, over gloo with their CUDA
+    tensors staged through host memory), each holding only its own part
+    of the state (``Plan.shard``): (a) llama3.2-1b at full width, fp32,
+    random weights from seed 0, the sharded prefill of phase 15 (b)'s 8
+    rows, then ``MESH_STEPS`` resident decode steps (TP over ``model``,
+    ITPP over the rank's own page block); (b) ``MESH_TRAIN_STEPS``
+    resident ``fsdp`` train steps at phase 16 (a)'s B 8 x S 512. Each rank
+    prints the device memory its resident params, moments and pool block
+    take beside the plan's count of its slices and the whole model, its
+    step ms, and K1 on its own page block against its plain version; the
+    results gathered at the end are held to the same steps on a
+    ``LocalMesh``. Launches: K2 16 a rank (the prefill), K1 16 x
+    ``MESH_STEPS`` a rank, none in training."""
+    import os
+    import socket
+    import shutil
+    out = HERE / "build" / "process_mesh"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(HERE / "src"),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    n = int(np.prod(MESH_SHAPE[0]))
+    t0 = time.perf_counter()
+    logs = [open(out / f"rank{r}.log", "w") for r in range(n)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--mesh-rank", str(r),
+         str(port), str(out)], env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(n)]
+    try:
+        deadline = time.perf_counter() + 600
+        while any(pr.poll() is None for pr in procs):
+            if time.perf_counter() > deadline or any(
+                    pr.returncode not in (None, 0) for pr in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+            pr.wait()
+        for f in logs:
+            f.close()
+    for r in range(n):
+        text = (out / f"rank{r}.log").read_text()
+        tail = "\n".join(text.splitlines()[-40:])
+        if procs[r].returncode or not (out / f"rank{r}.json").exists():
+            fail(f"phase 17: rank {r} exited with {procs[r].returncode}:\n"
+                 f"{tail}")
+    wall = time.perf_counter() - t0
+    res = [json.loads((out / f"rank{r}.json").read_text()) for r in range(n)]
+    from repro_torch.configs import get_config
+    cfg_layers = get_config("llama3.2-1b").n_layers
+    for r in res:
+        tag = f"[mesh] rank {r['rank']}/{n}"
+        for label, m in r["memory"].items():
+            print(f"{tag}: {label} {m['held'] / 1e9:.3f} GB on the card "
+                  f"(torch.cuda.memory_allocated), the plan's count of its "
+                  f"slices {m['plan'] / 1e9:.3f} GB, whole "
+                  f"{m['whole'] / 1e9:.3f} GB | {smi}", flush=True)
+        sv, tr, k1 = r["serve"], r["train"], r["serve"]["k1_local"]
+        print(f"{tag}: (a) llama3.2-1b {cfg_layers} layers, 8 rows, prefill "
+              f"ms {sv['prefill_ms']:.1f} (make_prefill_step, sp, FSDP "
+              f"slices), decode step ms "
+              + " ".join(f"{x:.2f}" for x in sv["decode_ms"])
+              + f" (make_decode_step, TP over model, ITPP on the rank's "
+              f"block); collectives staged through host memory "
+              f"{sv['staged_bytes'] / 1e9:.3f} GB (gloo) | {smi}", flush=True)
+        print(f"{tag}: K1 on its own block {k1['block']} (its pages, then "
+              f"its own trash page), local table: max_abs_err "
+              f"{k1['max_abs_err']:.3e} (tolerance {TOL[torch.float32]}) ms "
+              f"{k1['ms']:.4f} (graph replay {k1['graph_ms']:.4f}) bound_ms "
+              f"{k1['bound_ms']:.4f} ({k1['bound_by']}) plain_ms "
+              f"{k1['plain_ms']:.4f} | {smi}", flush=True)
+        print(f"{tag}: (b) fsdp B 8 x S 512, step ms "
+              + " ".join(f"{x:.1f}" for x in tr["ms"]) + ", losses "
+              + " ".join(f"{x:.6f}" for x in tr["losses"])
+              + f", peak device GB {tr['peak'] / 1e9:.2f}, collectives "
+              f"staged through host memory {tr['staged_bytes'] / 1e9:.3f} "
+              f"GB | {smi}", flush=True)
+        la = {k: sv["launches_prefill"][k] + sv["launches_decode"][k]
+              + tr["launches"][k] for k in sv["launches_decode"]}
+        want = {"flash_attention": cfg_layers,
+                "paged_attention": cfg_layers * MESH_STEPS}
+        _check_path(f"phase 17 rank {r['rank']}", la, want, launches)
+    g = res[0]["local"]
+    lw = {k: v for k, v in g["launches_serve"].items() if v}
+    if lw != {"flash_attention": cfg_layers * n,
+              "paged_attention": cfg_layers * n * MESH_STEPS}:
+        fail(f"phase 17: the LocalMesh reference launched {lw}")
+    print(f"[mesh] gathered against the LocalMesh {MESH_SHAPE[0]} (rank 0, "
+          f"{res[0]['local_s']:.1f} s): logits {g['logits']:.3e} and pool "
+          f"pages {g['pages']:.3e} of scale (bound 1e-5), tokens identical "
+          f"(max logit gap {g['max_logit_gap']:.3e}), bit-equal "
+          f"{g['bit_equal_serve']}; train loss {g['loss']:.3e}, grad norm "
+          f"{g['grad_norm']:.3e} rel (bound 1e-5), params {g['params']:.3e},"
+          f" first moments {g['first_moments']:.3e} of scale (bound 1e-4), "
+          f"bit-equal {g['bit_equal_train']}", flush=True)
+    print(f"[mesh] phase 17 in {wall:.1f} s (ranks' ProcessMesh part "
+          + " / ".join(f"{r['process_mesh_s']:.1f}" for r in res)
+          + " s)", flush=True)
+
+
 def kernel_times(src: str, smi: str, paged_only: bool = False) -> None:
     """``--kernel-times SRC``: K1, K2, K3 and K4 of the ``repro_torch``
     under ``SRC`` (this checkout's ``src`` or another's, e.g. an unpacked
@@ -4841,6 +5379,9 @@ def k4_ablation(smi: str) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-rank"]:     # a rank of phase 17
+        return mesh_rank(int(sys.argv[2]), int(sys.argv[3]),
+                         Path(sys.argv[4]))
     t0 = time.perf_counter()
     smi = phase_device()
     if sys.argv[1:2] in (["--kernel-times"], ["--paged-times"]):
@@ -4872,6 +5413,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--train-sharded"]:
         phase_train_sharded(smi, {})
         return 0
+    if sys.argv[1:2] == ["--mesh"]:
+        phase_process_mesh(smi, {})
+        return 0
     main_cases = phase_kernels()
     bench_launches = phase_bench(smi)
     ref: dict = {}
@@ -4886,6 +5430,7 @@ def main() -> int:
     phase_train(smi, launches)
     phase_sharded(smi, launches)
     phase_train_sharded(smi, launches)
+    phase_process_mesh(smi, launches)
     # K3 serves whisper's cross-attention decode (phase 13) beside the bench
     serving_k3 = launches.get("flash_decode", 0)
     launches["flash_decode"] = serving_k3 + bench_launches["flash_decode"]

@@ -270,10 +270,13 @@ def make_itpp_attention(mesh, spec: ItppSpec, *, max_pages_per_req: int,
                         ring_width: int = 0, cond_window: int = 0,
                         kernels: KernelConfig | None = None):
     """The sharded decode attention op: f(q, k_new, v_new, pool_k, pool_v,
-    bt, ctx, new_page, new_off, window) -> (out, pool_k, pool_v) on GLOBAL
-    tensors, one ``itpp_decode_attention_shard`` per shard of ``mesh``
-    (plain when ``mesh`` is None or the spec unsharded). ``kernels`` picks
-    the shard-local compute."""
+    bt, ctx, new_page, new_off, window) -> (out, pool_k, pool_v), one
+    ``itpp_decode_attention_shard`` per shard of ``mesh`` (plain when
+    ``mesh`` is None or the spec unsharded). The pools are resident in
+    and out (``mesh.Resident``: on a ``ProcessMesh`` the rank's block of
+    pages with its own trash page, ``mesh.shard``, written in place; the
+    global pool on a ``LocalMesh``); the other tensors are global.
+    ``kernels`` picks the shard-local compute."""
     layout = mesh.pool_layout if mesh is not None else "local"
     body = partial(itpp_decode_attention_shard, spec=spec,
                    max_pages_per_req=max_pages_per_req,
@@ -282,7 +285,7 @@ def make_itpp_attention(mesh, spec: ItppSpec, *, max_pages_per_req: int,
     if mesh is None or not spec.page_axes:
         return body
     b = M.P(spec.batch_axis)
-    pool = M.P(M.Paged(spec.page_axes))
+    pool = M.Resident(M.P(M.Paged(spec.page_axes)))
     return M.shard_map(body, mesh,
                        in_specs=(b, b, b, pool, pool, b, b, b, b, None),
                        out_specs=(b, pool, pool))

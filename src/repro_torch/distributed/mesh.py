@@ -21,9 +21,10 @@ as no shard).
   paths run on one card (and the CPU tests): 8 shards in one process, as
   repro's tests force 8 host devices.
 * ``ProcessMesh`` — one shard per process over ``torch.distributed``
-  (``gloo`` on the CPU), with one process group per axis tuple, made when
-  the mesh is. NCCL across cards is the design target; it is unverified
-  (the card's machine has one GPU).
+  (``gloo`` on the CPU, and for ranks that share one card: a CUDA
+  tensor's collectives staged through host memory), with one process
+  group per axis tuple, made when the mesh is. NCCL across cards is the
+  design target; it is unverified (the card's machine has one GPU).
 * ``ShapeMesh`` — one shard's body on tensors without storage, each
   collective counting the bytes it would move: the dry-run's backend
   (``launch/dryrun.py``).
@@ -33,19 +34,35 @@ sum or max over the members stacked in row-major shard order. Every member
 of a group so holds the same bits, and the two backends agree bit for bit.
 (An all-reduce would move less data; its order would be the library's.)
 
-``shard_map(body, mesh, in_specs, out_specs)`` takes and returns GLOBAL
-tensors: it hands each shard its slices and assembles the outputs. A spec
-is ``None`` (replicated; also for a non-tensor argument), a dict of specs
-for a dict argument, or ``P(...)`` — JAX's ``PartitionSpec`` as a tuple,
-one entry per leading dim: ``None``, an axis name or a tuple of names (the
-dim cut into contiguous blocks, row-major over the names), or
-``Paged(axes)`` for a paged pool's page dim with its trash page last
-(``core/itpp.py`` states that layout). On a ``LocalMesh`` a cut dim is a
-view (nothing is copied) and a ``Paged`` dim is the whole pool
-(``pool_layout = "global"``); on a ``ProcessMesh`` each process takes its
-block (a ``Paged`` block gets its own trash page, ``pool_layout =
-"local"``) and the outputs are all-gathered, so every rank returns the
-global result.
+``shard_map(body, mesh, in_specs, out_specs)`` runs ``body`` once per
+shard. A spec is ``None`` (replicated; also for a non-tensor argument), a
+dict of specs for a dict argument, a list or tuple of specs for a list or
+tuple argument, or ``P(...)`` — JAX's ``PartitionSpec`` as a tuple, one
+entry per leading dim: ``None``, an axis name or a tuple of names (the dim
+cut into contiguous blocks, row-major over the names), or ``Paged(axes)``
+for a paged pool's page dim with its trash page last (``core/itpp.py``
+states that layout). One ``P`` also stands for every leaf of a subtree.
+
+An argument or output is either global or RESIDENT (``Resident(spec)``):
+
+* global — ``shard_map`` hands each shard its block of the global tensor
+  and assembles the global output from the shards' blocks;
+* resident — the rank's own block under ``spec``, which it holds across
+  steps as ``repro``'s shardings hold a step's state: on a
+  ``ProcessMesh`` (and a ``ShapeMesh``) an input is not cut and an output
+  is not gathered; a ``Paged`` pool's block is the rank's own pages plus
+  its own trash page (``pool_layout = "local"``), written in place by the
+  step. On a ``LocalMesh`` a resident tensor IS the global one (the
+  shards' blocks are views of it, a ``Paged`` dim the whole pool,
+  ``pool_layout = "global"``), so there the two forms are the same.
+
+Global tensors are cut and gathered only at the edges: ``shard(tree,
+specs, mesh)`` gives a rank its resident part, ``gather(tree, specs,
+mesh)`` the global tree back (both the identity on a ``LocalMesh``;
+``distributed/sharding.Plan.shard`` / ``gather`` take the plan's mesh).
+On a ``ProcessMesh`` a global output is all-gathered over its cut axes so
+every rank returns it; a ``ShapeMesh`` returns the shard's own outputs
+(the dry-run counts the step, not its edges).
 """
 from __future__ import annotations
 
@@ -74,6 +91,21 @@ class P(tuple):
 class Paged:
     """A paged pool's page dim, cut over ``axes``, trash page last."""
     axes: tuple[str, ...]
+
+
+@dataclass(frozen=True)
+class Resident:
+    """A ``shard_map`` spec (tree) whose argument or output is already the
+    rank's own block under ``spec``: not cut on the way in, not gathered
+    on the way out (the global tensor itself on a ``LocalMesh``)."""
+    spec: object
+
+
+def _subspecs(spec, a) -> bool:
+    """``spec`` a list or tuple of specs, one per element of the list or
+    tuple ``a`` (a ``P``, or a plain tuple for a tensor, is one spec)."""
+    return (isinstance(spec, (list, tuple)) and not isinstance(spec, P)
+            and isinstance(a, (list, tuple)))
 
 
 def _names(axis) -> tuple[str, ...]:
@@ -499,7 +531,13 @@ class ProcessMesh(Mesh):
     of ``prod(shape)`` ranks (the caller gives ``init_process_group`` its
     address, world size and rank). Every rank builds the mesh, which makes
     one process group per axis tuple and group, in the same order on every
-    rank, and this process's rank becomes the shard collectives run as."""
+    rank, and this process's rank becomes the shard collectives run as.
+
+    Over ``gloo`` (the CPU tests, and ranks that share one card, which
+    NCCL refuses) a collective's CUDA tensor is staged through host
+    memory: copied to the host, exchanged by gloo, copied back to its
+    device. That is the wire only; the compute stays on the card.
+    ``staged_bytes`` counts the bytes this rank sent that way."""
 
     def __init__(self, shape, axis_names):
         import torch.distributed as dist
@@ -508,6 +546,8 @@ class ProcessMesh(Mesh):
             raise RuntimeError(f"ProcessMesh {self.shape} needs an "
                                f"initialised world of {self.size} ranks")
         self.rank = dist.get_rank()
+        self.staged = dist.get_backend() == "gloo"
+        self.staged_bytes = 0
         self._pgs: dict[tuple[int, ...], object] = {}
         for k in range(1, len(self.axis_names) + 1):
             for axes in itertools.combinations(self.axis_names, k):
@@ -523,23 +563,32 @@ class ProcessMesh(Mesh):
         pg = self._pgs[tuple(sorted(members))]
         return pg, [dist.get_global_rank(pg, i) for i in range(len(members))]
 
+    def _wire(self, x):
+        """``x`` as the backend takes it: on the host for gloo."""
+        if self.staged and x.is_cuda:
+            self.staged_bytes += x.numel() * x.element_size()
+            return x.cpu()
+        return x
+
     def _gather(self, rank, axes, x):
         import torch.distributed as dist
         members = self.group(rank, axes)
         pg, order = self._pg(members)
-        x = x.contiguous()
-        out = [torch.empty_like(x) for _ in members]
-        dist.all_gather(out, x, group=pg)
-        return [out[order.index(r)] for r in members]
+        w = self._wire(x.contiguous())
+        out = [torch.empty_like(w) for _ in members]
+        dist.all_gather(out, w, group=pg)
+        return [out[order.index(r)].to(x.device) for r in members]
 
     def _all_to_all(self, rank, axes, x):
         import torch.distributed as dist
         members = self.group(rank, axes)
         pg, order = self._pg(members)
-        send = torch.stack([x[members.index(g)] for g in order]).contiguous()
+        send = self._wire(torch.stack([x[members.index(g)]
+                                       for g in order]).contiguous())
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send, group=pg)
-        return torch.stack([recv[order.index(r)] for r in members])
+        return torch.stack([recv[order.index(r)] for r in members]).to(
+            x.device)
 
     def run(self, fn):
         """``fn(rank)`` as this process's shard."""
@@ -556,17 +605,15 @@ class ShapeMesh(Mesh):
     input, a reduce-scatter, an all-to-all or a permute its input. A
     group of one shard moves nothing. While ``quiet`` (a collective's
     emulation, a shard's slicing of its arguments) ops run uncounted by
-    the dry-run's tallies. ``shard_map`` returns the body's outputs
-    assembled as a ``ProcessMesh`` does, every cut dim all-gathered
-    (counted), but a pool's pages (``Paged``) stay on their shard, as a
-    ``LocalMesh`` writes them in place; with ``assemble`` False it
-    returns the shard's own outputs."""
+    the dry-run's tallies. ``shard_map`` cuts the global arguments (a
+    resident one is the shard's block already, as on a ``ProcessMesh``)
+    and returns the shard's own outputs, uncounted edges aside: what one
+    rank of the step computes, holds and moves."""
     pool_layout = "local"
 
-    def __init__(self, shape, axis_names, *, rank: int = 0,
-                 assemble: bool = True):
+    def __init__(self, shape, axis_names, *, rank: int = 0):
         super().__init__(shape, axis_names)
-        self.rank, self.assemble = rank, assemble
+        self.rank = rank
         self.collectives: dict[str, float] = {}
         self.quiet_depth = 0
         self.coll_depth = 0
@@ -610,13 +657,20 @@ class ShapeMesh(Mesh):
 
 
 # ---------------------------------------------------------------------------
-# shard_map
+# shard_map and the edges
 # ---------------------------------------------------------------------------
 
 def _split(a, spec, mesh: Mesh, rank: int):
-    """Shard ``rank``'s part of the global argument ``a``."""
+    """Shard ``rank``'s part of the global argument ``a`` (a resident one
+    as it is, but on a ``LocalMesh``)."""
+    if isinstance(spec, Resident):
+        if not isinstance(mesh, LocalMesh):
+            return a
+        spec = spec.spec
     if isinstance(spec, dict):
         return {k: _split(a[k], spec.get(k), mesh, rank) for k in a}
+    if _subspecs(spec, a):
+        return type(a)(_split(v, s, mesh, rank) for v, s in zip(a, spec))
     if not torch.is_tensor(a) and isinstance(a, dict):
         return {k: _split(v, spec, mesh, rank) for k, v in a.items()}
     if isinstance(a, (list, tuple)):        # a carry's tuple: one spec
@@ -647,10 +701,15 @@ def _assemble_local(outs: list, spec, mesh: Mesh, rank: int = 0):
     """The global output from every shard's block (a ``LocalMesh``):
     blocks concatenated over the cut dims, a replicated dim read from the
     shard at index 0 of the axes its spec does not name."""
+    if isinstance(spec, Resident):
+        spec = spec.spec
     if isinstance(spec, dict):
         return {k: _assemble_local([o[k] for o in outs], spec.get(k), mesh,
                                    rank) for k in outs[0]}
     first = outs[rank]
+    if _subspecs(spec, first):
+        return type(first)(_assemble_local([o[i] for o in outs], s, mesh,
+                                           rank) for i, s in enumerate(spec))
     if not torch.is_tensor(first) and isinstance(first, dict):
         return {k: _assemble_local([o[k] for o in outs], spec, mesh, rank)
                 for k in first}
@@ -674,9 +733,14 @@ def _assemble_local(outs: list, spec, mesh: Mesh, rank: int = 0):
 def _assemble_process(out, spec, mesh: "ProcessMesh"):
     """The global output on every rank (a ``ProcessMesh``): each cut dim
     all-gathered over its axes, a ``Paged`` dim's pages gathered and a
-    zero trash page appended."""
+    zero trash page appended; a resident output as it is."""
+    if isinstance(spec, Resident):
+        return out
     if isinstance(spec, dict):
         return {k: _assemble_process(out[k], spec.get(k), mesh) for k in out}
+    if _subspecs(spec, out):
+        return type(out)(_assemble_process(v, s, mesh)
+                         for v, s in zip(out, spec))
     if not torch.is_tensor(out) and isinstance(out, dict):
         return {k: _assemble_process(v, spec, mesh) for k, v in out.items()}
     if isinstance(out, (list, tuple)):
@@ -697,33 +761,63 @@ def _assemble_process(out, spec, mesh: "ProcessMesh"):
     return out
 
 
-def _assemble_shape(out, spec, mesh: ShapeMesh):
-    """``_assemble_process`` on a ``ShapeMesh``: a ``Paged`` dim takes its
-    global size without a collective (the pages stay where they are)."""
-    if isinstance(spec, dict):
-        return {k: _assemble_shape(out[k], spec.get(k), mesh) for k in out}
-    if not torch.is_tensor(out) and isinstance(out, dict):
-        return {k: _assemble_shape(v, spec, mesh) for k, v in out.items()}
-    if isinstance(out, (list, tuple)):
-        return type(out)(_assemble_shape(v, spec, mesh) for v in out)
-    if spec is None or not torch.is_tensor(out):
-        return out
-    for d, e in enumerate(spec):
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree) if torch.is_tensor(tree) else tree
+
+
+def shard(tree, specs, mesh: Mesh):
+    """This rank's resident part of the global ``tree`` under ``specs``
+    (the edge a resident step's state comes in by). The identity on a
+    ``LocalMesh``; on a ``ProcessMesh`` every cut leaf is a copy of its
+    block (the global tree can go) and a ``Paged`` block gets its own
+    trash page; on a ``ShapeMesh`` the shard's blocks, uncounted."""
+    if isinstance(mesh, LocalMesh):
+        return tree
+    if isinstance(mesh, ShapeMesh):
+        with mesh.quiet():
+            return _split(tree, specs, mesh, mesh.rank)
+    if not isinstance(mesh, ProcessMesh):
+        raise TypeError(f"{mesh!r} has no shards to hold a tree")
+    return _map(lambda t: t.clone() if t._is_view() else t,
+                _split(tree, specs, mesh, mesh.rank))
+
+
+def gather(tree, specs, mesh: Mesh):
+    """The global tree from every rank's resident part under ``specs``
+    (the edge a resident step's state leaves by: a comparison, a
+    checkpoint), on every rank. The identity on a ``LocalMesh``."""
+    if isinstance(mesh, LocalMesh):
+        return tree
+    if not isinstance(mesh, ProcessMesh):
+        raise TypeError(f"{mesh!r} holds no data to gather")
+    return _assemble_process(tree, specs, mesh)
+
+
+def block_nbytes(t, spec, mesh: Mesh) -> int:
+    """The bytes of a rank's block of the global leaf ``t`` under ``spec``:
+    ``t``'s bytes over the shards its cut dims split it into; a ``Paged``
+    dim the rank's pages and its own trash page."""
+    n, nbytes = 1, t.numel() * t.element_size()
+    for d, e in enumerate(spec or ()):
         if isinstance(e, Paged):
-            shape = list(out.shape)
-            shape[d] = (shape[d] - 1) * mesh.axis_size(e.axes) + 1
-            with mesh.quiet():
-                out = out.new_empty(shape)
+            pages = t.shape[d]
+            nbytes = nbytes // pages * ((pages - 1)
+                                        // mesh.axis_size(e.axes) + 1)
         elif e is not None:
-            out = all_gather(out, e, dim=d, tiled=True)
-    return out
+            n *= mesh.axis_size(e)
+    return nbytes // n
 
 
 def shard_map(body, mesh: Mesh, in_specs, out_specs):
-    """``f(*global_args) -> global outputs`` running ``body`` once per shard
-    of ``mesh`` on its slices (``in_specs``, one per argument) and
+    """``f(*args) -> outputs`` running ``body`` once per shard of ``mesh``
+    on its part of each argument (``in_specs``, one per argument) and
     assembling its outputs (``out_specs``, one per element of the tuple
-    the body returns)."""
+    the body returns); a ``Resident`` spec's argument or output is the
+    rank's own (module docstring)."""
     in_specs, out_specs = tuple(in_specs), tuple(out_specs)
 
     def f(*args):
@@ -744,10 +838,7 @@ def shard_map(body, mesh: Mesh, in_specs, out_specs):
             return tuple(_assemble_process(o, s, mesh)
                          for o, s in zip(out, out_specs))
         if isinstance(mesh, ShapeMesh):
-            out = mesh.run(lambda r: body(*mesh.split(args, in_specs)))
-            if not mesh.assemble:
-                return tuple(out)
-            return mesh.run(lambda r: tuple(
-                _assemble_shape(o, s, mesh) for o, s in zip(out, out_specs)))
+            return tuple(mesh.run(lambda r: body(*mesh.split(args,
+                                                             in_specs))))
         raise TypeError(f"{mesh!r} has no backend to run on")
     return f

@@ -51,12 +51,16 @@ def stack_stages(layers: list, n_stages: int) -> list[list]:
 
 
 def make_pp_decode_step(cfg, plan, parallel, pool_spec, *, n_stages: int,
-                        microbatches: int):
+                        microbatches: int, specs):
     """``step(params, state, batch) -> (logits [B, V] fp32, state)`` with
     ``batch`` = {tokens [B], bt [B, maxp], ctx [B] incl. the new token,
-    npage [B], noff [B]}; params as ``models.model.init_params`` makes
-    them (the step cuts the layers into stages). The pool is written in
-    place on a ``LocalMesh``."""
+    npage [B], noff [B]} global; params as ``models.model.init_params``
+    makes them (the step cuts the layers into stages), resident in the
+    serve specs they were cut by (``specs``, ``Plan.param_specs(params,
+    mode="serve")``); the state resident in
+    ``Plan.state_specs`` (a pipeline plan's pool block: the stage's layers
+    over ``pod``, the page shard's pages), written in place and returned
+    so."""
     if "pod" not in plan.mesh.axis_names \
             or plan.axis_sizes["pod"] != n_stages:
         raise ValueError(f"{n_stages} stages need a pod axis of that size; "
@@ -73,13 +77,10 @@ def make_pp_decode_step(cfg, plan, parallel, pool_spec, *, n_stages: int,
     Ls = cfg.n_layers // n_stages
     n_ticks = microbatches + n_stages - 1
 
-    pool_in = M.P("pod", M.Paged(plan.page_axes))
-    # on a LocalMesh the stage views are written in place: nothing to
-    # assemble; a ProcessMesh gathers its stages' pages back
-    pool_out = None if mesh.pool_layout == "global" else pool_in
+    pool = M.Resident(M.P("pod", M.Paged(plan.page_axes)))
 
     def step(params, state, batch):
-        flat, p_spec, tree, vocab_cut = serve_args(plan, params)
+        flat, p_spec, tree, vocab_cut = serve_args(plan, params, specs)
 
         def body(pool_k, pool_v, p_loc, tokens, bt, ctx, npage, noff):
             """One shard; pool_{k,v} the stage's [L/stages, N+1, ...]
@@ -117,19 +118,15 @@ def make_pp_decode_step(cfg, plan, parallel, pool_spec, *, n_stages: int,
             out = M.psum(out, "pod")      # the last stage's; the others' 0
             if b is not None:
                 out = M.all_gather(out, b, dim=1, tiled=True)
-            return out.reshape(-1, out.shape[-1]), pool_k, pool_v
+            return (out.reshape(-1, out.shape[-1]),)
 
         fn = M.shard_map(body, mesh,
-                         in_specs=(pool_in, pool_in, p_spec, None, None,
-                                   None, None, None),
-                         out_specs=(M.P(None, tp if vocab_cut else None),
-                                    pool_out, pool_out))
-        pool = state["pool"]
-        logits, pk, pv = fn(pool["k"], pool["v"], flat, batch["tokens"],
-                            batch["bt"], batch["ctx"], batch["npage"],
-                            batch["noff"])
-        if pool_out is not None:
-            state = {**state, "pool": {"k": pk, "v": pv}}
+                         in_specs=(pool, pool, M.Resident(p_spec), None,
+                                   None, None, None, None),
+                         out_specs=(M.P(None, tp if vocab_cut else None),))
+        logits, = fn(state["pool"]["k"], state["pool"]["v"], flat,
+                     batch["tokens"], batch["bt"], batch["ctx"],
+                     batch["npage"], batch["noff"])
         return logits, state
 
     return step

@@ -18,16 +18,21 @@ keeps ``layers`` / ``enc`` / ``dec`` as lists of per-layer dicts, so a
 leaf of those has repro's spec without the stacked leading ``None``;
 ``mamba`` / ``mlstm`` / ``slstm`` leaves stay stacked, as in repro.
 
-On a ``LocalMesh`` (one card) tensors are global: the weights stay whole
-and a shard body gets views of them (``mesh.shard_map``). The specs say
-what each shard holds; ``_act_table`` gives repro's activation
-layouts.
-
 The cells' steps run as shard bodies on the plan's mesh: the train step
 (``training/train.make_train_step``) and ``make_prefill_step`` on the
 shard's FSDP slices, ``make_decode_step`` on its serve slices (Megatron
 TP, ``Runtime.tp_axis``) with ITPP attention and, for a MoE,
-``moe_ep_rows``.
+``moe_ep_rows``. Each takes and returns its state RESIDENT, as repro's
+``in_shardings`` / ``out_shardings`` keep it: the params (and AdamW's
+moments) in the specs the caller cut them by (``Plan.param_specs``,
+given to the step as ``specs``), the decode state in ``state_specs``
+(the pool's ``Paged`` block, written in place; rows over the batch
+axes). Only the batch comes in global and only the logits or metrics
+come out assembled. ``Plan.shard`` and ``Plan.gather`` cut and gather at
+the edges (a comparison, a checkpoint). On a ``LocalMesh`` (one card)
+both are the identity: resident tensors are the global ones, the weights
+stay whole and a shard body gets views of them (``mesh.shard_map``).
+``_act_table`` gives repro's activation layouts.
 """
 from __future__ import annotations
 
@@ -189,7 +194,26 @@ class Plan:
             specs.append(P(*spec))
         return specs
 
-    def fsdp_layout(self, params) -> list:
+    # -------------------- the edges of a resident step --------------------
+    def shard(self, tree, specs):
+        """This rank's resident part of the global ``tree`` under ``specs``
+        (``mesh.shard``: the identity on a ``LocalMesh``)."""
+        return M.shard(tree, specs, self.mesh)
+
+    def gather(self, tree, specs):
+        """The global tree from this rank's resident part (``mesh.gather``:
+        on a ``ProcessMesh`` an all-gather over the cut axes, on every
+        rank; the identity on a ``LocalMesh``)."""
+        return M.gather(tree, specs, self.mesh)
+
+    def local_bytes(self, tree, specs) -> int:
+        """The bytes a rank holds of the global ``tree`` under ``specs``
+        (``mesh.block_nbytes`` a leaf: a ``Paged`` pool's block with its
+        own trash page)."""
+        return sum(M.block_nbytes(t, s, self.mesh)
+                   for t, s in _leaf_specs(tree, specs))
+
+    def fsdp_layout(self, params, specs: list | None = None) -> list:
         """Per leaf of ``params`` in tree order, how a shard of the train
         step rebuilds it from its slice (``training/train.py``): (its
         train ``P``, the ``(dim, axes)`` it all-gathers, the mesh axes no
@@ -197,10 +221,12 @@ class Plan:
         axis)`` whose block the shard then keeps, or None). An expert
         weight keeps its expert dim cut over the model axis (``moe_ep``
         runs the shard's own experts): a replicated one (under
-        ``REPLICATE_SMALL``) is cut there after the gather."""
+        ``REPLICATE_SMALL``) is cut there after the gather. ``specs``: the
+        train specs as a list (by default ``spec_list(params)``'s)."""
         out = []
-        for (keys, _, in_list), spec in zip(
-                _leaves(params), self.spec_list(params, mode="train")):
+        if specs is None:
+            specs = self.spec_list(params, mode="train")
+        for (keys, _, in_list), spec in zip(_leaves(params), specs):
             cut = [(d, e) for d, e in enumerate(spec) if e is not None]
             named = {a for _, e in cut for a in M._names(e)}
             pick = None
@@ -252,6 +278,17 @@ class Plan:
 
     def pool_spec(self) -> P:
         return P(None, self.page_axes, None, None, None)
+
+    def state_specs(self, state):
+        """The decode state's specs as the sharded steps hold it resident:
+        each pool's page dim ``Paged`` over the page axes (its layer dim
+        over ``pod`` too for a pipeline plan), recurrent and cross rows
+        over the batch axes."""
+        pool = P(None, M.Paged(self.page_axes))
+        if self.pod_mode == "pp":
+            pool = P("pod", M.Paged(self.page_axes))
+        return {k: {"k": pool, "v": pool} if k == "pool"
+                else P(None, self.batch_spec) for k in state}
 
     def decode_state_specs(self, state):
         b = self.batch_spec
@@ -438,17 +475,43 @@ def decode_moe(cfg, tp_axis: str, tp_n: int):
     return moe
 
 
-# the decode state's entries a step writes (the cross rows it only reads)
-_WRITTEN = ("pool", "mamba", "mlstm", "slstm")
+# the decode state's rows a step writes (the cross rows it only reads; the
+# pool it writes in place on every mesh)
+_ROWS_WRITTEN = ("mamba", "mlstm", "slstm")
 
 
-def serve_args(plan: Plan, params):
-    """``params`` as a decode shard map takes them: the leaves and their
-    ``spec_list(mode="serve")`` specs, keyed by position; a function that
-    rebuilds the tree from a shard's slices; whether the head's vocabulary
-    is cut over the model axis (the logits come back cut there)."""
+def _leaf_specs(tree, specs):
+    """(leaf, its spec) for every tensor of ``tree``: ``specs`` a tree of
+    the same shape, or one spec (a ``P`` or None) for a whole subtree."""
+    if isinstance(specs, dict):
+        for k, v in tree.items():
+            yield from _leaf_specs(v, specs.get(k))
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaf_specs(v, specs)
+    elif isinstance(tree, (list, tuple)):
+        sub = M._subspecs(specs, tree)
+        for i, v in enumerate(tree):
+            yield from _leaf_specs(v, specs[i] if sub else specs)
+    elif torch.is_tensor(tree):
+        yield tree, specs
+
+
+def step_specs(params, specs) -> list:
+    """A sharded step's parameter specs, one a leaf of ``params`` in tree
+    order, from ``specs``: the spec tree the caller cut the resident
+    params by (``Plan.param_specs``)."""
+    return [s for _, s in _leaf_specs(params, specs)]
+
+
+def serve_args(plan: Plan, params, specs):
+    """``params`` (resident, cut by ``specs``: ``step_specs``) as a decode
+    shard map takes them: the leaves and their serve specs, keyed by
+    position; a function that rebuilds the tree from a shard's slices;
+    whether the head's vocabulary is cut over the model axis (the logits
+    come back cut there)."""
     leaves = list(_leaves(params))
-    specs = plan.spec_list(params, mode="serve")
+    specs = step_specs(params, specs)
     keys = range(len(specs))
     vocab_cut = any(k[0] == "head" and plan.tp_axis in s
                     for (k, _, _), s in zip(leaves, specs))
@@ -458,13 +521,16 @@ def serve_args(plan: Plan, params):
             vocab_cut)
 
 
-def make_decode_step(cfg, plan: Plan, parallel, pool_spec):
+def make_decode_step(cfg, plan: Plan, parallel, pool_spec, *, specs):
     """repro's decode cell: ``models.model.decode_step`` under the serve
     plan's shardings, as a shard body on ``plan.mesh``. ``step(params,
-    state, batch) -> (logits [B, V] fp32, state)`` on global tensors
-    (``batch``: ``tokens`` [B], ``bt`` [B, maxp], ``ctx`` [B] incl. the
-    new token, ``npage`` / ``noff`` [B], the optional ``positions`` and
-    ``run``).
+    state, batch) -> (logits [B, V] fp32, state)``: ``params`` resident in
+    the serve specs they were cut by (``specs``, ``Plan.param_specs(
+    params, mode="serve")``; on a ``LocalMesh`` resident params are the
+    global ones), ``state`` resident in
+    ``Plan.state_specs`` and returned so, ``batch`` global (``tokens``
+    [B], ``bt`` [B, maxp], ``ctx`` [B] incl. the new token, ``npage`` /
+    ``noff`` [B], the optional ``positions`` and ``run``).
 
     A shard holds its slices of the weights under ``spec_list(mode=
     "serve")`` (a leaf under ``REPLICATE_SMALL``, or whose dim does not
@@ -472,39 +538,40 @@ def make_decode_step(cfg, plan: Plan, parallel, pool_spec):
     axis (``Runtime.tp_axis``; a site tells a cut weight by its shape);
     its rows are those of its data row (over the dp axes), or every row
     when the batch does not divide them (long_500k's one request, which
-    ITPP stripes over the whole mesh); the pool is cut into the page
-    shards' pages and the recurrent / cross rows follow the batch. The
-    logits come back cut on the vocabulary over the model axis (repro's
-    ``logits_decode``) where the head is. The pool is written in place on
-    a ``LocalMesh``; the recurrent rows come back in the returned state
-    (each shard advances its own copy of its rows)."""
+    ITPP stripes over the whole mesh); its pool block is the page shard's
+    pages (written in place: no copy, no gather) and its recurrent /
+    cross rows follow the batch. The logits come back assembled, cut on
+    the vocabulary over the model axis (repro's ``logits_decode``) where
+    the head is."""
     rt = plan.make_runtime(cfg, parallel, pool_spec=pool_spec,
                            mode="decode")
     rows, tp = plan.batch_spec, plan.tp_axis
-    pool = P(None, M.Paged(plan.page_axes))
+    local = isinstance(plan.mesh, M.LocalMesh)
 
     def step(params, state, batch):
-        flat, p_spec, tree, vocab_cut = serve_args(plan, params)
-        s_spec = {k: ({"k": pool, "v": pool} if k == "pool"
-                      else P(None, rows)) for k in state}
+        flat, p_spec, tree, vocab_cut = serve_args(plan, params, specs)
+        s_spec = plan.state_specs(state)
         b_spec = {k: P(None, rows) if k == "positions" and v.dim() == 3
                   else P(rows) for k, v in batch.items()}
-        out_spec = {k: s_spec[k] for k in state if k in _WRITTEN}
+        out_spec = {k: s_spec[k] for k in state if k in _ROWS_WRITTEN}
 
         def body(p_loc, st, b):
             # a shard's own recurrent rows: on a LocalMesh the model shards
             # of a row would otherwise read each other's new carry
-            st = {k: tree_map(torch.clone, v) if k in _WRITTEN[1:] else v
-                  for k, v in st.items()}
+            if local:
+                st = {k: tree_map(torch.clone, v) if k in out_spec else v
+                      for k, v in st.items()}
             lg, st = MDL.decode_step(
                 cfg, tree(p_loc), st, b["tokens"], b["bt"], b["ctx"], b["npage"],
                 b["noff"], positions=b.get("positions"), run=b.get("run"),
                 rt=rt)
             return lg, {k: st[k] for k in out_spec}
 
-        f = M.shard_map(body, plan.mesh, in_specs=(p_spec, s_spec, b_spec),
+        f = M.shard_map(body, plan.mesh,
+                        in_specs=(M.Resident(p_spec), M.Resident(s_spec),
+                                  b_spec),
                         out_specs=(P(rows, tp if vocab_cut else None),
-                                   out_spec))
+                                   M.Resident(out_spec)))
         lg, new = f(flat, state, batch)
         return lg, {**state, **new}
 
@@ -512,12 +579,14 @@ def make_decode_step(cfg, plan: Plan, parallel, pool_spec):
     return step
 
 
-def make_prefill_step(cfg, plan: Plan, parallel, pool_spec):
+def make_prefill_step(cfg, plan: Plan, parallel, pool_spec, *, specs):
     """repro's prefill cell: ``models.model.prefill`` under the train
     plan's shardings, as a shard body on ``plan.mesh`` in the ``sp``
-    layout. ``step(params, state, batch) -> (logits [B, V], state)`` on
-    global tensors (``batch``: ``tokens`` [B, S], ``bt`` [B, maxp], the
-    optional ``valid_len`` / ``last_idx`` [B], ``positions``,
+    layout. ``step(params, state, batch) -> (logits [B, V], state)``:
+    ``params`` resident in the train specs they were cut by (``specs``,
+    ``Plan.param_specs(params, mode="train")``), ``state`` resident in ``Plan.state_specs`` and
+    returned so, ``batch`` global (``tokens`` [B, S], ``bt`` [B, maxp],
+    the optional ``valid_len`` / ``last_idx`` [B], ``positions``,
     ``extra_embeds``, ``frames``).
 
     A shard holds its FSDP slices of the weights (a layer gathered in its
@@ -525,32 +594,30 @@ def make_prefill_step(cfg, plan: Plan, parallel, pool_spec):
     sequence over the model axis (``Plan.make_runtime(mode="prefill")``).
     Attention takes the rows' whole K/V (gathered over the model axis) at
     the shard's ``q_offset``, and the shard writes, from them, the pool
-    pages it owns (``make_prefill_writer``; any allocator policy); a
-    recurrent layer runs on the gathered sequence, its carry the whole
-    rows'; the logits come from the shard holding each row's last
-    position; a MoE runs ``moe_ep``. The pool is written in place on a
-    ``LocalMesh``; the carry and cross rows come back in the returned
-    state."""
+    pages it owns into its block (``make_prefill_writer``; any allocator
+    policy); a recurrent layer runs on the gathered sequence, its carry
+    the whole rows'; the logits come from the shard holding each row's
+    last position; a MoE runs ``moe_ep``."""
     rt = plan.make_runtime(cfg, parallel, pool_spec=pool_spec,
                            mode="prefill")
     rows = plan.dp_spec
-    pool = P(None, M.Paged(plan.page_axes))
+    local = isinstance(plan.mesh, M.LocalMesh)
 
     def step(params, state, batch):
-        layout = plan.fsdp_layout(params)
+        layout = plan.fsdp_layout(params, step_specs(params, specs))
         keys = range(len(layout))
         flat = dict(zip(keys, (t for _, t, _ in _leaves(params))))
-        specs = {i: lay[0] for i, lay in zip(keys, layout)}
-        s_spec = {k: ({"k": pool, "v": pool} if k == "pool"
-                      else P(None, rows)) for k in state}
+        p_spec = {i: lay[0] for i, lay in zip(keys, layout)}
+        s_spec = M.Resident(plan.state_specs(state))
         b_spec = plan.batch_specs(batch)
 
         def body(p_loc, st, b):
             ptree = _unflatten(params, (p_loc[i] for i in keys))
             # a shard's own carry rows: on a LocalMesh the model shards of
             # a row would otherwise read each other's new carry
-            st = {k: v if k == "pool" else tree_map(torch.clone, v)
-                  for k, v in st.items()}
+            if local:
+                st = {k: v if k == "pool" else tree_map(torch.clone, v)
+                      for k, v in st.items()}
             return MDL.prefill(
                 cfg, fsdp_view(ptree, layout), st, b["tokens"], b["bt"],
                 positions=b.get("positions"),
@@ -558,7 +625,8 @@ def make_prefill_step(cfg, plan: Plan, parallel, pool_spec):
                 last_idx=b.get("last_idx"), valid_len=b.get("valid_len"),
                 rt=rt)
 
-        f = M.shard_map(body, plan.mesh, in_specs=(specs, s_spec, b_spec),
+        f = M.shard_map(body, plan.mesh,
+                        in_specs=(M.Resident(p_spec), s_spec, b_spec),
                         out_specs=(P(rows, None), s_spec))
         return f(flat, state, batch)
 

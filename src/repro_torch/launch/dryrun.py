@@ -22,19 +22,26 @@ shard:
 * ``hlo.collectives`` — bytes by kind, by ``hlo_analysis``'s rule
   (all-gather its output, all-reduce twice its input, reduce-scatter /
   all-to-all / permute their input);
-* ``memory`` — ``argument_bytes`` and ``output_bytes`` exactly from the
-  plan's specs (a leaf's bytes over the shards its spec cuts it into);
+* ``memory`` — ``argument_bytes`` exactly from the plan's specs
+  (``counted_specs``: a leaf's bytes over the shards its spec cuts it
+  into). A ``ProcessMesh`` rank holds that and a little more: its pool
+  block's own trash page a layer (the count splits the global trash page
+  over the page shards) and, in a pipeline cell, the other stages'
+  layers' serve slices; ``output_bytes`` the bytes of the outputs the step wrote or made
+  (a resident tensor passed through untouched is not one);
   ``temp_bytes`` the peak of the live bytes of the step's own tensors (a
   fresh op output adds its bytes, its collection takes them off), and
   ``peak_bytes`` = argument + temp, as repro reports it.
 
 What one shard runs (``layout``):
 
+A cell's step takes its params and state resident, as a ``ProcessMesh``
+rank does: ``build_cell``'s step cuts the global meta arguments to the
+shard's own (``Plan.shard``, uncounted) and returns the shard's outputs
+in the plan's layout, as repro's ``out_shardings`` leave them.
+
 * ``train`` — ``training/train.make_train_step`` on the plan's runtime:
-  the sharded step's body (``fsdp`` or ``sp``), its outputs left in the
-  plan's layout as repro's ``out_shardings`` leave them (a
-  ``ProcessMesh`` step all-gathers them to return global tensors; that
-  is not counted). In ``sp`` (here and in prefill) a recurrent layer
+  the sharded step's body (``fsdp`` or ``sp``). In ``sp`` (here and in prefill) a recurrent layer
   (Mamba2, mLSTM, sLSTM) runs on the gathered sequence, so each shard
   computes the whole sequence's recurrence: ``notes.sp_recurrent_flops``
   is that extra work. Whisper's encoder runs whole on every model shard
@@ -43,11 +50,11 @@ What one shard runs (``layout``):
   (repro's prefill cell, in the ``sp`` layout: FSDP weights, rows over
   the dp axes, the sequence over ``model``; attention over the rows'
   gathered K/V, each shard writing the pages it owns; a recurrent layer
-  on the gathered sequence), its outputs left in the plan's layout.
+  on the gathered sequence).
 * ``decode`` — ``distributed/sharding.make_decode_step``'s shard body
   (repro's decode cell: ``decode_step`` on the serve slices, Megatron TP
   over ``model``, the shard's rows of its data row, ITPP over its pages,
-  a MoE on ``moe_ep_rows``), its outputs left in the plan's layout. A
+  a MoE on ``moe_ep_rows``). A
   batch the dp axes do not divide (long_500k's one request) is
   replicated over them, so each data row computes the dense layers'
   1/tp share of the whole request: ``notes.replicated_rows`` is the dp
@@ -89,8 +96,9 @@ from repro_torch.configs import (ASSIGNED, SHAPES, ParallelConfig,
 from repro_torch.core.paged_kv import pool_spec_for
 from repro_torch.distributed import mesh as M
 from repro_torch.distributed.mesh import P
-from repro_torch.distributed.sharding import (_leaves, make_decode_step,
-                                              make_plan, make_prefill_step)
+from repro_torch.distributed.sharding import (_leaf_specs, _leaves,
+                                              make_decode_step, make_plan,
+                                              make_prefill_step)
 from repro_torch.launch import roofline as RF
 from repro_torch.models import model as MDL
 from repro_torch.models import ssm as SSM
@@ -106,11 +114,23 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
-def shape_mesh(*, multi_pod: bool, assemble: bool = True) -> M.ShapeMesh:
+def shape_mesh(*, multi_pod: bool) -> M.ShapeMesh:
     """The production mesh (``mesh.make_production_mesh``) with the
     shape-only backend."""
     m = M.make_production_mesh(multi_pod=multi_pod)
-    return M.ShapeMesh(m.sizes, m.axis_names, assemble=assemble)
+    return M.ShapeMesh(m.sizes, m.axis_names)
+
+
+def _resident(step, plan, specs):
+    """``step`` on global arguments: the leading ones (one for each of
+    ``specs``) cut to the shard's resident part at the edge
+    (``Plan.shard``, uncounted), the rest (the batch, which the step
+    cuts) passed as they are."""
+    def f(*args):
+        n = len(specs)
+        return step(*(plan.shard(a, s) for a, s in zip(args, specs)),
+                    *args[n:])
+    return f
 
 
 def input_specs(cfg, shape, parallel, *, mode: str, n_shards: int) -> dict:
@@ -161,7 +181,7 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool,
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     mode = shape.kind
-    mesh = shape_mesh(multi_pod=multi_pod, assemble=False)
+    mesh = shape_mesh(multi_pod=multi_pod)
     parallel = replace(parallel or ParallelConfig(), use_kernels=False)
     plan = make_plan(mesh, parallel, shape, pod_mode=pod_mode)
     moe_virtual = plan.tp if cfg.is_moe else 0
@@ -177,7 +197,8 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool,
     if mode == "train":
         rt = plan.make_runtime(cfg, parallel, mode="train")
         step = make_train_step(cfg, rt, OPT.AdamWConfig(),
-                               microbatches=parallel.microbatches)
+                               microbatches=parallel.microbatches,
+                               specs=p_train)
         opt = {"m": MDL.tree_map(lambda p: torch.empty(
             p.shape, dtype=torch.float32, device=META), params),
             "v": MDL.tree_map(lambda p: torch.empty(
@@ -185,19 +206,22 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool,
             "step": torch.empty((), dtype=torch.int32, device=META)}
         opt_spec = {"m": p_train, "v": p_train, "step": P()}
         args = (params, opt, binp)
-        return (step, args, (p_train, opt_spec, bshard),
-                (p_train, opt_spec, None), plan)
+        return (_resident(step, plan, (p_train, opt_spec)), args,
+                (p_train, opt_spec, bshard), (p_train, opt_spec, None), plan)
 
     pool = pool_spec_for(cfg, shape, parallel, n_shards=mesh.size)
     state = MDL.init_decode_state(cfg, pool, shape.global_batch, device=META)
-    s_spec = plan.decode_state_specs(state)
+    s_res = plan.state_specs(state)
 
     if mode == "prefill":
-        step = make_prefill_step(cfg, plan, parallel, pool)
+        step = _resident(make_prefill_step(cfg, plan, parallel, pool,
+                                           specs=p_train),
+                         plan, (p_train, s_res))
         binp = {**binp, "bt": torch.empty(
             (shape.global_batch, pool.max_pages_per_req), dtype=torch.int32,
             device=META)}
         bshard = plan.batch_specs(binp)
+        p_train, s_spec = counted_specs(plan, p_train, state, pp=False)
         return (step, (params, state, binp), (p_train, s_spec, bshard),
                 (None, s_spec), plan)
 
@@ -205,20 +229,34 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool,
         from repro_torch.distributed.pipeline import make_pp_decode_step
         mb = max(2, min(8, shape.global_batch // max(plan.dp_total, 1)))
         mb = min(mb, shape.global_batch)
-        step = make_pp_decode_step(cfg, plan, parallel, pool, n_stages=2,
-                                   microbatches=mb)
-        s_spec = {**s_spec, "pool": {
-            "k": P("pod", plan.page_axes, None, None, None),
-            "v": P("pod", plan.page_axes, None, None, None)}}
-        # each pod holds only its stage's layers
-        p_serve = {**p_serve, "layers": _map_specs(_PodStage,
-                                                   p_serve["layers"])}
+        step = _resident(make_pp_decode_step(
+            cfg, plan, parallel, pool, n_stages=2, microbatches=mb,
+            specs=p_serve), plan, (p_serve, s_res))
+        p_serve, s_spec = counted_specs(plan, p_serve, state, pp=True)
         return (step, (params, state, binp), (p_serve, s_spec, bshard),
                 (None, s_spec), plan)
 
-    step = make_decode_step(cfg, plan, parallel, pool)
+    step = _resident(make_decode_step(cfg, plan, parallel, pool,
+                                      specs=p_serve), plan, (p_serve, s_res))
+    p_serve, s_spec = counted_specs(plan, p_serve, state, pp=False)
     return (step, (params, state, binp), (p_serve, s_spec, bshard),
             (None, s_spec), plan)
+
+
+def counted_specs(plan, p_spec, state, *, pp: bool):
+    """The specs a prefill or decode cell's params and state are counted by
+    (``argument_bytes``, repro's shardings): ``p_spec`` and the state's
+    ``Plan.decode_state_specs`` (the pool, trash page included, cut over
+    the page axes); in a pipeline cell each pod holds only its stage's
+    layers and pool layers. A rank's resident state holds more: its pool
+    block's own trash page a layer (``Plan.state_specs``) and, in a
+    pipeline, every layer's serve slices (ROADMAP's parked list)."""
+    s_spec = plan.decode_state_specs(state)
+    if not pp:
+        return p_spec, s_spec
+    pool = P("pod", plan.page_axes, None, None, None)
+    return ({**p_spec, "layers": _map_specs(_PodStage, p_spec["layers"])},
+            {**s_spec, "pool": {"k": pool, "v": pool}})
 
 
 class _PodStage:
@@ -242,37 +280,15 @@ def _map_specs(fn, tree):
     return type(tree)(_map_specs(fn, v) for v in tree)
 
 
-def _spec_leaves(spec_tree, like):
-    """The specs of ``like``'s tensor leaves in order: a spec stands for
-    every leaf of the subtree it sits at."""
-    out = []
-
-    def walk(s, node):
-        if torch.is_tensor(node):
-            out.append(s)
-        elif isinstance(node, dict):
-            for k, v in node.items():
-                walk(s.get(k) if isinstance(s, dict) else s, v)
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(s if _is_spec(s) else s[i], v)
-    walk(spec_tree, like)
-    return out
-
-
 def _local_bytes(tree, spec_tree, mesh) -> int:
-    """Bytes of one shard's part of ``tree`` under ``spec_tree``."""
+    """Bytes of one shard's part of ``tree`` under ``spec_tree``
+    (``mesh.block_nbytes`` a leaf; a pipeline stage's share over ``pod``)."""
     total = 0
-    for t, s in zip(tree_leaves(tree), _spec_leaves(spec_tree, tree)):
+    for t, s in _leaf_specs(tree, spec_tree):
         n = 1
         if isinstance(s, _PodStage):
             n, s = mesh.axis_size("pod"), s.spec
-        for e in (s or ()):
-            if isinstance(e, M.Paged):
-                n *= mesh.axis_size(e.axes)
-            elif e is not None:
-                n *= mesh.axis_size(e)
-        total += _nbytes(t) // n
+        total += M.block_nbytes(t, s, mesh) // n
     return total
 
 
@@ -436,6 +452,14 @@ def _sp_recurrent_flops(cfg, plan, shape) -> float:
     return per * n * rows * shape.seq_len * (1 - 1 / plan.tp)
 
 
+def _passed(t, ins: dict) -> bool:
+    """``t`` is a global argument, or a view of one the step left as it
+    was (its version unchanged)."""
+    b = t._base if t._is_view() else None
+    return id(t) in ins or (b is not None and id(b) in ins
+                            and t._version == ins[id(b)])
+
+
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              pod_mode: str = "dp", save: bool = True, verbose: bool = True,
              parallel: ParallelConfig | None = None, tag: str = "") -> dict:
@@ -446,22 +470,20 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     if tag:
         cell += f"__{tag}"
     try:
-        step, args, in_sh, out_sh, plan = build_cell(
+        step, args, in_sh, _, plan = build_cell(
             arch, shape_name, multi_pod=multi_pod, pod_mode=pod_mode,
             parallel=parallel)
         mesh = plan.mesh
+        # the global arguments' versions: a resident block (a view of one)
+        # the step passes through unwritten is not an output it made
+        ins = {id(t): t._version for t in tree_leaves(args)}
         with counting(mesh) as (tally, extra):
             outs = step(*args)
         arg_bytes = sum(_local_bytes(a, s, mesh)
                         for a, s in zip(args, in_sh))
-        if mesh.assemble:       # global outputs: the plan's share of them
-            out_bytes = sum(_local_bytes(o, s, mesh)
-                            for o, s in zip(outs, out_sh) if s is not None)
-        else:                   # the shard's own outputs (none passed
-            ins = {id(t) for t in tree_leaves(args)}    # through untouched)
-            out_bytes = sum(_nbytes(t) for t in tree_leaves(
-                outs[:2] if SHAPES[shape_name].kind == "train" else outs)
-                if id(t) not in ins)
+        out_bytes = sum(_nbytes(t) for t in tree_leaves(
+            outs[:2] if SHAPES[shape_name].kind == "train" else outs)
+            if not _passed(t, ins))
         flops = tally.flops + extra["flops"]
         coll = dict(mesh.collectives)
         hlo = {"flops": float(flops),

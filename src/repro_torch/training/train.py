@@ -14,7 +14,8 @@ their count.
 With a runtime from ``Plan.make_runtime(mode="train")`` the same step
 runs as a shard body on the plan's mesh (FSDP weights, the ``fsdp`` or
 ``sp`` batch layout), equal to the single-device step up to summation
-order.
+order, on params and moments each rank keeps resident in the train specs
+(``Plan.shard`` / ``Plan.gather`` at the edges).
 """
 from __future__ import annotations
 
@@ -55,13 +56,16 @@ def _split_microbatches(batch: dict, n: int) -> dict:
 
 
 def make_train_step(cfg, rt, opt_cfg: OPT.AdamWConfig, *,
-                    microbatches: int = 1):
+                    microbatches: int = 1, specs=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: one device's step, or, when ``rt`` comes from
     ``Plan.make_runtime(mode="train")``, the counterpart of repro's step
     jitted under the train plan's shardings, on ``rt.plan``'s mesh
-    (``LocalMesh`` or ``ProcessMesh``): global params, optimizer state and
-    batch in, global params, state and metrics out.
+    (``LocalMesh`` or ``ProcessMesh``): params and AdamW's moments
+    resident in, cut by ``specs`` (``Plan.param_specs(params,
+    mode="train")``; required with a plan), and resident out, as repro's ``out_shardings``
+    leave them; the step counter and the metrics replicated on every
+    rank; the batch global.
 
     One body runs both. On a mesh each shard holds its FSDP slices of the
     params and of AdamW's moments (``Plan.param_specs(mode="train")``) and
@@ -84,6 +88,10 @@ def make_train_step(cfg, rt, opt_cfg: OPT.AdamWConfig, *,
     the ``sp`` K/V gathers' and ``moe_ep``'s collectives run inside it."""
     MDL.check_trainable(rt, "make_train_step")
     plan = rt.plan
+    if plan is not None and specs is None:
+        raise TypeError("a sharded train step takes the specs its params "
+                        "were cut by: specs=plan.param_specs(params, "
+                        "mode='train')")
     axes = tuple(plan.mesh.axis_names) if plan is not None else ()
     n_shards = plan.mesh.size if plan is not None else 1
 
@@ -146,9 +154,9 @@ def make_train_step(cfg, rt, opt_cfg: OPT.AdamWConfig, *,
             p, m, v, step, metrics = body(*args, opt_state["step"], mb,
                                           None, params)
         else:
-            layout = plan.fsdp_layout(params)
+            layout = plan.fsdp_layout(params, SH.step_specs(params, specs))
             keys = range(len(layout))
-            specs = {i: lay[0] for i, lay in zip(keys, layout)}
+            res = M.Resident({i: lay[0] for i, lay in zip(keys, layout)})
             bspec = {k: P(None, *s) for k, s in
                      plan.batch_specs(batch).items()}
 
@@ -159,8 +167,8 @@ def make_train_step(cfg, rt, opt_cfg: OPT.AdamWConfig, *,
                 return (*(dict(zip(keys, x)) for x in out[:3]), *out[3:])
 
             f = M.shard_map(shard, plan.mesh,
-                            in_specs=(specs, specs, specs, None, bspec),
-                            out_specs=(specs, specs, specs, None, None))
+                            in_specs=(res, res, res, None, bspec),
+                            out_specs=(res, res, res, None, None))
             p, m, v, step, metrics = f(
                 *(dict(zip(keys, x)) for x in args), opt_state["step"], mb)
             p, m, v = ([d[i] for i in keys] for d in (p, m, v))

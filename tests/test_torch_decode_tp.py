@@ -22,6 +22,8 @@ The other families (xLSTM, whisper, qwen2-vl's M-RoPE, mixtral's
 windowed MoE, int8 serve weights, a request replicated over the data
 axis) are held to the port's unsharded ``decode_step``.
 """
+import contextlib
+import math
 import os
 import subprocess
 import sys
@@ -38,6 +40,7 @@ from repro_torch.core import paged_kv as PK
 from repro_torch.core.allocator import PageAllocator
 from repro_torch.distributed import mesh as M
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.pipeline import make_pp_decode_step
 from repro_torch.kernels.backend import KernelConfig
 from repro_torch.models import model as MDL
 from repro_torch.models.convert import params_from_numpy, state_from_numpy
@@ -264,7 +267,8 @@ def test_decode_step_matches_repros_decode_cell(ref, arch, path,
                               else False)
     plan = SH.make_plan(mesh, parallel, ShapeConfig("d", "decode",
                                                     S + STEPS, B))
-    step = SH.make_decode_step(cfg, plan, parallel, spec)
+    step = SH.make_decode_step(cfg, plan, parallel, spec,
+                               specs=plan.param_specs(params, mode="serve"))
     assert step.rt.tp_axis == "model"
     assert step.rt.cond_window == (cfg.sliding_window
                                    if arch == "gemma3-27b" else 0)
@@ -345,7 +349,8 @@ def _unsharded_case(cfg, params, *, rows: int, mesh_shape=(2, 4),
     lg, state = MDL.prefill(cfg, sparams, state, toks, bt,
                             last_idx=lens - 1, valid_len=lens, **kw)
     state_u = MDL.tree_map(torch.clone, state)
-    step = SH.make_decode_step(cfg, plan, parallel, spec)
+    step = SH.make_decode_step(cfg, plan, parallel, spec,
+                               specs=plan.param_specs(sparams, mode="serve"))
     rt_u = MDL.Runtime(kernels=None if path == "plain" else KernelConfig())
     V = cfg.vocab_size
     tok = lg[:, :V].argmax(-1).to(torch.int32)
@@ -430,23 +435,122 @@ def test_decode_step_int8_serve_weights(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the gloo ProcessMesh case (tests/test_torch_distributed.py runs it on 8
-# ranks and holds it to the LocalMesh bit for bit)
+# the gloo ProcessMesh cases (tests/test_torch_distributed.py runs them on
+# 8 ranks and holds them to the LocalMesh bit for bit): the sharded steps
+# on resident params and state, gathered only at the end
 # ---------------------------------------------------------------------------
 
-GLOO_ARCHS = ("gemma3-27b", "phi3.5-moe-42b-a6.6b")
+GLOO_ARCHS = ("gemma3-27b", "phi3.5-moe-42b-a6.6b", "zamba2-1.2b")
 
 
-def decode_tp_run(mesh, arch: str) -> dict:
-    """2 steps of ``make_decode_step`` on ``mesh`` ((data 2, model 4)) from
-    an unsharded prefill of 4 rows, the caller having set
-    ``REPLICATE_SMALL`` to 0: its logits and pool pages as numpy."""
+@contextlib.contextmanager
+def assembly_counter(mesh):
+    """The bytes this rank sends through collectives while ``shard_map``
+    assembles a step's outputs on a ``ProcessMesh`` (a ``LocalMesh``
+    assembles from views and sends none)."""
+    moved, depth = {"bytes": 0}, [0]
+    asm = M._assemble_process
+
+    def counted(*a, **kw):
+        depth[0] += 1
+        try:
+            return asm(*a, **kw)
+        finally:
+            depth[0] -= 1
+
+    def wrap(fn):
+        def f(rank, axes, x):
+            if depth[0]:
+                moved["bytes"] += x.numel() * x.element_size()
+            return fn(rank, axes, x)
+        return f
+    M._assemble_process = counted
+    mesh._gather, mesh._all_to_all = wrap(mesh._gather), wrap(
+        mesh._all_to_all)
+    try:
+        yield moved
+    finally:
+        M._assemble_process = asm
+        del mesh._gather, mesh._all_to_all
+
+
+def nbytes(tree) -> int:
+    """The bytes of a tree's tensors, each storage once."""
+    seen, n = set(), 0
+    for t, _ in SH._leaf_specs(tree, None):
+        if t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            n += t.numel() * t.element_size()
+    return n
+
+
+def beyond_count(plan, params, state, p_spec, *, pp: bool) -> int:
+    """The bytes a rank holds beyond the dry-run's ``argument_bytes`` for
+    the same params and decode state (``dryrun.counted_specs``), from the
+    shapes: each pool block's own trash page (the rank's N/n pages and a
+    trash page a layer, against the global N+1 pages over the n page
+    shards) and, in a pipeline, the other stages' layers' serve slices
+    (the count gives a pod its stage's layers; a rank holds them all)."""
+    n = math.prod(plan.axis_sizes[a] for a in plan.page_axes)
+    st = plan.axis_sizes["pod"] if pp else 1
+    gap = 0
+    for t in state["pool"].values():
+        L, pages = t.shape[:2]
+        pb = t[0, 0].numel() * t.element_size()
+        gap += (L // st * ((pages - 1) // n + 1) * pb
+                - L * pages * pb // (st * n))
+    if pp:
+        for t, s in SH._leaf_specs(params["layers"], p_spec["layers"]):
+            b = M.block_nbytes(t, s, plan.mesh)
+            gap += b - b // st
+    return gap
+
+
+def resident_facts(plan, trees, resident, specs, ptrs, moved, *,
+                   counted=None, beyond: int = 0) -> dict:
+    """What a rank holds and moves: its resident bytes against the plan's
+    count of its slices (``Plan.local_bytes``) and against the dry-run's
+    ``argument_bytes`` rule (``_local_bytes`` on the specs ``build_cell``
+    counts these trees by, ``counted``; ``specs`` by default) with what
+    the rank holds beyond that count (``beyond``); the pool block's
+    storage before and after the steps; the assembly's bytes."""
+    from repro_torch.launch.dryrun import _local_bytes
+    return {"held": np.int64(sum(nbytes(r) for r in resident)),
+            "want": np.int64(sum(plan.local_bytes(t, s)
+                                 for t, s in zip(trees, specs))),
+            "want_dryrun": np.int64(sum(_local_bytes(t, s, plan.mesh)
+                                        for t, s in zip(trees,
+                                                        counted or specs))),
+            "beyond_dryrun": np.int64(beyond),
+            "same_storage": np.bool_(ptrs[0] == ptrs[1]),
+            "moved": np.int64(moved)}
+
+
+def serve_facts(plan, params, state, resident, p_spec, s_spec, ptrs,
+                moved, *, pp: bool = False) -> dict:
+    """``resident_facts`` of a prefill or decode rank: its params and
+    decode state, counted as the dry-run's cell counts them."""
+    from repro_torch.launch.dryrun import counted_specs
+    return resident_facts(
+        plan, (params, state), resident, (p_spec, s_spec), ptrs, moved,
+        counted=counted_specs(plan, p_spec, state, pp=pp),
+        beyond=beyond_count(plan, params, state, p_spec, pp=pp))
+
+
+def decode_tp_run(mesh, arch: str, facts: dict | None = None) -> dict:
+    """``STEPS`` steps of ``make_decode_step`` on ``mesh`` ((data 2, model
+    4)) from an unsharded prefill of 4 rows, the caller having set
+    ``REPLICATE_SMALL`` to 0: the params and state cut to the rank's own
+    at the start (``Plan.shard``) and gathered at the end
+    (``Plan.gather``), its logits and pool pages (and carry) as numpy.
+    ``facts`` gets ``resident_facts`` and the logits' share of the
+    assembly's bytes (``logits``)."""
     cfg = replace(reduced(get_config(arch)), dtype="float32")
     params = MDL.init_params(cfg, seed=2, device="cpu",
                              moe_virtual=4 if cfg.is_moe else 0)
     g = torch.Generator().manual_seed(3)
     lens = torch.randint(8, 25, (B,), generator=g)
-    S, steps = int(lens.max()), 2
+    S, steps = int(lens.max()), STEPS
     maxp = (S + steps) // PAGE + 1
     spec = PK.PoolSpec(cfg.n_layers, N_PAGES, PAGE, cfg.n_kv_heads,
                        cfg.d_head, maxp, dtype="float32")
@@ -462,17 +566,140 @@ def decode_tp_run(mesh, arch: str) -> dict:
     parallel = ParallelConfig(page_size=PAGE)
     plan = SH.make_plan(mesh, parallel, ShapeConfig("d", "decode",
                                                     S + steps, B))
-    step = SH.make_decode_step(cfg, plan, parallel, spec)
+    p_spec = plan.param_specs(params, mode="serve")
+    s_spec = plan.state_specs(state)
+    step = SH.make_decode_step(cfg, plan, parallel, spec, specs=p_spec)
+    p_loc, st = plan.shard(params, p_spec), plan.shard(state, s_spec)
+    ptr = st["pool"]["k"].data_ptr()
     tok = lg[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
     rows, out = torch.arange(B), {}
-    for j in range(steps):
-        pos = (lens + j).to(torch.int32)
-        lg, state = step(params, state, {
-            "tokens": tok, "bt": bt, "ctx": pos + 1,
-            "npage": bt[rows, (pos // PAGE).long()].contiguous(),
-            "noff": (pos % PAGE).to(torch.int32)})
-        out[f"logits{j}"] = lg.numpy()
-        tok = lg[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
-    out["pool_k"] = state["pool"]["k"][:, :N_PAGES].numpy()
-    out["pool_v"] = state["pool"]["v"][:, :N_PAGES].numpy()
+    with assembly_counter(mesh) as moved:
+        for j in range(steps):
+            pos = (lens + j).to(torch.int32)
+            lg, st = step(p_loc, st, {
+                "tokens": tok, "bt": bt, "ctx": pos + 1,
+                "npage": bt[rows, (pos // PAGE).long()].contiguous(),
+                "noff": (pos % PAGE).to(torch.int32)})
+            out[f"logits{j}"] = lg.numpy()
+            tok = lg[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    if facts is not None:
+        facts.update(serve_facts(
+            plan, params, state, (p_loc, st), p_spec, s_spec,
+            (ptr, st["pool"]["k"].data_ptr()), moved["bytes"]))
+        # a rank sends its [B/2, V/4] block over data, then [B, V/4] over
+        # model (a tied head's logits: [B/2, V] over data), each step: the
+        # logits, nothing else
+        cut = SH.serve_args(plan, params, p_spec)[3]
+        facts["logits"] = np.int64(steps * lg.numel() * 4
+                                   * (3 if cut else 4) // 8)
+    full = plan.gather(st, s_spec)
+    out["pool_k"] = full["pool"]["k"][:, :N_PAGES].numpy()
+    out["pool_v"] = full["pool"]["v"][:, :N_PAGES].numpy()
+    for k in ("mamba",):
+        if k in full:
+            out.update({f"{k}{i}": x.numpy() for i, (x, _) in enumerate(
+                SH._leaf_specs(full[k], None))})
+    return out
+
+
+PREFILL_ARCHS = ("llama3.2-1b", "zamba2-1.2b")
+
+
+def prefill_tp_run(mesh, arch: str, facts: dict | None = None) -> dict:
+    """``make_prefill_step`` (the ``sp`` layout) on ``mesh`` ((data 2,
+    model 4)), ``REPLICATE_SMALL`` at 0: 2 rows of 32 tokens (one valid to
+    27), the params and a fresh state cut to the rank's own, the pages a
+    rank owns written into its block, gathered at the end: logits, pool
+    pages and carry as numpy."""
+    cfg = replace(reduced(get_config(arch)), dtype="float32")
+    params = MDL.init_params(cfg, seed=0, device="cpu")
+    Bp, S = 2, 32
+    parallel = ParallelConfig(page_size=PAGE)
+    shape = ShapeConfig("p", "prefill", S, Bp)
+    plan = SH.make_plan(mesh, parallel, shape)
+    spec = PK.pool_spec_for(cfg, shape, parallel, n_shards=8,
+                            slack_pages=16)
+    alloc = PageAllocator(spec.n_pages, 8, PAGE, policy="row_affine",
+                          n_rows=2)
+    for b in range(Bp):
+        alloc.admit(b, S, row=b)
+    bt = torch.from_numpy(np.stack([alloc.block_table(
+        b, spec.max_pages_per_req) for b in range(Bp)])).to(torch.int32)
+    g = torch.Generator().manual_seed(1)
+    lens = torch.tensor([S, S - 5])
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (Bp, S),
+                                     generator=g), "bt": bt,
+             "valid_len": lens, "last_idx": lens - 1}
+    state = MDL.init_decode_state(cfg, spec, Bp, device="cpu")
+    p_spec = plan.param_specs(params, mode="train")
+    s_spec = plan.state_specs(state)
+    step = SH.make_prefill_step(cfg, plan, parallel, spec, specs=p_spec)
+    p_loc, st = plan.shard(params, p_spec), plan.shard(state, s_spec)
+    ptr = st["pool"]["k"].data_ptr()
+    with assembly_counter(mesh) as moved:
+        lg, st = step(p_loc, st, batch)
+    if facts is not None:
+        facts.update(serve_facts(
+            plan, params, state, (p_loc, st), p_spec, s_spec,
+            (ptr, st["pool"]["k"].data_ptr()), moved["bytes"]))
+        facts["logits"] = np.int64(lg.numel() * 4 // 2)  # [1, V] over data
+    full = plan.gather(st, s_spec)
+    out = {"logits": lg.numpy()}
+    for k, v in full.items():       # the pool's pages, not its trash page
+        out.update({f"{k}{i}": (x[:, :-1] if k == "pool" else x).numpy()
+                    for i, (x, _) in enumerate(SH._leaf_specs(v, None))})
+    return out
+
+
+def pp_tp_run(mesh, facts: dict | None = None) -> dict:
+    """GPipe decode (``make_pp_decode_step``, 2 stages, 2 microbatches) of
+    reduced llama3.2-1b (4 layers) on ``mesh`` ((pod 2, data 2, model
+    2)), ``REPLICATE_SMALL`` at 0: 4 rows prefilled to 8 tokens
+    unsharded, then 4 steps on the rank's serve slices and its stage's
+    pool block, gathered at the end: logits and pool pages as numpy."""
+    cfg = replace(reduced(get_config("llama3.2-1b"), layers=4),
+                  dtype="float32")
+    params = MDL.init_params(cfg, seed=4, device="cpu")
+    S_pre, S, n_pages = 8, 12, 32
+    maxp = S // PAGE + 1
+    parallel = ParallelConfig(page_size=PAGE)
+    plan = SH.make_plan(mesh, parallel, ShapeConfig("d", "decode", S, B),
+                        pod_mode="pp")
+    spec = PK.PoolSpec(cfg.n_layers, n_pages, PAGE, cfg.n_kv_heads,
+                       cfg.d_head, maxp, dtype="float32")
+    alloc = PageAllocator(n_pages, 4, PAGE, policy="row_affine", n_rows=2)
+    for b in range(B):
+        alloc.admit(b, S, row=b // 2)
+    bt = torch.from_numpy(np.stack([alloc.block_table(b, maxp)
+                                    for b in range(B)])).to(torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (B, S),
+                         generator=torch.Generator().manual_seed(5))
+    state = MDL.init_decode_state(cfg, spec, B, device="cpu")
+    MDL.prefill(cfg, params, state, toks[:, :S_pre], bt)
+    p_spec = plan.param_specs(params, mode="serve")
+    s_spec = plan.state_specs(state)
+    step = make_pp_decode_step(cfg, plan, parallel, spec, n_stages=2,
+                               microbatches=2, specs=p_spec)
+    p_loc, st = plan.shard(params, p_spec), plan.shard(state, s_spec)
+    ptr, out = st["pool"]["k"].data_ptr(), {}
+    with assembly_counter(mesh) as moved:
+        for j, t in enumerate(range(S_pre, S)):
+            lg, st = step(p_loc, st, {
+                "tokens": toks[:, t], "bt": bt,
+                "ctx": torch.full((B,), t + 1, dtype=torch.int32),
+                "npage": bt[:, t // PAGE].clone(),
+                "noff": torch.full((B,), t % PAGE, dtype=torch.int32)})
+            out[f"logits{j}"] = lg.numpy()
+    if facts is not None:
+        facts.update(serve_facts(
+            plan, params, state, (p_loc, st), p_spec, s_spec,
+            (ptr, st["pool"]["k"].data_ptr()), moved["bytes"], pp=True))
+        # the stage's logits come back summed over pod and gathered over
+        # data inside the body; the assembly gathers [B, V/2] over model
+        cut = SH.serve_args(plan, params, p_spec)[3]
+        facts["logits"] = np.int64((S - S_pre) * lg.numel() * 4 // 2
+                                   if cut else 0)
+    full = plan.gather(st, s_spec)
+    out["pool_k"] = full["pool"]["k"][:, :n_pages].numpy()
+    out["pool_v"] = full["pool"]["v"][:, :n_pages].numpy()
     return out

@@ -15,11 +15,13 @@ reference (repro's decode cell under the serve shardings) is
 
 The port runs each case on a single-process ``LocalMesh`` (8 shards as
 threads), with the plain path and with the kernel wrappers (their plain
-versions here). Three cases — the 8-shard ITPP merge, ``moe_ep``'s
-``all_to_all`` and the Megatron-TP decode step
-(``sharding.make_decode_step`` on (data 2, model 4)) — also run on an
-8-rank ``gloo`` ``ProcessMesh`` (8 local processes) and must equal the
-``LocalMesh`` bit for bit. ``make_plan``,
+versions here). The 8-shard ITPP merge, ``moe_ep``'s ``all_to_all`` and
+the sharded steps — the Megatron-TP decode step
+(``sharding.make_decode_step`` on (data 2, model 4)), the sharded prefill
+and the pipeline — also run on an 8-rank ``gloo`` ``ProcessMesh`` (8
+local processes) on each rank's resident state (``Plan.shard``, gathered
+at the end) and must equal the ``LocalMesh`` bit for bit; rank 0's
+resident bytes, pool storage and output assembly are held too. ``make_plan``,
 ``Plan.itpp_spec`` and ``param_specs`` equal repro's on repro's
 ``abstract_mesh`` with ``PartitionSpec``s read as tuples.
 """
@@ -397,7 +399,8 @@ def test_pp_decode_matches_forward(ref, path, monkeypatch):
     bt = _t(c["bt"])
     MDL.prefill(cfg, params, state, toks[:, :S_pre], bt)
     step = make_pp_decode_step(cfg, plan, parallel, pool, n_stages=2,
-                               microbatches=2)
+                               microbatches=2,
+                               specs=plan.param_specs(params, mode="serve"))
     for j, t in enumerate(range(S_pre, S)):
         batch = {"tokens": toks[:, t], "bt": bt,
                  "ctx": torch.full((B,), t + 1, dtype=torch.int32),
@@ -452,11 +455,15 @@ for path in ("plain", "kernels"):
     spec = IT.ItppSpec(("model",), ("model",), None, 8, 8, 4)
     kern = None if path == "plain" else IT.KernelConfig()
     f = IT.make_itpp_attention(mesh, spec, max_pages_per_req=8, kernels=kern)
-    out, pk, pv = f(t("q"), t("k_new"), t("v_new"), t("pool_k").clone(),
-                    t("pool_v").clone(), t("bt"), t("ctx"), t("npage"),
-                    t("noff"), 0)
+    pool = M.P(M.Paged(("model",)))
+    pk, pv = (M.shard(t(k), pool, mesh) for k in ("pool_k", "pool_v"))
+    ptr = pk.data_ptr()
+    out, pk, pv = f(t("q"), t("k_new"), t("v_new"), pk, pv, t("bt"),
+                    t("ctx"), t("npage"), t("noff"), 0)
+    res[f"facts/itpp_{path}/same_storage"] = np.bool_(pk.data_ptr() == ptr)
+    res[f"facts/itpp_{path}/block_pages"] = np.int64(pk.shape[0])
     res[f"itpp_{path}"] = out.numpy()
-    res[f"itpp_{path}_pk"] = pk.numpy()
+    res[f"itpp_{path}_pk"] = M.gather(pk, pool, mesh).numpy()
 cfg = replace(reduced(get_config("mixtral-8x22b")), dtype="float32",
               capacity_factor=8.0)
 def body(pw, x_loc):
@@ -470,15 +477,26 @@ f = M.shard_map(body, mesh, in_specs=(pspec, M.P(None, "model")),
 p = {k: t("moe_" + k) for k in ("router", "w1", "w2", "w3")}
 y, aux = f(p, t("moe_x"))
 res["moe_y"], res["moe_aux"] = y.numpy(), aux.numpy()
-# the TP decode step on a (data 2, model 4) world (this mesh's groups now)
+# the sharded steps on resident state: decode (TP) and prefill on a
+# (data 2, model 4) world, the pipeline on (pod 2, data 2, model 2)
 sys.path.insert(0, sys.argv[5])
 from repro_torch.distributed import sharding as SH
-from test_torch_decode_tp import GLOO_ARCHS, decode_tp_run
+from test_torch_decode_tp import (GLOO_ARCHS, PREFILL_ARCHS, decode_tp_run,
+                                  pp_tp_run, prefill_tp_run)
 SH.REPLICATE_SMALL = 0
+def keep(tag, out, facts):
+    res.update({f"{tag}/{k}": v for k, v in out.items()})
+    res.update({f"facts/{tag}/{k}": v for k, v in facts.items()})
 mesh = M.ProcessMesh((2, 4), ("data", "model"))
 for arch in GLOO_ARCHS:
-    res.update({f"decode_tp/{arch}/{k}": v
-                for k, v in decode_tp_run(mesh, arch).items()})
+    facts = {}
+    keep(f"decode_tp/{arch}", decode_tp_run(mesh, arch, facts), facts)
+for arch in PREFILL_ARCHS:
+    facts = {}
+    keep(f"prefill/{arch}", prefill_tp_run(mesh, arch, facts), facts)
+mesh = M.ProcessMesh((2, 2, 2), ("pod", "data", "model"))
+facts = {}
+keep("pp", pp_tp_run(mesh, facts), facts)
 if rank == 0:
     np.savez(outp, **res)
 dist.barrier()
@@ -525,24 +543,42 @@ def gloo(ref, tmp_path_factory):
         return {k: z[k] for k in z.files}
 
 
+def _gloo_local(case: str) -> dict:
+    """The LocalMesh's run of a sharded-step case of ``RANK_PROG``."""
+    from test_torch_decode_tp import (GLOO_ARCHS, PREFILL_ARCHS,
+                                      decode_tp_run, pp_tp_run,
+                                      prefill_tp_run)
+    if case == "pp":
+        return {"pp": pp_tp_run(M.LocalMesh((2, 2, 2),
+                                            ("pod", "data", "model")))}
+    mesh = M.LocalMesh((2, 4), ("data", "model"))
+    if case == "decode_tp":
+        return {f"decode_tp/{a}": decode_tp_run(mesh, a) for a in GLOO_ARCHS}
+    return {f"prefill/{a}": prefill_tp_run(mesh, a) for a in PREFILL_ARCHS}
+
+
 @pytest.mark.parametrize("case", ["itpp_plain", "itpp_kernels", "moe",
-                                  "decode_tp"])
+                                  "decode_tp", "prefill", "pp"])
 def test_process_mesh_equals_local_mesh(ref, gloo, case, monkeypatch):
     """The same bodies over ``torch.distributed`` (gloo, one shard a
     process) give the LocalMesh's bits: the ITPP merge's pmax / psum,
-    ``moe_ep``'s two ``all_to_all``s, and ``make_decode_step``'s TP shard
-    body on (data 2, model 4) (gemma3's tied head and windows, phi3.5-moe
-    on ``moe_ep_rows``: logits and pool pages over 2 steps)."""
-    if case == "decode_tp":
+    ``moe_ep``'s two ``all_to_all``s, and the sharded steps on resident
+    params and state, gathered at the end (``Plan.gather``):
+    ``make_decode_step``'s TP shard body on (data 2, model 4) (gemma3's
+    tied head and windows, phi3.5-moe on ``moe_ep_rows``, zamba2's carry:
+    logits over 4 steps, the pool pages and carry), ``make_prefill_step``
+    (llama3.2-1b, zamba2: logits, the pages each rank wrote into its
+    block, the carry) and the pipeline on (pod 2, data 2, model 2)
+    (logits over 4 steps, the stages' pool pages)."""
+    if case in ("decode_tp", "prefill", "pp"):
         from repro_torch.distributed import sharding as SH
-        from test_torch_decode_tp import GLOO_ARCHS, decode_tp_run
         monkeypatch.setattr(SH, "REPLICATE_SMALL", 0)
-        for arch in GLOO_ARCHS:
-            local = decode_tp_run(M.LocalMesh((2, 4), ("data", "model")),
-                                  arch)
+        for tag, local in _gloo_local(case).items():
+            assert {k for k in gloo if k.startswith(tag + "/")} == {
+                f"{tag}/{k}" for k in local}, tag
             for k, v in local.items():
-                np.testing.assert_array_equal(
-                    gloo[f"decode_tp/{arch}/{k}"], v, err_msg=f"{arch} {k}")
+                np.testing.assert_array_equal(gloo[f"{tag}/{k}"], v,
+                                              err_msg=f"{tag} {k}")
         return
     if case == "moe":
         c = _sub(ref, "moe")
@@ -558,6 +594,35 @@ def test_process_mesh_equals_local_mesh(ref, gloo, case, monkeypatch):
                            KERNELS[case.split("_")[1]], 8)
     np.testing.assert_array_equal(gloo[case], out.numpy())
     np.testing.assert_array_equal(gloo[case + "_pk"][:64], pk[:64].numpy())
+
+
+@pytest.mark.parametrize("case", ["itpp_plain", "itpp_kernels"]
+                         + [f"decode_tp/{a}" for a in (
+                             "gemma3-27b", "phi3.5-moe-42b-a6.6b",
+                             "zamba2-1.2b")]
+                         + ["prefill/llama3.2-1b", "prefill/zamba2-1.2b",
+                            "pp"])
+def test_process_mesh_state_stays_resident(gloo, case):
+    """What rank 0 of the gloo world held and moved: its resident params
+    and state are exactly its slices under the plan (``Plan.local_bytes``,
+    a ``Paged`` block with its own trash page); the dry-run's
+    ``argument_bytes`` rule on its cell's specs counts less by exactly the
+    blocks' own trash pages (less the global trash page's share it counts)
+    and, in the pipeline, the other stage's layers (``beyond_count``); its
+    pool block kept its storage through the steps (no copy of a pool
+    inside a step), and the steps' output assembly sent only the logits'
+    bytes (no param, page or carry byte). The ITPP op's pool block is its
+    8 pages and a trash page."""
+    f = {k[len(f"facts/{case}/"):]: v for k, v in gloo.items()
+         if k.startswith(f"facts/{case}/")}
+    assert bool(f["same_storage"])
+    if case.startswith("itpp"):
+        assert int(f["block_pages"]) == 64 // 8 + 1
+        return
+    assert int(f["held"]) == int(f["want"]) > 0
+    assert int(f["held"]) == int(f["want_dryrun"]) + int(f["beyond_dryrun"])
+    assert int(f["beyond_dryrun"]) > 0
+    assert int(f["moved"]) == int(f["logits"])
 
 
 # ---------------------------------------------------------------------------
@@ -797,7 +862,8 @@ def test_pp_decode_moe_matches_forward(monkeypatch):
     state = MDL.init_decode_state(cfg, pool, B, device="cpu")
     MDL.prefill(cfg, params, state, toks[:, :S_pre], bt)
     step = make_pp_decode_step(cfg, plan, parallel, pool, n_stages=2,
-                               microbatches=2)
+                               microbatches=2,
+                               specs=plan.param_specs(params, mode="serve"))
     for t in range(S_pre, S):
         batch = {"tokens": toks[:, t], "bt": bt,
                  "ctx": torch.full((B,), t + 1, dtype=torch.int32),
@@ -835,7 +901,8 @@ def test_model_decode_sharded_matches_unsharded(arch, path, monkeypatch):
                                                  B))
     spec = PK.PoolSpec(cfg.n_layers, n_pages, page, cfg.n_kv_heads,
                        cfg.d_head, maxp, dtype="float32")
-    step = SH.make_decode_step(cfg, plan, parallel, spec)
+    step = SH.make_decode_step(cfg, plan, parallel, spec,
+                               specs=plan.param_specs(params, mode="serve"))
     rt = step.rt
     assert plan.itpp_spec(page).merge_axes == ("model",)
     assert rt.cond_window == (cfg.sliding_window
@@ -926,7 +993,8 @@ def test_sharded_prefill_matches_unsharded(arch, monkeypatch):
     st0 = MDL.init_decode_state(cfg, spec, B, device="cpu")
     lg0, st0 = MDL.prefill(cfg, params, st0, batch["tokens"], bt,
                            rt=MDL.Runtime(ring_width=ring), **kw)
-    step = SH.make_prefill_step(cfg, plan, parallel, spec)
+    step = SH.make_prefill_step(cfg, plan, parallel, spec,
+                                specs=plan.param_specs(params, mode="train"))
     lg1, st1 = step(params, MDL.init_decode_state(cfg, spec, B,
                                                   device="cpu"), batch)
 
@@ -944,4 +1012,5 @@ def test_sharded_prefill_matches_unsharded(arch, monkeypatch):
     with pytest.raises(ValueError, match="sp layout"):
         SH.make_prefill_step(cfg, make_plan(
             M.LocalMesh((2, 4), ("data", "model")), parallel,
-            ShapeConfig("p", "prefill", S, 8)), parallel, spec)
+            ShapeConfig("p", "prefill", S, 8)), parallel, spec,
+            specs=plan.param_specs(params, mode="train"))

@@ -1784,7 +1784,8 @@ def test_sharded_train_step_on_the_card(case, monkeypatch):
         remat=True, moe=shard_mean_moe if cfg.is_moe else None), ocfg)
     _, o0, m0 = ref(params, OPT.init(params), batch)
     step = make_train_step(cfg, plan.make_runtime(cfg, ParallelConfig(),
-                                                  mode="train"), ocfg)
+                                                  mode="train"), ocfg,
+                           specs=plan.param_specs(params, mode="train"))
     _, o1, m1 = step(params, OPT.init(params), batch)
     for k in ("loss", "grad_norm"):
         np.testing.assert_allclose(float(m1[k]), float(m0[k]), rtol=1e-5)
@@ -1829,7 +1830,9 @@ def test_sharded_prefill_on_the_card(arch):
     lg0, st0 = MDL.prefill(cfg, params, st0, toks, bt, last_idx=lens - 1,
                            valid_len=lens,
                            rt=MDL.Runtime(kernels=KernelConfig()))
-    lg1, st1 = SH.make_prefill_step(cfg, plan, parallel, spec)(
+    lg1, st1 = SH.make_prefill_step(
+        cfg, plan, parallel, spec,
+        specs=plan.param_specs(params, mode="train"))(
         params, MDL.init_decode_state(cfg, spec, B, device="cuda"),
         {"tokens": toks, "bt": bt, "valid_len": lens, "last_idx": lens - 1})
     scale = float(lg0.abs().max())
@@ -1883,7 +1886,8 @@ def test_sharded_decode_on_the_card(arch, monkeypatch):
     state = MDL.init_decode_state(cfg, spec, B, device="cuda")
     lg, state = MDL.prefill(cfg, params, state, toks, bt, rt=rt)
     state_u = MDL.tree_map(torch.clone, state)
-    step = SH.make_decode_step(cfg, plan, parallel, spec)
+    step = SH.make_decode_step(cfg, plan, parallel, spec,
+                               specs=plan.param_specs(params, mode="serve"))
     V = cfg.vocab_size
     tok = lg[:, :V].argmax(-1).to(torch.int32)
     rows = torch.arange(B, device="cuda")

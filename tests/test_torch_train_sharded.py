@@ -13,9 +13,11 @@ the grads in backward.
 
 (a), (c), (d): reduced llama3.2-1b, fp32, one AdamW step at lr 1e-3,
 against repro's jitted single-device ``make_train_step`` on the same numpy
-weights: the loss, the grad norm and every parameter within 1e-4. (b) the
-same steps on an 8-rank gloo ``ProcessMesh`` equal the ``LocalMesh``'s bit
-for bit. (e) the other assigned families, in ``fsdp`` and in ``sp``,
+weights: the loss, the grad norm and every parameter within 1e-4. (b)
+three steps on an 8-rank gloo ``ProcessMesh``, each rank holding its own
+FSDP slices of the params and moments (``Plan.shard``, gathered at the
+end), equal the ``LocalMesh``'s bit for bit, and a rank holds exactly its
+slices. (e) the other assigned families, in ``fsdp`` and in ``sp``,
 against the port's own single-device step (which
 ``tests/test_torch_train.py`` holds to repro).
 """
@@ -76,12 +78,15 @@ def _t(batch: dict) -> dict:
     return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
 
 
-def _mesh_step(cfg, B, ocfg, *, microbatches=1, mesh=None):
+def _mesh_step(cfg, params, B, ocfg, *, microbatches=1, mesh=None):
+    """The train step on ``mesh`` (the LocalMesh (2, 4) by default) for
+    params cut by its plan's train specs (the plan, the step)."""
     mesh = mesh or M.LocalMesh(*MESH)
     plan = SH.make_plan(mesh, ParallelConfig(), ShapeConfig("t", "train", S,
                                                             B))
     rt = plan.make_runtime(cfg, ParallelConfig(), mode="train")
-    return plan, make_train_step(cfg, rt, ocfg, microbatches=microbatches)
+    return plan, make_train_step(cfg, rt, ocfg, microbatches=microbatches,
+                                 specs=plan.param_specs(params, mode="train"))
 
 
 def _gap(a, b) -> float:
@@ -122,7 +127,7 @@ def test_mesh_step_matches_repro(case, cut, monkeypatch):
     jocfg = JOPT.AdamWConfig(lr=1e-3, warmup_steps=1, clip_norm=clip)
     cfg, params, batch, jloss, jnorm, jnew = _repro_step(
         "llama3.2-1b", B, jocfg, microbatches=mb)
-    plan, step = _mesh_step(cfg, B, OPT.AdamWConfig(
+    plan, step = _mesh_step(cfg, params, B, OPT.AdamWConfig(
         lr=1e-3, warmup_steps=1, clip_norm=clip), microbatches=mb)
     assert plan.train_layout == ("sp" if case == "sp" else "fsdp")
     if cut == "all":        # the gathers run: a matrix is cut over both
@@ -213,7 +218,7 @@ def _family_step(arch, B, layout):
     cfg, params, batch = _port_case(arch, B)
     ref = make_train_step(cfg, MDL.Runtime(remat=True), E_OPT)
     p0, s0, m0 = ref(params, OPT.init(params), batch)
-    plan, step = _mesh_step(cfg, B, E_OPT)
+    plan, step = _mesh_step(cfg, params, B, E_OPT)
     assert plan.train_layout == layout
     p1, s1, m1 = step(params, OPT.init(params), batch)
     assert abs(float(m1["loss"]) - float(m0["loss"])) <= 1e-4
@@ -262,7 +267,7 @@ def test_mesh_step_moe_ep(cut, monkeypatch):
     ref = make_train_step(cfg, MDL.Runtime(remat=True, moe=shard_mean_moe),
                           E_OPT)
     p0, _, m0 = ref(params, OPT.init(params), batch)
-    _, step = _mesh_step(cfg, 8, E_OPT)
+    _, step = _mesh_step(cfg, params, 8, E_OPT)
     p1, _, m1 = step(params, OPT.init(params), batch)
     assert abs(float(m1["loss"]) - float(m0["loss"])) <= 1e-4
     assert _gap(p1, p0) <= 1e-4
@@ -308,7 +313,10 @@ dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
 mesh = M.ProcessMesh((2, 4), ("data", "model"))
 res = {}
 for name in CASES:
-    res.update({f"{name}/{k}": v for k, v in run_case(name, mesh).items()})
+    facts = {}
+    res.update({f"{name}/{k}": v
+                for k, v in run_case(name, mesh, facts).items()})
+    res.update({f"facts/{name}/{k}": v for k, v in facts.items()})
 if rank == 0:
     np.savez(outp, **res)
 dist.barrier()
@@ -320,24 +328,47 @@ CASES = {"fsdp": ("llama3.2-1b", 8, 0, 1),
          "sp": ("llama3.2-1b", 2, 0, 1),
          "microbatches": ("llama3.2-1b", 16, 0, 2),
          "moe": ("mixtral-8x22b", 8, 0, 1)}
+TRAIN_STEPS = 3
 
 
-def run_case(name: str, mesh) -> dict:
-    """One step of ``CASES[name]`` on ``mesh``: the new params, moments
-    and metrics as numpy arrays."""
+def run_case(name: str, mesh, facts: dict | None = None) -> dict:
+    """``TRAIN_STEPS`` steps of ``CASES[name]`` on ``mesh``, the params and
+    AdamW's moments cut to the rank's own FSDP slices at the start
+    (``Plan.shard``) and gathered at the end (``Plan.gather``): the new
+    params, moments and each step's metrics as numpy arrays. ``facts``
+    gets what the rank held and moved (``test_torch_decode_tp.
+    resident_facts``: no bytes but the metrics' in the assembly, which
+    has none to gather)."""
+    from test_torch_decode_tp import assembly_counter, resident_facts
     arch, B, small, mb = CASES[name]
     old, SH.REPLICATE_SMALL = SH.REPLICATE_SMALL, small
     try:
         cfg, params, batch = _port_case(
             arch, B, virtual=4 if arch == "mixtral-8x22b" else 0)
-        _, step = _mesh_step(cfg, B, E_OPT, microbatches=mb, mesh=mesh)
-        p, s, m = step(params, OPT.init(params), batch)
+        plan, step = _mesh_step(cfg, params, B, E_OPT, microbatches=mb,
+                                mesh=mesh)
+        spec = plan.param_specs(params, mode="train")
+        o_spec = {"m": spec, "v": spec, "step": None}
+        p = plan.shard(params, spec)
+        s = OPT.init(p)
+        held = (p, s)
+        out = {}
+        with assembly_counter(mesh) as moved:
+            for i in range(TRAIN_STEPS):
+                p, s, m = step(p, s, batch)
+                out.update({f"{k}{i}": v.numpy() for k, v in m.items()})
+        if facts is not None:
+            facts.update(resident_facts(
+                plan, (params, OPT.init(params)), held, (spec, o_spec),
+                (0, 0), moved["bytes"]))
+            facts["logits"] = np.int64(0)
+        p, s = plan.gather(p, spec), plan.gather(s, o_spec)
     finally:
         SH.REPLICATE_SMALL = old
-    out = {f"p{i}": x.numpy() for i, x in enumerate(OPT.tree_leaves(p))}
+    out.update({f"p{i}": x.numpy() for i, x in enumerate(OPT.tree_leaves(p))})
     out.update({f"m{i}": x.numpy()
                 for i, x in enumerate(OPT.tree_leaves(s["m"]))})
-    out.update({k: v.numpy() for k, v in m.items()})
+    out["step"] = s["step"].numpy()
     return out
 
 
@@ -373,11 +404,28 @@ def gloo(tmp_path_factory):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_process_mesh_step_equals_local_mesh(gloo, name):
-    """(b): params, first moments, loss and grad norm of the gloo ranks
-    equal the LocalMesh's bit for bit."""
+    """(b): ``TRAIN_STEPS`` steps on each rank's resident params and
+    moments, gathered at the end: params, first moments, the step count
+    and every step's loss and grad norm of the gloo ranks equal the
+    LocalMesh's bit for bit."""
     local = run_case(name, M.LocalMesh(*MESH))
     got = {k[len(name) + 1:]: v for k, v in gloo.items()
            if k.startswith(name + "/")}
     assert set(got) == set(local)
     for k, v in local.items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
+    assert int(local["step"]) == TRAIN_STEPS
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_process_mesh_step_state_stays_resident(gloo, name):
+    """What rank 0 held and moved: its params and both moments (and the
+    step counter) are exactly its FSDP slices under the plan
+    (``Plan.local_bytes`` and the dry-run's ``argument_bytes`` rule, the
+    counter whole: nothing beyond the dry-run's count), and the steps' output assembly sent no byte (the metrics are
+    replicated; params and moments stay resident)."""
+    f = {k[len(f"facts/{name}/"):]: v for k, v in gloo.items()
+         if k.startswith(f"facts/{name}/")}
+    assert int(f["held"]) == int(f["want"]) == int(f["want_dryrun"]) > 0
+    assert int(f["beyond_dryrun"]) == 0
+    assert int(f["moved"]) == 0
