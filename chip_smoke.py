@@ -61,7 +61,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    global layer, its 6-slot ``windowed_slice``, and llama3.2-1b's batched
    and pipeline rows; their bounds count the tokens the tables hold. K2
    also at phase 15 (b)'s sharded prefill: a shard's 4 rows of 256
-   queries at q_offset 0 / 256 / 512 / 768 against 1024 gathered keys.
+   queries at q_offset 0 / 256 / 512 / 768 against 1024 gathered keys,
+   at phase 17's ``ProcessMesh`` prefill, and at the pipeline's unsharded
+   prefill (phase 15 (d), phase 17 (c): 4 rows of 256 tokens).
    At per-row offsets (the chunk, the sharded prefill, gemma3's chunk)
    the library call is SDPA with a boolean ``[B, 1, Sq, Skv]`` mask built
    from ``q_offset`` (and the window), itself held to the plain version.
@@ -326,13 +328,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    steps on a ``LocalMesh`` (1, 2) in its process: greedy tokens
    identical (C.3), logits and pool pages within 1e-5 of scale, losses
    and grad norms 1e-5 relative, params and first moments 1e-4 of each
-   leaf's scale. A rank that fails fails the phase; both are stopped.
+   leaf's scale. (c) a second mesh over the same two processes, (pod 2,
+   data 1, model 1): phase 15 (d)'s pipeline at full width (B 4, 256
+   prompt tokens through the unsharded prefill, K2 16 a rank), each rank
+   holding only its own stage's 8 of the 16 layers (``stage_specs``)
+   and its stage's pool block, then 8 greedy decode steps of 2
+   microbatches (K1 8 x 2 x 8 a rank); each rank prints the device
+   memory of its stage's params and pool block beside the plan's count
+   and the whole, its step ms and staged bytes, and holds K1 on its
+   stage block against its plain version. Rank 0 holds the gathered
+   logits and pool pages bit-equal to the same pipeline on a
+   ``LocalMesh`` (2, 1, 1), and its greedy tokens to the unsharded
+   step's (C.3; logits within 1e-5 of scale). A rank that fails fails
+   the phase; both are stopped.
 
 ``python3 chip_smoke.py --lifecycle`` builds the kernels and runs phase 10
 alone; ``--disagg`` builds them and runs phase 11 alone; ``--xlstm``
 phase 12 alone; ``--families`` phase 13 alone; ``--train`` phase 14
 alone; ``--sharded`` phase 15 alone; ``--train-sharded`` phase 16 alone;
-``--mesh`` phase 17 alone.
+``--mesh`` phase 17 alone; ``--kernels`` phase 3 alone.
 ``python3 chip_smoke.py --kernel-times SRC`` only times K1 (pages of 16
 and 256 tokens), K2 (the llama, zamba2 and chunked shapes), K3 (the
 bench and long-context shapes) and K4 (zamba2 prefill and decode, slot
@@ -1154,6 +1168,10 @@ def phase_kernels() -> dict:
                 ("process-mesh prefill B=8 Sq=512 Skv=1024 "
                  "q_offset=[0,512]x4",
                  dict(B=8, Sq=512, offs=(0, 512) * 4, time_it=True)),
+                # the pipeline's unsharded prefill (phase 15 (d), phase 17
+                # (c)): 4 rows of 256 tokens
+                ("pipeline prefill B=4 Sq=Skv=256",
+                 dict(B=4, Sq=256, Skv=256, time_it=True)),
                 ("window=256", dict(window=256)),
                 ("ragged Sq=1000", dict(Sq=1000, Skv=1000)),
                 ("G=8 D=128 Sq=300", dict(Sq=300, Skv=300, H=16, KVH=2,
@@ -4463,7 +4481,8 @@ def sharded_pipeline(smi: str, launches: dict, fns, params) -> None:
     from repro_torch.core.allocator import PageAllocator
     from repro_torch.core.paged_kv import PoolSpec
     from repro_torch.distributed.mesh import LocalMesh
-    from repro_torch.distributed.pipeline import make_pp_decode_step
+    from repro_torch.distributed.pipeline import (make_pp_decode_step,
+                                                  stage_specs)
     from repro_torch.distributed.sharding import make_plan
     from repro_torch.kernels.backend import KernelConfig
     from repro_torch.models import model as MDL
@@ -4487,7 +4506,7 @@ def sharded_pipeline(smi: str, launches: dict, fns, params) -> None:
     rng = np.random.default_rng(16)
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)), device=DEV)
     state = MDL.init_decode_state(cfg, spec, B, device=DEV)
-    p_spec = plan.param_specs(params, mode="serve")
+    p_spec = stage_specs(plan, plan.param_specs(params, mode="serve"))
     step = make_pp_decode_step(cfg, plan, parallel, spec, n_stages=2,
                                microbatches=mbs, specs=p_spec)
     cut = _tp_slices("(d)", plan, params, plan.make_runtime(
@@ -4797,6 +4816,8 @@ def phase_train_sharded(smi: str, launches: dict) -> None:
 MESH_SHAPE = ((1, 2), ("data", "model"))
 MESH_STEPS = 8                  # (a): resident decode steps after prefill
 MESH_TRAIN_STEPS = 3            # (b): resident train steps
+MESH_PP_SHAPE = ((2, 1, 1), ("pod", "data", "model"))   # (c): 2 stages
+MESH_PP_MBS = 2                 # (c): microbatches a decode step
 
 
 def _tree_bytes(tree) -> int:
@@ -5032,6 +5053,146 @@ def _mesh_train(mesh, rank: int, fns, res: dict) -> dict:
     return out
 
 
+def _mesh_pp_case(cfg, mesh) -> dict:
+    """Phase 15 (d)'s pipeline geometry for (c) on ``mesh``: 4 rows of 256
+    prompt tokens (seed 16) in pages of 16 on one page shard, room for
+    ``MESH_STEPS`` decode steps; its plan, pool spec, table and tokens."""
+    from repro_torch.configs import ParallelConfig, ShapeConfig
+    from repro_torch.core.allocator import PageAllocator
+    from repro_torch.core.paged_kv import PoolSpec
+    from repro_torch.distributed.sharding import make_plan
+    B, S_pre, page, n_pages = 4, 256, 16, 96
+    S = S_pre + MESH_STEPS
+    maxp = S // page + 1
+    parallel = ParallelConfig(page_size=page, remat=False)
+    alloc = PageAllocator(n_pages, 1, page)
+    for b in range(B):
+        alloc.admit(b, S)
+    bt = torch.tensor(np.stack([alloc.block_table(b, maxp)
+                                for b in range(B)]), dtype=torch.int32,
+                      device=DEV)
+    rng = np.random.default_rng(16)
+    return {"parallel": parallel, "S_pre": S_pre, "page": page, "bt": bt,
+            "spec": PoolSpec(cfg.n_layers, n_pages, page, cfg.n_kv_heads,
+                             cfg.d_head, maxp, dtype="float32"),
+            "toks": torch.tensor(rng.integers(0, cfg.vocab_size,
+                                              (B, S_pre)), device=DEV),
+            "plan": make_plan(mesh, parallel, ShapeConfig("d", "decode", S,
+                                                          B),
+                              pod_mode="pp")}
+
+
+def _pp_batch(case, tok, j: int) -> dict:
+    """(c)'s decode step ``j``: ``tok`` at position ``S_pre + j``."""
+    t, page, bt = case["S_pre"] + j, case["page"], case["bt"]
+    B = bt.shape[0]
+    return {"tokens": tok, "bt": bt,
+            "ctx": torch.full((B,), t + 1, dtype=torch.int32, device=DEV),
+            "npage": bt[:, t // page].contiguous(),
+            "noff": torch.full((B,), t % page, dtype=torch.int32,
+                               device=DEV)}
+
+
+def _pp_prefill(cfg, params, case):
+    """(c)'s prompts through the unsharded prefill (K2) into a fresh
+    global pool: (the last position's logits, the state)."""
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.models import model as MDL
+    state = MDL.init_decode_state(cfg, case["spec"], case["bt"].shape[0],
+                                  device=DEV)
+    return MDL.prefill(cfg, params, state, case["toks"], case["bt"],
+                       rt=MDL.Runtime(kernels=KernelConfig()))
+
+
+def _mesh_pipeline(mesh, rank: int, fns, res: dict) -> dict:
+    """(c) on this rank: the pipeline (``make_pp_decode_step``, 2 stages,
+    ``MESH_PP_MBS`` microbatches) on ``MESH_PP_SHAPE``, the rank holding
+    only its stage's layers (``stage_specs``) and its stage's pool block,
+    filled by the unsharded prefill and cut with ``Plan.shard`` (the
+    global trees freed before anything is measured); then
+    ``MESH_STEPS`` greedy decode steps. Returns what rank 0 compares."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import (make_pp_decode_step,
+                                                  stage_specs)
+    from repro_torch.models import model as MDL
+    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    case = _mesh_pp_case(cfg, mesh)
+    plan, spec, B = case["plan"], case["spec"], case["bt"].shape[0]
+    meta = MDL.init_params(cfg, device="meta")
+    meta_state = MDL.init_decode_state(cfg, spec, B, device="meta")
+    p_spec = stage_specs(plan, plan.param_specs(meta, mode="serve"))
+    s_spec = plan.state_specs(meta_state)
+    mem = res.setdefault("memory", {})
+    params = lambda: MDL.init_params(cfg, seed=0, dtype=torch.float32,
+                                     device=DEV)
+    lg0: dict = {}
+
+    def prefilled():
+        lg, state = _pp_prefill(cfg, params(), case)
+        lg0["lg"] = lg.cpu()
+        return state
+    reset_counts(fns)
+    st = _held(prefilled, lambda t: plan.shard(t, s_spec),
+               "(c) stage pool block", plan.local_bytes(meta_state, s_spec),
+               _tree_bytes(meta_state), mem)
+    la_pre = launch_counts(fns)
+    p = _held(params, lambda t: plan.shard(t, p_spec), "(c) stage params",
+              plan.local_bytes(meta, p_spec), _tree_bytes(meta), mem)
+    step = make_pp_decode_step(cfg, plan, case["parallel"], spec,
+                               n_stages=2, microbatches=MESH_PP_MBS,
+                               specs=p_spec)
+    ptr = st["pool"]["k"].data_ptr()
+    V = cfg.vocab_size
+    tok = lg0["lg"][:, :V].argmax(-1).to(torch.int32).to(DEV)
+    toks, lgs, ms = [tok], [], []
+    staged = mesh.staged_bytes
+    reset_counts(fns)
+    for j in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, st = step(p, st, _pp_batch(case, tok, j))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        lgs.append(lg)
+        tok = lg[:, :V].argmax(-1).to(torch.int32)
+        toks.append(tok)
+    la_dec = launch_counts(fns)
+    if st["pool"]["k"].data_ptr() != ptr:
+        fail("phase 17 (c): the pool block was copied inside a step")
+    res["pipeline"] = {"decode_ms": ms, "launches_prefill": la_pre,
+                       "launches_decode": la_dec,
+                       "staged_bytes": mesh.staged_bytes - staged,
+                       "layers": len(p["layers"]),
+                       "n_layers": cfg.n_layers}
+    # K1 on the rank's stage block (its stage's first layer, every page and
+    # the trash page), the first microbatch at the last step's context
+    mb = B // MESH_PP_MBS
+    g = torch.Generator(device=DEV)
+    g.manual_seed(27 + rank)
+    q = torch.randn((mb, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                     cfg.d_head), generator=g, device=DEV)
+    kp, vp = (st["pool"][n][0] for n in ("k", "v"))
+    k1 = check_paged(None, torch.float32,
+                     n_splits=case["parallel"].kernel_splits, time_it=True,
+                     inputs=(q, kp, vp, case["bt"][:mb],
+                             _pp_batch(case, tok, MESH_STEPS - 1)["ctx"][
+                                 :mb]))
+    if not k1["ok"]:
+        fail(f"phase 17 (c): K1 on rank {rank}'s stage block misses its "
+             f"plain version by {k1['max_abs_err']:.3e}")
+    res["pipeline"]["k1_stage"] = {k: k1[k] for k in (
+        "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")}
+    res["pipeline"]["k1_stage"]["block"] = list(kp.shape)
+    full = plan.gather(st, s_spec)      # on every rank (an all-gather)
+    out = {"toks": [t.cpu() for t in toks], "lg0": lg0["lg"],
+           "lgs": [x.cpu() for x in lgs],
+           "pool": {n: full["pool"][n][:, :spec.n_pages].cpu()
+                    for n in ("k", "v")}}
+    del full, st, p, lgs
+    _free()
+    return out
+
+
 def mesh_rank(rank: int, port: int, out: Path) -> int:
     """One rank of phase 17 (``chip_smoke.py --mesh-rank R PORT DIR``, run
     by ``phase_process_mesh``): a gloo world of ``MESH_SHAPE``'s ranks on
@@ -5057,6 +5218,12 @@ def mesh_rank(rank: int, port: int, out: Path) -> int:
         t0 = time.perf_counter()
         serve = _mesh_serve(mesh, rank, fns, res)
         train = _mesh_train(mesh, rank, fns, res)
+        dist.barrier()
+        # (c) a second mesh over the same two processes
+        t1 = time.perf_counter()
+        pipeline = _mesh_pipeline(ProcessMesh(*MESH_PP_SHAPE), rank, fns,
+                                  res)
+        res["pipeline_s"] = time.perf_counter() - t1
         res["process_mesh_s"] = time.perf_counter() - t0
         dist.barrier()
     finally:
@@ -5064,6 +5231,9 @@ def mesh_rank(rank: int, port: int, out: Path) -> int:
     if rank == 0:
         t0 = time.perf_counter()
         res["local"] = _mesh_against_local(serve, train, fns)
+        t1 = time.perf_counter()
+        res["local_pp"] = _mesh_pp_against_local(pipeline, fns)
+        res["local_pp_s"] = time.perf_counter() - t1
         res["local_s"] = time.perf_counter() - t0
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     return 0
@@ -5156,6 +5326,67 @@ def _mesh_against_local(serve: dict, train: dict, fns) -> dict:
     return gaps
 
 
+def _mesh_pp_against_local(pp: dict, fns) -> dict:
+    """Rank 0: (c) on a ``LocalMesh`` of ``MESH_PP_SHAPE`` in this process
+    (the resident params the global ones, each shard handed its stage's
+    layers), fed the ProcessMesh's tokens: the prefill's logits, the
+    steps' logits and the pool's pages bit-equal; then the unsharded step
+    (K1) on a copy of the same prefilled pool, fed the same tokens: greedy
+    tokens identical (C.3), logits within 1e-5 of their scale. Returns
+    the gaps."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.mesh import LocalMesh
+    from repro_torch.distributed.pipeline import (make_pp_decode_step,
+                                                  stage_specs)
+    from repro_torch.kernels.backend import KernelConfig
+    from repro_torch.models import model as MDL
+    cfg = replace(get_config("llama3.2-1b"), dtype="float32")
+    case = _mesh_pp_case(cfg, LocalMesh(*MESH_PP_SHAPE))
+    plan, spec = case["plan"], case["spec"]
+    params = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=DEV)
+    reset_counts(fns)
+    lg0, state = _pp_prefill(cfg, params, case)
+    state_u = {"pool": {k: v.clone() for k, v in state["pool"].items()}}
+    step = make_pp_decode_step(cfg, plan, case["parallel"], spec,
+                               n_stages=2, microbatches=MESH_PP_MBS,
+                               specs=stage_specs(plan, plan.param_specs(
+                                   params, mode="serve")))
+    toks = [t.to(DEV) for t in pp["toks"]]
+    gaps = {"prefill": float((pp["lg0"].to(DEV) - lg0).abs().max()),
+            "logits": 0.0}
+    for j in range(MESH_STEPS):
+        lg, state = step(params, state, _pp_batch(case, toks[j], j))
+        gaps["logits"] = max(gaps["logits"], float(
+            (pp["lgs"][j].to(DEV) - lg).abs().max()))
+    gaps["launches"] = launch_counts(fns)
+    n = spec.n_pages
+    gaps["pages"] = max(float((pp["pool"][k].to(DEV)
+                               - state["pool"][k][:, :n]).abs().max())
+                        for k in ("k", "v"))
+    gaps["bit_equal"] = gaps["prefill"] == gaps["logits"] == \
+        gaps["pages"] == 0
+    del state
+    rt_u, err, tgap = MDL.Runtime(kernels=KernelConfig()), 0.0, 0.0
+    for j in range(MESH_STEPS):
+        b = _pp_batch(case, toks[j], j)
+        lg, _ = MDL.decode_step(cfg, params, state_u, b["tokens"], b["bt"],
+                                b["ctx"], b["npage"], b["noff"], rt=rt_u)
+        got = pp["lgs"][j].to(DEV)
+        err = max(err, _logit_gap(got, lg))
+        tgap = max(tgap, _greedy_check("phase 17 (c)", cfg, got, lg,
+                                       toks[j + 1]))
+    gaps["unsharded"], gaps["max_logit_gap"] = err, tgap
+    del params, state_u
+    _free()
+    if not gaps["bit_equal"]:
+        fail(f"phase 17 (c): the ProcessMesh pipeline's gathered results "
+             f"differ from the LocalMesh's: {gaps}")
+    if not err <= 1e-5:
+        fail(f"phase 17 (c): pipeline logits differ from the unsharded "
+             f"step by {err:.3e} of scale (bound 1e-5)")
+    return gaps
+
+
 def phase_process_mesh(smi: str, launches: dict) -> None:
     """Phase 17: a ``ProcessMesh`` on the card for the first time: two
     ranks (``MESH_SHAPE``, both on the one H100, over gloo with their CUDA
@@ -5170,7 +5401,11 @@ def phase_process_mesh(smi: str, launches: dict) -> None:
     step ms, and K1 on its own page block against its plain version; the
     results gathered at the end are held to the same steps on a
     ``LocalMesh``. Launches: K2 16 a rank (the prefill), K1 16 x
-    ``MESH_STEPS`` a rank, none in training."""
+    ``MESH_STEPS`` a rank, none in training. (c) the pipeline on
+    ``MESH_PP_SHAPE`` over the same processes, a rank holding its stage's
+    layers only: K2 16 (the unsharded prefill) and K1 8 x
+    ``MESH_PP_MBS`` x ``MESH_STEPS`` a rank, gathered results bit-equal
+    to a ``LocalMesh``'s, tokens to the unsharded step's."""
     import os
     import socket
     import shutil
@@ -5217,9 +5452,10 @@ def phase_process_mesh(smi: str, launches: dict) -> None:
         tag = f"[mesh] rank {r['rank']}/{n}"
         for label, m in r["memory"].items():
             print(f"{tag}: {label} {m['held'] / 1e9:.3f} GB on the card "
-                  f"(torch.cuda.memory_allocated), the plan's count of its "
-                  f"slices {m['plan'] / 1e9:.3f} GB, whole "
-                  f"{m['whole'] / 1e9:.3f} GB | {smi}", flush=True)
+                  f"(torch.cuda.memory_allocated: {m['held']} B), the "
+                  f"plan's count of its slices {m['plan'] / 1e9:.3f} GB "
+                  f"({m['plan']} B), whole {m['whole'] / 1e9:.3f} GB | "
+                  f"{smi}", flush=True)
         sv, tr, k1 = r["serve"], r["train"], r["serve"]["k1_local"]
         print(f"{tag}: (a) llama3.2-1b {cfg_layers} layers, 8 rows, prefill "
               f"ms {sv['prefill_ms']:.1f} (make_prefill_step, sp, FSDP "
@@ -5245,6 +5481,44 @@ def phase_process_mesh(smi: str, launches: dict) -> None:
         want = {"flash_attention": cfg_layers,
                 "paged_attention": cfg_layers * MESH_STEPS}
         _check_path(f"phase 17 rank {r['rank']}", la, want, launches)
+        pl, k1 = r["pipeline"], r["pipeline"]["k1_stage"]
+        print(f"{tag}: (c) pipeline llama3.2-1b on {MESH_PP_SHAPE[0]} over "
+              f"{MESH_PP_SHAPE[1]}: the rank holds {pl['layers']} of "
+              f"{pl['n_layers']} layers, {MESH_PP_MBS} microbatches, B 4, "
+              f"256 prefilled (unsharded, K2) + {MESH_STEPS} greedy decode "
+              f"steps, step ms " + " ".join(f"{x:.2f}"
+                                           for x in pl["decode_ms"])
+              + f"; collectives staged through host memory "
+              f"{pl['staged_bytes'] / 1e6:.3f} MB (gloo) | {smi}",
+              flush=True)
+        print(f"{tag}: (c) K1 on its stage block {k1['block']} (every "
+              f"page, then the trash page): max_abs_err "
+              f"{k1['max_abs_err']:.3e} (tolerance {TOL[torch.float32]}) ms "
+              f"{k1['ms']:.4f} (graph replay {k1['graph_ms']:.4f}) bound_ms "
+              f"{k1['bound_ms']:.4f} ({k1['bound_by']}) plain_ms "
+              f"{k1['plain_ms']:.4f} | {smi}", flush=True)
+        if 2 * pl["layers"] != pl["n_layers"]:
+            fail(f"phase 17 (c): rank {r['rank']} holds {pl['layers']} "
+                 f"layers, not its stage's {pl['n_layers'] // 2}")
+        la = {k: pl["launches_prefill"][k] + pl["launches_decode"][k]
+              for k in pl["launches_decode"]}
+        _check_path(f"phase 17 (c) rank {r['rank']}", la, {
+            "flash_attention": cfg_layers,
+            "paged_attention": cfg_layers // 2 * MESH_PP_MBS * MESH_STEPS},
+            launches)
+    gp = res[0]["local_pp"]
+    lw = {k: v for k, v in gp["launches"].items() if v}
+    if lw != {"flash_attention": cfg_layers,
+              "paged_attention": cfg_layers * MESH_PP_MBS * MESH_STEPS}:
+        fail(f"phase 17 (c): the LocalMesh reference launched {lw}")
+    print(f"[mesh] (c) on the ranks "
+          + " / ".join(f"{r['pipeline_s']:.1f}" for r in res)
+          + f" s; gathered against the LocalMesh {MESH_PP_SHAPE[0]} "
+          f"(rank 0, {res[0]['local_pp_s']:.1f} s): prefill logits {gp['prefill']:.3e}, step logits "
+          f"{gp['logits']:.3e}, pool pages {gp['pages']:.3e} (bit-equal "
+          f"{gp['bit_equal']}); the unsharded step: logits "
+          f"{gp['unsharded']:.3e} of scale (bound 1e-5), tokens identical "
+          f"(max logit gap {gp['max_logit_gap']:.3e})", flush=True)
     g = res[0]["local"]
     lw = {k: v for k, v in g["launches_serve"].items() if v}
     if lw != {"flash_attention": cfg_layers * n,
@@ -5415,6 +5689,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--mesh"]:
         phase_process_mesh(smi, {})
+        return 0
+    if sys.argv[1:2] == ["--kernels"]:
+        phase_kernels()
         return 0
     main_cases = phase_kernels()
     bench_launches = phase_bench(smi)

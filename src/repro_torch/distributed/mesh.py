@@ -42,6 +42,10 @@ entry per leading dim: ``None``, an axis name or a tuple of names (the dim
 cut into contiguous blocks, row-major over the names), or ``Paged(axes)``
 for a paged pool's page dim with its trash page last (``core/itpp.py``
 states that layout). One ``P`` also stands for every leaf of a subtree.
+``Stages(axis, specs)`` cuts a per-layer list into pipeline stages over
+``axis``, each element under its own spec (the list form of repro's
+``P("pod")`` on a stacked ``[L, ...]`` dim): a rank's block is its
+stage's run of the list.
 
 An argument or output is either global or RESIDENT (``Resident(spec)``):
 
@@ -99,6 +103,27 @@ class Resident:
     rank's own block under ``spec``: not cut on the way in, not gathered
     on the way out (the global tensor itself on a ``LocalMesh``)."""
     spec: object
+
+
+@dataclass(frozen=True)
+class Stages:
+    """A per-layer list cut into pipeline stages over ``axis``: of L
+    elements, element ``i`` lives on index ``i // (L / n)`` of the axis's
+    n shards, under its own spec tree ``specs[i]``. A rank's block is its
+    stage's L / n elements, each its block under its spec."""
+    axis: str
+    specs: tuple
+
+    def run(self, mesh: "Mesh", rank: int, n_elems: int) -> slice:
+        """The elements of a global list of ``n_elems`` that ``rank``'s
+        stage holds."""
+        n, L = mesh.axis_size(self.axis), len(self.specs)
+        if n_elems != L or L % n:
+            raise ValueError(f"a list of {n_elems} under {L} stage specs "
+                             f"does not cut into {n} stages over "
+                             f"{self.axis!r}")
+        i = mesh.index(rank, self.axis)
+        return slice(i * (L // n), (i + 1) * (L // n))
 
 
 def _subspecs(spec, a) -> bool:
@@ -669,6 +694,10 @@ def _split(a, spec, mesh: Mesh, rank: int):
         spec = spec.spec
     if isinstance(spec, dict):
         return {k: _split(a[k], spec.get(k), mesh, rank) for k in a}
+    if isinstance(spec, Stages):
+        r = spec.run(mesh, rank, len(a))
+        return type(a)(_split(v, s, mesh, rank)
+                       for v, s in zip(a[r], spec.specs[r]))
     if _subspecs(spec, a):
         return type(a)(_split(v, s, mesh, rank) for v, s in zip(a, spec))
     if not torch.is_tensor(a) and isinstance(a, dict):
@@ -738,6 +767,14 @@ def _assemble_process(out, spec, mesh: "ProcessMesh"):
         return out
     if isinstance(spec, dict):
         return {k: _assemble_process(out[k], spec.get(k), mesh) for k in out}
+    if isinstance(spec, Stages):        # the stages' runs over the axis
+        n = mesh.axis_size(spec.axis)
+        r = spec.run(mesh, mesh.rank, len(out) * n)
+        every = [_map(lambda t: all_gather(t, spec.axis),
+                      _assemble_process(v, s, mesh))
+                 for v, s in zip(out, spec.specs[r])]
+        return type(out)(_map(lambda t: t[i], v)
+                         for i in range(n) for v in every)
     if _subspecs(spec, out):
         return type(out)(_assemble_process(v, s, mesh)
                          for v, s in zip(out, spec))
@@ -797,10 +834,41 @@ def gather(tree, specs, mesh: Mesh):
     return _assemble_process(tree, specs, mesh)
 
 
+def leaf_specs(tree, specs, mesh: Mesh | None = None):
+    """(leaf, its spec) for every tensor of ``tree``: ``specs`` a tree of
+    the same shape, or one spec (a ``P`` or None) for a whole subtree. A
+    ``Stages`` list, which needs ``mesh``, yields the elements of the
+    global list that the mesh's rank holds (shard 0's on a mesh of no
+    rank, as a ``LocalMesh``)."""
+    if isinstance(specs, dict):
+        for k, v in tree.items():
+            yield from leaf_specs(v, specs.get(k), mesh)
+    elif isinstance(specs, Stages):
+        if mesh is None:
+            raise ValueError("a Stages spec counts a rank's stage: give "
+                             "the mesh")
+        r = specs.run(mesh, getattr(mesh, "rank", 0), len(tree))
+        for v, s in zip(tree[r], specs.specs[r]):
+            yield from leaf_specs(v, s, mesh)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaf_specs(v, specs, mesh)
+    elif isinstance(tree, (list, tuple)):
+        sub = _subspecs(specs, tree)
+        for i, v in enumerate(tree):
+            yield from leaf_specs(v, specs[i] if sub else specs, mesh)
+    elif torch.is_tensor(tree):
+        yield tree, specs
+
+
 def block_nbytes(t, spec, mesh: Mesh) -> int:
     """The bytes of a rank's block of the global leaf ``t`` under ``spec``:
     ``t``'s bytes over the shards its cut dims split it into; a ``Paged``
-    dim the rank's pages and its own trash page."""
+    dim the rank's pages and its own trash page. A tree ``t`` sums its
+    leaves' (``leaf_specs``: a ``Stages`` list its rank's stage)."""
+    if not torch.is_tensor(t):
+        return sum(block_nbytes(x, s, mesh)
+                   for x, s in leaf_specs(t, spec, mesh))
     n, nbytes = 1, t.numel() * t.element_size()
     for d, e in enumerate(spec or ()):
         if isinstance(e, Paged):

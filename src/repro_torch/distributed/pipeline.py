@@ -5,8 +5,10 @@ collapses (aspect distortion), so layers are grouped into pipeline stages
 with moderate TP inside each stage and microbatches keep the pipe full:
 
 * stage s = pod s: the layer list cut into ``n_stages`` runs
-  (``stack_stages``), the pool's layer dim cut over ``pod`` too, so each
-  pod holds only its stage's K/V;
+  (``stage_specs``: ``mesh.Stages`` over ``pod``, the list form of
+  repro's ``P("pod")`` on the stacked layers), so each pod holds only its
+  stage's layers, and the pool's layer dim cut over ``pod`` too, so it
+  holds only its stage's K/V;
 * one decode step is a GPipe loop of ``M + stages - 1`` ticks; at tick t
   stage s runs microbatch t - s through its layers, and activations hop
   to the next stage by ``ppermute`` over ``pod``; the last stage's logits
@@ -22,12 +24,15 @@ with moderate TP inside each stage and microbatches keep the pipe full:
 
 repro runs the body manual over ``pod`` only, with data / model left to
 XLA inside each stage under the serve shardings. The port's body is
-manual over every axis (one ``shard_map``): each shard gets its serve
-slices of every weight and runs its stage's layers (the stage cut of the
-layer list, repro's ``pod`` spec on the stacked layers); the collectives
-of TP, the ITPP and the MoE stay inside the pod. A stage skips the fill
-and drain ticks outright (Python control flow), where repro computes
-them and masks their pool writes; the pipeline bubbles are the same.
+manual over every axis (one ``shard_map``): each shard holds its serve
+slices of its own stage's layers and of the replicated ``embed``,
+``final_norm`` and ``head`` (a ``ProcessMesh`` rank's resident layer list
+is its stage's L / n_stages layers; on a ``LocalMesh`` the resident list
+is the global one and each shard is handed its stage's run), and the
+collectives of TP, the ITPP and the MoE stay inside the pod. A stage
+skips the fill and drain ticks outright (Python control flow), where
+repro computes them and masks their pool writes; the pipeline bubbles
+are the same.
 
 Applies to uniform attention stacks (dense / MoE / VLM, gemma3's windows
 included); hybrid and enc-dec stacks use pod = dp.
@@ -41,13 +46,17 @@ from repro_torch.distributed.sharding import serve_args
 from repro_torch.models import model as MDL
 
 
-def stack_stages(layers: list, n_stages: int) -> list[list]:
-    """[L] per-layer list -> ``n_stages`` lists of L / n_stages layers."""
-    if len(layers) % n_stages:
-        raise ValueError(f"{len(layers)} layers do not cut into "
-                         f"{n_stages} stages")
-    n = len(layers) // n_stages
-    return [layers[s * n:(s + 1) * n] for s in range(n_stages)]
+def stage_specs(plan, p_spec):
+    """The pipeline's parameter specs: the serve specs ``p_spec``
+    (``Plan.param_specs(params, mode="serve")``) with the layer list cut
+    into the plan's pod stages (``mesh.Stages``, as repro's pipeline cell
+    gives the stacked layers ``P("pod")``, ``launch/dryrun.py``), each
+    layer under its serve spec; ``embed``, ``final_norm`` and an untied
+    ``head`` stay replicated over ``pod``."""
+    if plan.pod_mode != "pp":
+        raise ValueError(f"stage specs need a pipeline plan, not pod_mode "
+                         f"{plan.pod_mode!r}")
+    return {**p_spec, "layers": M.Stages("pod", tuple(p_spec["layers"]))}
 
 
 def make_pp_decode_step(cfg, plan, parallel, pool_spec, *, n_stages: int,
@@ -55,12 +64,11 @@ def make_pp_decode_step(cfg, plan, parallel, pool_spec, *, n_stages: int,
     """``step(params, state, batch) -> (logits [B, V] fp32, state)`` with
     ``batch`` = {tokens [B], bt [B, maxp], ctx [B] incl. the new token,
     npage [B], noff [B]} global; params as ``models.model.init_params``
-    makes them (the step cuts the layers into stages), resident in the
-    serve specs they were cut by (``specs``, ``Plan.param_specs(params,
-    mode="serve")``); the state resident in
-    ``Plan.state_specs`` (a pipeline plan's pool block: the stage's layers
-    over ``pod``, the page shard's pages), written in place and returned
-    so."""
+    makes them, resident in the stage specs they were cut by (``specs``,
+    ``stage_specs``: a rank's layer list its stage's layers); the state
+    resident in ``Plan.state_specs`` (a pipeline plan's pool block: the
+    stage's layers over ``pod``, the page shard's pages), written in place
+    and returned so."""
     if "pod" not in plan.mesh.axis_names \
             or plan.axis_sizes["pod"] != n_stages:
         raise ValueError(f"{n_stages} stages need a pod axis of that size; "
@@ -80,14 +88,19 @@ def make_pp_decode_step(cfg, plan, parallel, pool_spec, *, n_stages: int,
     pool = M.Resident(M.P("pod", M.Paged(plan.page_axes)))
 
     def step(params, state, batch):
-        flat, p_spec, tree, vocab_cut = serve_args(plan, params, specs)
+        rest = {k: v for k, v in params.items() if k != "layers"}
+        flat, p_spec, tree, vocab_cut = serve_args(plan, rest, specs)
 
-        def body(pool_k, pool_v, p_loc, tokens, bt, ctx, npage, noff):
+        def body(pool_k, pool_v, p_loc, layers, tokens, bt, ctx, npage,
+                 noff):
             """One shard; pool_{k,v} the stage's [L/stages, N+1, ...]
-            layers, ``p_loc`` its serve slices of every weight."""
+            layers, ``layers`` its serve slices of its stage's layers,
+            ``p_loc`` of the other weights."""
+            if len(layers) != Ls:       # params not cut by stage_specs
+                raise ValueError(f"a stage holds {len(layers)} layers, "
+                                 f"not {Ls}")
             p = tree(p_loc)
             s = M.axis_index("pod")
-            layers = stack_stages(p["layers"], n_stages)[s]
             wins = windows[s * Ls:(s + 1) * Ls]
             mb = tokens.shape[0] // microbatches
             n, off = mb, 0                # this shard's rows of a microbatch
@@ -121,12 +134,13 @@ def make_pp_decode_step(cfg, plan, parallel, pool_spec, *, n_stages: int,
             return (out.reshape(-1, out.shape[-1]),)
 
         fn = M.shard_map(body, mesh,
-                         in_specs=(pool, pool, M.Resident(p_spec), None,
-                                   None, None, None, None),
+                         in_specs=(pool, pool, M.Resident(p_spec),
+                                   M.Resident(specs["layers"]), None, None,
+                                   None, None, None),
                          out_specs=(M.P(None, tp if vocab_cut else None),))
         logits, = fn(state["pool"]["k"], state["pool"]["v"], flat,
-                     batch["tokens"], batch["bt"], batch["ctx"],
-                     batch["npage"], batch["noff"])
+                     params["layers"], batch["tokens"], batch["bt"],
+                     batch["ctx"], batch["npage"], batch["noff"])
         return logits, state
 
     return step

@@ -208,10 +208,9 @@ class Plan:
 
     def local_bytes(self, tree, specs) -> int:
         """The bytes a rank holds of the global ``tree`` under ``specs``
-        (``mesh.block_nbytes`` a leaf: a ``Paged`` pool's block with its
-        own trash page)."""
-        return sum(M.block_nbytes(t, s, self.mesh)
-                   for t, s in _leaf_specs(tree, specs))
+        (``mesh.block_nbytes``: a ``Paged`` pool's block with its own trash
+        page, a ``Stages`` list its rank's stage)."""
+        return M.block_nbytes(tree, specs, self.mesh)
 
     def fsdp_layout(self, params, specs: list | None = None) -> list:
         """Per leaf of ``params`` in tree order, how a shard of the train
@@ -480,28 +479,11 @@ def decode_moe(cfg, tp_axis: str, tp_n: int):
 _ROWS_WRITTEN = ("mamba", "mlstm", "slstm")
 
 
-def _leaf_specs(tree, specs):
-    """(leaf, its spec) for every tensor of ``tree``: ``specs`` a tree of
-    the same shape, or one spec (a ``P`` or None) for a whole subtree."""
-    if isinstance(specs, dict):
-        for k, v in tree.items():
-            yield from _leaf_specs(v, specs.get(k))
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaf_specs(v, specs)
-    elif isinstance(tree, (list, tuple)):
-        sub = M._subspecs(specs, tree)
-        for i, v in enumerate(tree):
-            yield from _leaf_specs(v, specs[i] if sub else specs)
-    elif torch.is_tensor(tree):
-        yield tree, specs
-
-
 def step_specs(params, specs) -> list:
     """A sharded step's parameter specs, one a leaf of ``params`` in tree
     order, from ``specs``: the spec tree the caller cut the resident
     params by (``Plan.param_specs``)."""
-    return [s for _, s in _leaf_specs(params, specs)]
+    return [s for _, s in M.leaf_specs(params, specs)]
 
 
 def serve_args(plan: Plan, params, specs):

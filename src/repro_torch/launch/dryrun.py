@@ -24,10 +24,10 @@ shard:
   all-to-all / permute their input);
 * ``memory`` — ``argument_bytes`` exactly from the plan's specs
   (``counted_specs``: a leaf's bytes over the shards its spec cuts it
-  into). A ``ProcessMesh`` rank holds that and a little more: its pool
-  block's own trash page a layer (the count splits the global trash page
-  over the page shards) and, in a pipeline cell, the other stages'
-  layers' serve slices; ``output_bytes`` the bytes of the outputs the step wrote or made
+  into; in a pipeline cell the pod's own stage's layers). A
+  ``ProcessMesh`` rank holds that and a little more: its pool block's own
+  trash page a layer (the count splits the global trash page over the
+  page shards); ``output_bytes`` the bytes of the outputs the step wrote or made
   (a resident tensor passed through untouched is not one);
   ``temp_bytes`` the peak of the live bytes of the step's own tensors (a
   fresh op output adds its bytes, its collection takes them off), and
@@ -96,9 +96,8 @@ from repro_torch.configs import (ASSIGNED, SHAPES, ParallelConfig,
 from repro_torch.core.paged_kv import pool_spec_for
 from repro_torch.distributed import mesh as M
 from repro_torch.distributed.mesh import P
-from repro_torch.distributed.sharding import (_leaf_specs, _leaves,
-                                              make_decode_step, make_plan,
-                                              make_prefill_step)
+from repro_torch.distributed.sharding import (_leaves, make_decode_step,
+                                              make_plan, make_prefill_step)
 from repro_torch.launch import roofline as RF
 from repro_torch.models import model as MDL
 from repro_torch.models import ssm as SSM
@@ -226,9 +225,11 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool,
                 (None, s_spec), plan)
 
     if pod_mode == "pp" and multi_pod:
-        from repro_torch.distributed.pipeline import make_pp_decode_step
+        from repro_torch.distributed.pipeline import (make_pp_decode_step,
+                                                      stage_specs)
         mb = max(2, min(8, shape.global_batch // max(plan.dp_total, 1)))
         mb = min(mb, shape.global_batch)
+        p_serve = stage_specs(plan, p_serve)
         step = _resident(make_pp_decode_step(
             cfg, plan, parallel, pool, n_stages=2, microbatches=mb,
             specs=p_serve), plan, (p_serve, s_res))
@@ -245,51 +246,18 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool,
 
 def counted_specs(plan, p_spec, state, *, pp: bool):
     """The specs a prefill or decode cell's params and state are counted by
-    (``argument_bytes``, repro's shardings): ``p_spec`` and the state's
+    (``argument_bytes``, repro's shardings): ``p_spec``, the specs the
+    step holds its params in (a pipeline's ``pipeline.stage_specs``: a pod
+    holds only its stage's layers), and the state's
     ``Plan.decode_state_specs`` (the pool, trash page included, cut over
-    the page axes); in a pipeline cell each pod holds only its stage's
-    layers and pool layers. A rank's resident state holds more: its pool
-    block's own trash page a layer (``Plan.state_specs``) and, in a
-    pipeline, every layer's serve slices (ROADMAP's parked list)."""
+    the page axes; in a pipeline cell its layers over ``pod`` too). A
+    rank's resident state holds a little more: its pool block's own trash
+    page a layer (``Plan.state_specs``)."""
     s_spec = plan.decode_state_specs(state)
     if not pp:
         return p_spec, s_spec
     pool = P("pod", plan.page_axes, None, None, None)
-    return ({**p_spec, "layers": _map_specs(_PodStage, p_spec["layers"])},
-            {**s_spec, "pool": {"k": pool, "v": pool}})
-
-
-class _PodStage:
-    """A pipeline stage's layer spec: the layer lives on one of the pod's
-    stages, so a shard holds, on average, its ``spec`` share over the pod
-    count (repro's per-shard share of the stack it cuts over ``pod``)."""
-
-    def __init__(self, spec):
-        self.spec = spec
-
-
-def _is_spec(s) -> bool:
-    return s is None or isinstance(s, (P, _PodStage))
-
-
-def _map_specs(fn, tree):
-    if _is_spec(tree):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map_specs(fn, v) for k, v in tree.items()}
-    return type(tree)(_map_specs(fn, v) for v in tree)
-
-
-def _local_bytes(tree, spec_tree, mesh) -> int:
-    """Bytes of one shard's part of ``tree`` under ``spec_tree``
-    (``mesh.block_nbytes`` a leaf; a pipeline stage's share over ``pod``)."""
-    total = 0
-    for t, s in _leaf_specs(tree, spec_tree):
-        n = 1
-        if isinstance(s, _PodStage):
-            n, s = mesh.axis_size("pod"), s.spec
-        total += M.block_nbytes(t, s, mesh) // n
-    return total
+    return p_spec, {**s_spec, "pool": {"k": pool, "v": pool}}
 
 
 # ---------------------------------------------------------------------------
@@ -479,7 +447,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         ins = {id(t): t._version for t in tree_leaves(args)}
         with counting(mesh) as (tally, extra):
             outs = step(*args)
-        arg_bytes = sum(_local_bytes(a, s, mesh)
+        arg_bytes = sum(M.block_nbytes(a, s, mesh)
                         for a, s in zip(args, in_sh))
         out_bytes = sum(_nbytes(t) for t in tree_leaves(
             outs[:2] if SHAPES[shape_name].kind == "train" else outs)

@@ -40,7 +40,8 @@ from repro_torch.core import paged_kv as PK
 from repro_torch.core.allocator import PageAllocator
 from repro_torch.distributed import mesh as M
 from repro_torch.distributed import sharding as SH
-from repro_torch.distributed.pipeline import make_pp_decode_step
+from repro_torch.distributed.pipeline import (make_pp_decode_step,
+                                              stage_specs)
 from repro_torch.kernels.backend import KernelConfig
 from repro_torch.models import model as MDL
 from repro_torch.models.convert import params_from_numpy, state_from_numpy
@@ -477,20 +478,19 @@ def assembly_counter(mesh):
 def nbytes(tree) -> int:
     """The bytes of a tree's tensors, each storage once."""
     seen, n = set(), 0
-    for t, _ in SH._leaf_specs(tree, None):
+    for t, _ in M.leaf_specs(tree, None):
         if t.data_ptr() not in seen:
             seen.add(t.data_ptr())
             n += t.numel() * t.element_size()
     return n
 
 
-def beyond_count(plan, params, state, p_spec, *, pp: bool) -> int:
+def beyond_count(plan, state, *, pp: bool) -> int:
     """The bytes a rank holds beyond the dry-run's ``argument_bytes`` for
     the same params and decode state (``dryrun.counted_specs``), from the
     shapes: each pool block's own trash page (the rank's N/n pages and a
-    trash page a layer, against the global N+1 pages over the n page
-    shards) and, in a pipeline, the other stages' layers' serve slices
-    (the count gives a pod its stage's layers; a rank holds them all)."""
+    trash page a layer of its stage, against the global N+1 pages over the
+    n page shards)."""
     n = math.prod(plan.axis_sizes[a] for a in plan.page_axes)
     st = plan.axis_sizes["pod"] if pp else 1
     gap = 0
@@ -499,10 +499,6 @@ def beyond_count(plan, params, state, p_spec, *, pp: bool) -> int:
         pb = t[0, 0].numel() * t.element_size()
         gap += (L // st * ((pages - 1) // n + 1) * pb
                 - L * pages * pb // (st * n))
-    if pp:
-        for t, s in SH._leaf_specs(params["layers"], p_spec["layers"]):
-            b = M.block_nbytes(t, s, plan.mesh)
-            gap += b - b // st
     return gap
 
 
@@ -510,15 +506,14 @@ def resident_facts(plan, trees, resident, specs, ptrs, moved, *,
                    counted=None, beyond: int = 0) -> dict:
     """What a rank holds and moves: its resident bytes against the plan's
     count of its slices (``Plan.local_bytes``) and against the dry-run's
-    ``argument_bytes`` rule (``_local_bytes`` on the specs ``build_cell``
+    ``argument_bytes`` rule (``block_nbytes`` on the specs ``build_cell``
     counts these trees by, ``counted``; ``specs`` by default) with what
     the rank holds beyond that count (``beyond``); the pool block's
     storage before and after the steps; the assembly's bytes."""
-    from repro_torch.launch.dryrun import _local_bytes
     return {"held": np.int64(sum(nbytes(r) for r in resident)),
             "want": np.int64(sum(plan.local_bytes(t, s)
                                  for t, s in zip(trees, specs))),
-            "want_dryrun": np.int64(sum(_local_bytes(t, s, plan.mesh)
+            "want_dryrun": np.int64(sum(M.block_nbytes(t, s, plan.mesh)
                                         for t, s in zip(trees,
                                                         counted or specs))),
             "beyond_dryrun": np.int64(beyond),
@@ -534,7 +529,7 @@ def serve_facts(plan, params, state, resident, p_spec, s_spec, ptrs,
     return resident_facts(
         plan, (params, state), resident, (p_spec, s_spec), ptrs, moved,
         counted=counted_specs(plan, p_spec, state, pp=pp),
-        beyond=beyond_count(plan, params, state, p_spec, pp=pp))
+        beyond=beyond_count(plan, state, pp=pp))
 
 
 def decode_tp_run(mesh, arch: str, facts: dict | None = None) -> dict:
@@ -598,7 +593,7 @@ def decode_tp_run(mesh, arch: str, facts: dict | None = None) -> dict:
     for k in ("mamba",):
         if k in full:
             out.update({f"{k}{i}": x.numpy() for i, (x, _) in enumerate(
-                SH._leaf_specs(full[k], None))})
+                M.leaf_specs(full[k], None))})
     return out
 
 
@@ -647,7 +642,7 @@ def prefill_tp_run(mesh, arch: str, facts: dict | None = None) -> dict:
     out = {"logits": lg.numpy()}
     for k, v in full.items():       # the pool's pages, not its trash page
         out.update({f"{k}{i}": (x[:, :-1] if k == "pool" else x).numpy()
-                    for i, (x, _) in enumerate(SH._leaf_specs(v, None))})
+                    for i, (x, _) in enumerate(M.leaf_specs(v, None))})
     return out
 
 
@@ -655,8 +650,11 @@ def pp_tp_run(mesh, facts: dict | None = None) -> dict:
     """GPipe decode (``make_pp_decode_step``, 2 stages, 2 microbatches) of
     reduced llama3.2-1b (4 layers) on ``mesh`` ((pod 2, data 2, model
     2)), ``REPLICATE_SMALL`` at 0: 4 rows prefilled to 8 tokens
-    unsharded, then 4 steps on the rank's serve slices and its stage's
-    pool block, gathered at the end: logits and pool pages as numpy."""
+    unsharded, then 4 steps on the rank's serve slices of its stage's
+    layers (``stage_specs``) and its stage's pool block, gathered at the
+    end: logits and pool pages as numpy. ``facts`` also gets the rank's
+    layer count and whether the params gathered from the stages are the
+    global ones."""
     cfg = replace(reduced(get_config("llama3.2-1b"), layers=4),
                   dtype="float32")
     params = MDL.init_params(cfg, seed=4, device="cpu")
@@ -676,7 +674,7 @@ def pp_tp_run(mesh, facts: dict | None = None) -> dict:
                          generator=torch.Generator().manual_seed(5))
     state = MDL.init_decode_state(cfg, spec, B, device="cpu")
     MDL.prefill(cfg, params, state, toks[:, :S_pre], bt)
-    p_spec = plan.param_specs(params, mode="serve")
+    p_spec = stage_specs(plan, plan.param_specs(params, mode="serve"))
     s_spec = plan.state_specs(state)
     step = make_pp_decode_step(cfg, plan, parallel, spec, n_stages=2,
                                microbatches=2, specs=p_spec)
@@ -694,9 +692,17 @@ def pp_tp_run(mesh, facts: dict | None = None) -> dict:
         facts.update(serve_facts(
             plan, params, state, (p_loc, st), p_spec, s_spec,
             (ptr, st["pool"]["k"].data_ptr()), moved["bytes"], pp=True))
+        facts["layers"] = np.int64(len(p_loc["layers"]))
+        facts["n_layers"] = np.int64(cfg.n_layers)
+        whole = plan.gather(p_loc, p_spec)
+        facts["gathered_params"] = np.bool_(
+            len(whole["layers"]) == cfg.n_layers and all(
+                torch.equal(a, b) for (a, _), (b, _) in zip(
+                    M.leaf_specs(whole, None), M.leaf_specs(params, None))))
         # the stage's logits come back summed over pod and gathered over
         # data inside the body; the assembly gathers [B, V/2] over model
-        cut = SH.serve_args(plan, params, p_spec)[3]
+        cut = SH.serve_args(plan, {k: v for k, v in params.items()
+                                   if k != "layers"}, p_spec)[3]
         facts["logits"] = np.int64((S - S_pre) * lg.numel() * 4 // 2
                                    if cut else 0)
     full = plan.gather(st, s_spec)

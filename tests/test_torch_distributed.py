@@ -53,7 +53,8 @@ from repro_torch.core import itpp as IT
 from repro_torch.core import paged_kv as PK
 from repro_torch.core.allocator import PageAllocator
 from repro_torch.distributed import mesh as M
-from repro_torch.distributed.pipeline import make_pp_decode_step
+from repro_torch.distributed.pipeline import (make_pp_decode_step,
+                                              stage_specs)
 from repro_torch.distributed.sharding import abstract_mesh, make_plan
 from repro_torch.kernels.backend import KernelConfig
 from repro_torch.models import model as MDL
@@ -400,7 +401,8 @@ def test_pp_decode_matches_forward(ref, path, monkeypatch):
     MDL.prefill(cfg, params, state, toks[:, :S_pre], bt)
     step = make_pp_decode_step(cfg, plan, parallel, pool, n_stages=2,
                                microbatches=2,
-                               specs=plan.param_specs(params, mode="serve"))
+                               specs=stage_specs(plan, plan.param_specs(
+                                   params, mode="serve")))
     for j, t in enumerate(range(S_pre, S)):
         batch = {"tokens": toks[:, t], "bt": bt,
                  "ctx": torch.full((B,), t + 1, dtype=torch.int32),
@@ -608,11 +610,12 @@ def test_process_mesh_state_stays_resident(gloo, case):
     a ``Paged`` block with its own trash page); the dry-run's
     ``argument_bytes`` rule on its cell's specs counts less by exactly the
     blocks' own trash pages (less the global trash page's share it counts)
-    and, in the pipeline, the other stage's layers (``beyond_count``); its
-    pool block kept its storage through the steps (no copy of a pool
-    inside a step), and the steps' output assembly sent only the logits'
-    bytes (no param, page or carry byte). The ITPP op's pool block is its
-    8 pages and a trash page."""
+    (``beyond_count``); its pool block kept its storage through the steps
+    (no copy of a pool inside a step), and the steps' output assembly sent
+    only the logits' bytes (no param, page or carry byte). A pipeline rank
+    holds its own stage's layers only (``stage_specs``), and gathering
+    them rebuilds the global params. The ITPP op's pool block is its 8
+    pages and a trash page."""
     f = {k[len(f"facts/{case}/"):]: v for k, v in gloo.items()
          if k.startswith(f"facts/{case}/")}
     assert bool(f["same_storage"])
@@ -623,6 +626,9 @@ def test_process_mesh_state_stays_resident(gloo, case):
     assert int(f["held"]) == int(f["want_dryrun"]) + int(f["beyond_dryrun"])
     assert int(f["beyond_dryrun"]) > 0
     assert int(f["moved"]) == int(f["logits"])
+    if case == "pp":
+        assert 2 * int(f["layers"]) == int(f["n_layers"]) == 4
+        assert bool(f["gathered_params"])
 
 
 # ---------------------------------------------------------------------------
@@ -832,6 +838,56 @@ def _walk(tree, is_leaf):
         yield tree
 
 
+def test_stage_cut_of_a_layer_list():
+    """``mesh.Stages`` over ``pod`` on a 4-element layer list, (pod 2,
+    data 1, model 2): a ``LocalMesh``'s ``shard_map`` hands each shard its
+    stage's 2 layers, each cut by its own spec (global or resident);
+    ``shard`` / ``gather`` are the identity there. A ``ShapeMesh`` rank's
+    ``shard`` holds its stage's 2 layers only, and ``block_nbytes`` counts
+    just those (shard 0's on a ``LocalMesh``). A list that does not cut
+    into the stages raises, as does counting a stage with no mesh."""
+    g = torch.Generator().manual_seed(0)
+    layers = [{"w": torch.randn(4, 6, generator=g),
+               "b": torch.randn(3, generator=g)} for _ in range(4)]
+    spec = M.Stages("pod", tuple({"w": M.P(None, "model"), "b": M.P()}
+                                 for _ in layers))
+    shape, axes = (2, 1, 2), ("pod", "data", "model")
+
+    def mine(i, m):        # stage i's layers as model shard m holds them
+        return [{"w": lp["w"][:, 3 * m:3 * m + 3], "b": lp["b"]}
+                for lp in layers[2 * i:2 * i + 2]]
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            torch.equal(x["w"], y["w"]) and torch.equal(x["b"], y["b"])
+            for x, y in zip(a, b))
+
+    local = M.LocalMesh(shape, axes)
+
+    def body(ls):
+        return (torch.tensor([same(ls, mine(M.axis_index("pod"),
+                                            M.axis_index("model")))]),)
+    for sp in (spec, M.Resident(spec)):
+        ok, = M.shard_map(body, local, in_specs=(sp,),
+                          out_specs=(M.P(("pod", "data", "model")),))(layers)
+        assert ok.tolist() == [True] * 4
+    assert M.shard(layers, spec, local) is layers
+    assert M.gather(layers, spec, local) is layers
+    want = 2 * (4 * 3 + 3) * 4
+    assert M.block_nbytes(layers, spec, local) == want
+    for rank in range(4):
+        sm = M.ShapeMesh(shape, axes, rank=rank)
+        c = sm.coords(rank)
+        assert same(M.shard(layers, spec, sm), mine(c["pod"], c["model"]))
+        assert M.block_nbytes(layers, spec, sm) == want
+    with pytest.raises(ValueError):
+        M.shard(layers[:3], spec, M.ShapeMesh(shape, axes))
+    with pytest.raises(ValueError):
+        M.block_nbytes(layers, M.Stages("pod", spec.specs[:3]), local)
+    with pytest.raises(ValueError):
+        list(M.leaf_specs(layers, spec))
+
+
 def test_pp_decode_moe_matches_forward(monkeypatch):
     """GPipe decode of a MoE stack (reduced mixtral, 4 experts as 4
     virtual experts on the model axis, dropless) on (pod 2, data 1, model
@@ -863,7 +919,8 @@ def test_pp_decode_moe_matches_forward(monkeypatch):
     MDL.prefill(cfg, params, state, toks[:, :S_pre], bt)
     step = make_pp_decode_step(cfg, plan, parallel, pool, n_stages=2,
                                microbatches=2,
-                               specs=plan.param_specs(params, mode="serve"))
+                               specs=stage_specs(plan, plan.param_specs(
+                                   params, mode="serve")))
     for t in range(S_pre, S):
         batch = {"tokens": toks[:, t], "bt": bt,
                  "ctx": torch.full((B,), t + 1, dtype=torch.int32),

@@ -135,6 +135,39 @@ def test_argument_bytes_follow_the_specs(cells):
     assert cells[1][CELLS[0]]["memory"]["argument_bytes"] == want
 
 
+# the pipeline cell's argument_bytes before a pipeline rank held only its
+# own stage's layers: counted then as every layer's share over the pods
+PP_ARGUMENT_BYTES = 370565280
+
+
+def test_pipeline_argument_bytes_are_the_stage_specs(cells):
+    """The pipeline cell (``llama3.2-1b decode_32k pod2 pp``) counts a
+    rank's stage: its serve slices of the first L / 2 layers (the stage of
+    the shard the cell runs as, pod 0) and of the replicated weights, its
+    pool block (the stage's layers over ``pod``, pages over the page
+    axes) and its batch rows, from the shapes; the same bytes the count
+    gave before the stage cut (``PP_ARGUMENT_BYTES``)."""
+    _, args, in_sh, _, plan = DR.build_cell(
+        "llama3.2-1b", "decode_32k", multi_pod=True, pod_mode="pp")
+    sizes = plan.axis_sizes
+    from repro_torch.distributed.sharding import _leaves
+
+    def cut(spec):
+        return math.prod(math.prod(sizes[a] for a in M._names(e))
+                         for e in spec or () if e is not None)
+    params, L = args[0], len(args[0]["layers"])
+    want = sum(t.numel() * t.element_size() // cut(spec)
+               for (keys, t, _), spec in zip(
+                   _leaves(params), plan.spec_list(params, mode="serve"))
+               if keys[0] != "layers" or int(keys[1]) < L // 2)
+    for tree, specs in zip(args[1:], in_sh[1:]):
+        want += sum(t.numel() * t.element_size() // cut(s)
+                    for t, s in M.leaf_specs(tree, specs))
+    got = cells[1][CELLS[6]]["memory"]["argument_bytes"]
+    assert CELLS[6] == ("llama3.2-1b", "decode_32k", True, "pp")
+    assert got == want == PP_ARGUMENT_BYTES
+
+
 def _plain_attention_flops(cfg, shape, n_dev: int) -> float:
     """A prefill's self-attention products as the plain path computes
     them (every (q, k) pair: the causal mask saves no product), per
