@@ -141,6 +141,14 @@ from repro_torch.serving.sampling import (make_callback_sampler,
                                           make_scan_sampler, make_verifier)
 from repro_torch.telemetry import make_telemetry
 
+# a phase's span in a profiler trace, entered only while one records: a
+# function-scope range stays on the host's timeline (a ``record_function``
+# is a user annotation, which the profiler mirrors onto the device
+# timeline over the kernels it launched, as if it were device work)
+_profiling = torch._C._autograd._profiler_enabled
+_Span = torch._C._profiler._RecordFunctionFast
+
+
 @dataclass
 class EngineConfig:
     n_slots: int
@@ -255,6 +263,12 @@ class EngineTiming:
     host_s: float = 0.0               # schedule + config-buffer assembly
     prefill_s: float = 0.0
     decode_s: float = 0.0             # decode dispatch + horizon readback
+    fold_s: float = 0.0               # a readback's tokens into the requests
+    # host time a dispatching tick spends with no decode work queued: from
+    # the end of its collect (or, having collected nothing, of its overlap
+    # window) to the end of its dispatch, prefill and captures left out
+    serial_s: float = 0.0
+    launch_s: float = 0.0             # HorizonRunner.run: allow + replay
     capture_s: float = 0.0            # one-time graph captures (not decode)
     graph_captures: int = 0           # (width, horizon, spec) graphs
     device_syncs: int = 0             # host<->device decode rendezvous
@@ -274,7 +288,8 @@ class EngineTiming:
         n = max(1, self.steps)
         return {"steps": self.steps, "host_us_per_step": 1e6 * self.host_s / n,
                 "prefill_s": self.prefill_s, "decode_s": self.decode_s,
-                "capture_s": self.capture_s,
+                "capture_s": self.capture_s, "fold_s": self.fold_s,
+                "serial_s": self.serial_s, "launch_s": self.launch_s,
                 "graph_captures": self.graph_captures,
                 "host_s": self.host_s, "device_syncs": self.device_syncs,
                 "decode_tokens": self.decode_tokens,
@@ -479,6 +494,8 @@ class DecodeEngine:
         # in-flight horizon: (packed device readback, K, [(slot, req)],
         # proposals or None), collected at the next tick's sync point
         self._inflight: tuple | None = None
+        # the end of the last phase, and where the tick's serial path began
+        self._t_phase = self._serial_t0 = 0.0
         # finished mask of a horizon collected outside the tick loop
         self._pending_fin: np.ndarray | None = None
         # ---- fault injection + request lifecycle: one injector threaded
@@ -527,17 +544,24 @@ class DecodeEngine:
     def _phase(self, acc: str, track: str | None = None,
                name: str | None = None):
         """Accumulate one timed segment into ``EngineTiming.<acc>`` (the
-        one bookkeeping path of ``step()`` and the fused tick) and, when
-        tracing, emit it as a Perfetto slice on ``track``."""
+        one bookkeeping path of ``step()``, the fused tick and the
+        horizon's launch); when tracing, emit it as a Perfetto slice on
+        ``track``; while a profiler records, as an ``engine.<name>`` span."""
+        name = name or acc
+        span = _Span("engine." + name) if _profiling() else None
+        if span is not None:
+            span.__enter__()
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            setattr(self.timing, acc, getattr(self.timing, acc) + dt)
+            t1 = self._t_phase = time.perf_counter()
+            setattr(self.timing, acc, getattr(self.timing, acc) + t1 - t0)
             tr = self.tel.trace
             if tr is not None and track is not None:
-                tr.slice(track, name or acc, t0, dt)
+                tr.slice(track, name, t0, t1 - t0)
+            if span is not None:
+                span.__exit__(None, None, None)
 
     # ------------------------------------------------------------------
     def submit(self, spec: RequestSpec) -> bool:
@@ -1045,10 +1069,17 @@ class DecodeEngine:
         packed, K, pairs, nprop = self._inflight
         self._inflight = None
         meta, self._horizon_meta = self._horizon_meta, None
-        n = self.ecfg.n_slots
         with self._phase("decode_s", "sync", "collect"):
             host = packed.cpu().numpy()
+        self._serial_t0 = self._t_phase
         self.timing.device_syncs += 1
+        with self._phase("fold_s", "sync", "fold"):
+            return self._fold(host, K, pairs, nprop, meta)
+
+    def _fold(self, host, K, pairs, nprop, meta):
+        """Fold a collected horizon's emissions into the outputs and the
+        requests; returns the finished mask."""
+        n = self.ecfg.n_slots
         tel = self.tel.enabled
         if tel and meta is not None and self.tel.trace is not None:
             # the horizon's device-busy window, inferred dispatch -> readback
@@ -1170,6 +1201,10 @@ class DecodeEngine:
             if self._inflight is not None and self.batcher.queue:
                 self.batcher.prefetch_peeks(limit=2 * E.n_slots)
 
+        # the serial path starts here, or at the end of the collect
+        self._serial_t0 = self._t_phase
+        T = self.timing
+        aside = T.prefill_s + T.capture_s
         finished = self._collect_horizon()
         if finished is None:
             finished, self._pending_fin = self._pending_fin, None
@@ -1237,6 +1272,8 @@ class DecodeEngine:
             self._inflight = (packed, int(K),
                               [(s, self.batcher.slots[s]) for s in active],
                               nprop)
+        T.serial_s += self._t_phase - self._serial_t0 \
+            - (T.prefill_s + T.capture_s - aside)
 
     def tick(self) -> None:
         """One pipelined fused tick plus the serving-snapshot cadence

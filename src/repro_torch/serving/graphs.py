@@ -269,12 +269,13 @@ class HorizonRunner:
         """Dispatch one horizon without waiting for it; returns the packed
         ``(toks, emit, fin[, acc])`` buffer of ``key`` (valid once the
         device has run the horizon, until the next dispatch of the same
-        key)."""
-        self.allow.copy_(torch.from_numpy(np.asarray(allow, np.int32)),
-                         non_blocking=True)
-        if self.graphs:
-            self.captured[key].replay()
-        else:
-            self._body(key)
+        key). Timed as the engine's ``launch`` phase."""
+        with self.eng._phase("launch_s", "dispatch", "launch"):
+            self.allow.copy_(torch.from_numpy(np.asarray(allow, np.int32)),
+                             non_blocking=True)
+            if self.graphs:
+                self.captured[key].replay()
+            else:
+                self._body(key)
         return self._out(key)
 

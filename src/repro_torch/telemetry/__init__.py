@@ -96,6 +96,12 @@ class Telemetry:
                "prefill wall time", kind="counter")
         r.bind("engine_decode_seconds_total", lambda: t.decode_s,
                "decode dispatch + sync wall time", kind="counter")
+        r.bind("engine_serial_host_seconds_total", lambda: t.serial_s,
+               "host time with no decode work queued (collect to "
+               "dispatch, prefill and captures left out)", kind="counter")
+        r.bind("engine_launch_seconds_total", lambda: t.launch_s,
+               "horizon launch wall time (allow copy + graph replay)",
+               kind="counter")
         b = engine.batcher
         s = b.stats
         r.bind("sched_admitted_total", lambda: s.admitted,

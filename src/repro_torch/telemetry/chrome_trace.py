@@ -21,6 +21,13 @@ Perfetto UI (ui.perfetto.dev) or ``chrome://tracing`` loads directly:
 
 Events are buffered host-side (bounded; drops are counted, never silently)
 and written once by ``save`` — nothing here touches the device.
+
+The clocks: ``otherData.clock`` holds the writer's ``perf_counter`` zero
+and ``time.time_ns()`` read back to back at construction. ``ts + time_ns
+/ 1000`` is a slice's start in microseconds of the wall clock, the clock
+``torch.profiler`` stamps its events on; in a profiler's exported trace,
+whose ``ts`` counts from its ``baseTimeNanoseconds``, a slice starts at
+``ts + (time_ns - baseTimeNanoseconds) / 1000``.
 """
 from __future__ import annotations
 
@@ -39,10 +46,11 @@ TRACK_NAMES = {1: "host work", 2: "prefill", 3: "dispatch (async)",
 class TraceWriter:
     """Bounded buffer of Trace Event dicts; timestamps are microseconds on
     the ``time.perf_counter`` clock, zeroed at construction so traces start
-    near t=0."""
+    near t=0 (``t0_ns``: the wall clock at that zero)."""
 
     def __init__(self, max_events: int = 200_000):
         self.t0 = time.perf_counter()
+        self.t0_ns = time.time_ns()
         self.max_events = max_events
         self.dropped = 0
         self.events: list[dict] = []
@@ -123,7 +131,9 @@ class TraceWriter:
     def to_doc(self) -> dict:
         return {"traceEvents": list(self.events),
                 "displayTimeUnit": "ms",
-                "otherData": {"dropped_events": self.dropped}}
+                "otherData": {"dropped_events": self.dropped,
+                              "clock": {"perf_counter_s": self.t0,
+                                        "time_ns": self.t0_ns}}}
 
     def save(self, path: str) -> int:
         """Write the JSON document; returns the event count."""

@@ -9,7 +9,11 @@ across prefill modes, horizons, preemption, speculative decoding and the
 prefix cache with a host tier. Telemetry off and on give the same tokens,
 device syncs and decode tokens; the port's trace and Prometheus exports
 from ``launch.serve --trace-out --request-log --metrics-port 0`` pass
-repro's own ``validate_trace`` and ``parse_exposition``.
+repro's own ``validate_trace`` and ``parse_exposition``. Under a
+``torch.profiler`` run every phase of a tick is an ``engine.<name>`` span,
+the readback apart from the fold, on the clock the trace's ``otherData``
+pair maps the Perfetto slices onto; with no profiler recording, no span is
+entered.
 """
 import json
 from dataclasses import asdict, replace
@@ -34,6 +38,7 @@ from repro_torch.launch import serve
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime.clock import VirtualClock
 from repro_torch.serving import DecodeEngine, EngineConfig, Request
+from repro_torch.serving import engine as engine_mod
 from repro_torch.telemetry import (NULL, Telemetry, TelemetryConfig,
                                    make_telemetry, parse_exposition,
                                    percentile, prom, validate_trace)
@@ -43,8 +48,10 @@ PAGE = 4
 BUDGETS = [3, 12, 5, 12, 2, 9]
 TICK_S = 0.01
 # EngineTiming's wall-clock accumulators: the machine, not the workload
+# (the serial host path and the launch are the port's own)
 WALL = ("engine_host_seconds_total", "engine_prefill_seconds_total",
-        "engine_decode_seconds_total")
+        "engine_decode_seconds_total", "engine_serial_host_seconds_total",
+        "engine_launch_seconds_total")
 
 
 @pytest.fixture(scope="module")
@@ -255,3 +262,126 @@ def test_serve_exports_pass_repro_validators(tmp_path):
     assert len(recs) == n and all(r["finished"] for r in recs)
     assert sum(r["tokens"] for r in recs) == \
         samples["repro_request_tokens_total"]
+
+
+# ---------------------------------------------------------------------------
+# the tick's phases as profiler spans, and the serial host path
+# ---------------------------------------------------------------------------
+
+SERIAL = ("fold", "faults", "schedule", "config", "dispatch")
+
+
+@pytest.fixture(scope="module")
+def profiled(models):
+    """A horizon-4 serve with the Perfetto trace on, under a CPU profiler:
+    (outputs, engine, the ``engine.*`` spans as (name, start_ns, end_ns)
+    in start order)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        outs, eng = _run(models, "torch", K=4, trace=True, virtual=False,
+                         nreq=4)
+    spans = sorted((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.name().startswith("engine."))
+    return outs, eng, sorted(spans, key=lambda x: x[1])
+
+
+def _ticks(items, start):
+    """Split time-ordered (name, start, end) items into ticks, each opened
+    by its ``start`` item."""
+    ticks = []
+    for it in items:
+        if it[0] == start:
+            ticks.append([])
+        if ticks:
+            ticks[-1].append(it)
+    return ticks
+
+
+def test_profiler_spans_hold_each_phase(profiled):
+    """Each tick that collected a horizon and dispatched the next holds
+    ``engine.collect``, ``.fold``, ``.schedule``, ``.config`` and
+    ``.dispatch`` in that order, one after another; the launch lies inside
+    the dispatch."""
+    _, eng, spans = profiled
+    top = [s for s in spans if s[0] != "engine.launch"]
+    launches = [s for s in spans if s[0] == "engine.launch"]
+    ticks = _ticks(top, "engine.overlap")
+    assert len(ticks) == eng.timing.steps
+    full = [t for t in ticks if {"engine.collect", "engine.dispatch"}
+            <= {n for n, _, _ in t}]
+    assert len(full) >= 3
+    want = ["engine." + n for n in ("collect", "fold", "schedule", "config",
+                                    "dispatch")]
+    for t in full:
+        assert [n for n, _, _ in t if n in want] == want
+        for (_, _, end), (_, start, _) in zip(t, t[1:]):
+            assert end <= start
+    dispatches = [s for s in top if s[0] == "engine.dispatch"]
+    assert len(launches) == len(dispatches) == eng.timing.device_syncs
+    for (_, s0, e0), (_, s1, e1) in zip(dispatches, launches):
+        assert s0 <= s1 <= e1 <= e0
+
+
+def test_trace_clock_pair_lines_up_with_profiler(profiled):
+    """``otherData.clock`` puts each Perfetto ``dispatch`` slice within 2 ms
+    of the profiler's ``engine.dispatch`` span of the same tick."""
+    _, eng, spans = profiled
+    doc = eng.tel.trace.to_doc()
+    clock = doc["otherData"]["clock"]
+    assert clock["perf_counter_s"] == eng.tel.trace.t0
+    offset_us = clock["time_ns"] / 1000
+    slices = [e["ts"] + offset_us for e in doc["traceEvents"]
+              if e.get("ph") == "X" and e["name"] == "dispatch"]
+    prof = [s / 1000 for n, s, _ in spans if n == "engine.dispatch"]
+    assert len(slices) == len(prof) > 0
+    assert max(abs(a - b) for a, b in zip(slices, prof)) < 2000
+
+
+def test_serial_and_launch_counters(profiled):
+    """``serial_s`` covers the fold, faults, schedule, config and dispatch
+    of every tick that dispatched; ``launch_s`` lies inside it; the fold
+    is timed apart from the readback."""
+    _, eng, _ = profiled
+    doc = eng.tel.trace.to_doc()
+    sl = sorted(((e["name"], e["ts"], e["ts"] + e["dur"])
+                 for e in doc["traceEvents"] if e.get("ph") == "X"
+                 and e.get("pid") == ENGINE_PID), key=lambda x: x[1])
+    phases = 0.0
+    for t in _ticks(sl, "overlap"):
+        if any(n == "dispatch" for n, _, _ in t):
+            phases += sum(e - s for n, s, e in t if n in SERIAL) / 1e6
+    T = eng.timing
+    assert phases > 0
+    assert T.serial_s >= phases - 1e-9
+    assert 0 < T.launch_s <= T.serial_s
+    assert T.fold_s > 0
+    g = eng.tel.registry.get
+    assert g("engine_serial_host_seconds_total") == T.serial_s
+    assert g("engine_launch_seconds_total") == T.launch_s
+
+
+def test_no_span_without_profiler(models, profiled, monkeypatch):
+    """With no profiler recording the tick enters no span; tokens and
+    device syncs equal an engine's without telemetry, and the profiled
+    engine's."""
+    made, span = [], engine_mod._Span
+
+    def counting(name):
+        made.append(name)
+        return span(name)
+
+    monkeypatch.setattr(engine_mod, "_Span", counting)
+    got, eng = _run(models, "torch", K=4, trace=True, virtual=False,
+                    nreq=4)
+    assert made == []
+    base, e_off = _run(models, "torch", K=4, telemetry=False, nreq=4)
+    p_out, p_eng, _ = profiled
+    assert got == base == p_out
+    assert eng.timing.device_syncs == e_off.timing.device_syncs \
+        == p_eng.timing.device_syncs
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]):
+        with eng._phase("host_s", "host", "schedule"):
+            pass
+    assert made == ["engine.schedule"]
